@@ -8,6 +8,9 @@ import) when no card is present.  Run on a machine with an H100:
 Tolerances: kernel 1 computes an fp32 radix-2 FFT where the plain version
 calls cuFFT — rtol 1e-4 / atol 1e-6 x max power, rolloff within one bin
 (sr / n_fft); bf16 power within one bf16 step.  Kernels 2 and 3 equal.
+Kernel 5: squared distances within 1e-5 x (max|x|^2 + max|y|^2) of its
+plain version (fp32 FMAs against cuBLAS's fp32 product), self-distances
+within the square root of that bound, with an exactly-zero diagonal.
 """
 
 import numpy as np
@@ -109,3 +112,77 @@ def test_select_kernel_equals_plain(cuda):
     keys = masked_keys(torch.from_numpy(vals), torch.from_numpy(mask)).to(cuda)
     torch.testing.assert_close(select_stats(keys), select_stats_plain(keys),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,m,d", [(100, 77, 37), (130, 130, 8),
+                                   (1336, 1336, 32), (65, 4097, 3)])
+def test_pairwise_kernel_matches_plain(cuda, n, m, d):
+    from tpuvae_torch.ops.pairwise import (
+        self_distances,
+        self_distances_plain,
+        squared_distances,
+        squared_distances_plain,
+    )
+
+    rng = np.random.default_rng(n + m + d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[1] = x[0] + 1e-4                            # near-duplicate rows
+    y = x if n == m else rng.normal(size=(m, d)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    got = squared_distances(xt, yt)
+    want = squared_distances_plain(xt, yt)
+    torch.cuda.synchronize()
+    tol = 1e-5 * ((x * x).sum(1).max() + (y * y).sum(1).max())
+    assert (got - want).abs().max().item() <= tol
+    assert got.min().item() >= 0.0
+    if n == m:
+        dk = self_distances(xt)
+        torch.cuda.synchronize()
+        assert (dk.diagonal() == 0).all()
+        assert (dk - self_distances_plain(xt)).abs().max().item() <= tol ** 0.5
+        torch.testing.assert_close(dk, torch.sqrt(got).fill_diagonal_(0.0),
+                                   rtol=1e-6, atol=0)
+
+
+def test_pairwise_kernel_counts_launches_and_raises(cuda):
+    from tpuvae_torch.ops.pairwise import PAIRWISE, self_distances
+
+    x = torch.ones((5, 4), device=cuda)
+    before = PAIRWISE.launches
+    self_distances(x)
+    assert PAIRWISE.launches == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        self_distances(torch.ones((4, 5), device=cuda).T)
+    assert self_distances(torch.ones((0, 4), device=cuda)).shape == (0, 0)
+    assert PAIRWISE.launches == before + 1
+
+
+def test_run_simple_vae_on_the_card(cuda, tmp_path):
+    import pandas as pd
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import (
+        ClusterConfig,
+        PreprocessConfig,
+        SimpleVAEConfig,
+    )
+    from tpuvae_torch.io.artifacts import save_basic
+    from tpuvae_torch.io.normalize import impute_and_scale
+    from tpuvae_torch.pipelines import run_simple_vae
+    from tpuvae_torch.utils.logging import RunLogger
+
+    rng = np.random.default_rng(0)
+    groups = np.arange(96) % 4
+    raw = (rng.normal(0, 3, (4, 370))[groups]
+           + rng.normal(size=(96, 370))).astype(np.float32)
+    normed, imputer, scaler = impute_and_scale(raw)
+    save_basic(tmp_path / "data", features_raw=raw, features_normalized=normed,
+               labels=groups, metadata=pd.DataFrame({"language": groups % 2}),
+               scaler=scaler, imputer=imputer, config=PreprocessConfig())
+    ops.reset_launch_counts()
+    df = run_simple_vae(str(tmp_path / "data"), str(tmp_path / "results"),
+                        SimpleVAEConfig(epochs=2, batch_size=16),
+                        ClusterConfig(simple_k_sweep=(2, 3, 4)),
+                        logger=RunLogger(echo=False))
+    assert ops.launch_counts()["pairwise"] == 3
+    assert np.isfinite(df[["Silhouette", "Calinski-Harabasz"]].to_numpy()).all()

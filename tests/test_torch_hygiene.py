@@ -66,6 +66,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from tpuvae_torch import cli
     from tpuvae_torch.device import resolve_device
     from tpuvae_torch.infer import ClipEncoder
+    from tpuvae_torch.pipelines import run_simple_vae
     from tpuvae_torch.serve import serve
 
     with pytest.raises(RuntimeError, match="cuda"):
@@ -74,7 +75,13 @@ def test_entry_points_raise_without_cuda(tmp_path):
         ClipEncoder.load("simple", results_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         serve("simple", results_dir=str(tmp_path), warmup=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_simple_vae(str(tmp_path), str(tmp_path / "results"))
     assert cli.main(["encode", f"--results_dir={tmp_path}", "x.wav"]) == 2
+    assert cli.main(["train-simple", f"--data_dir={tmp_path}",
+                     f"--results_dir={tmp_path / 'results'}",
+                     "--epochs=1"]) == 2
+    assert not (tmp_path / "results").exists()
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="device"):
         resolve_device("meta")
@@ -96,7 +103,8 @@ def test_kernel_library_is_not_built_on_import():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ("[('masked_median_select', 0), "
-                                  "('stft_features', 0), ('tuning', 0)]")
+                                  "('pairwise', 0), ('stft_features', 0), "
+                                  "('tuning', 0)]")
 
 
 def test_bundle_unpickler_maps_jax_classes_and_refuses_others(tmp_path):
@@ -168,11 +176,26 @@ def test_load_audio_rejects_non_wav(tmp_path):
 
 
 def test_config_matches_jax_defaults():
+    from tpuvae.config import ClusterConfig as JaxCluster
     from tpuvae.config import PreprocessConfig as JaxConfig
+    from tpuvae.config import SimpleVAEConfig as JaxSimple
 
-    from tpuvae_torch.config import PreprocessConfig
+    from tpuvae_torch.config import (
+        ClusterConfig,
+        PreprocessConfig,
+        SimpleVAEConfig,
+    )
 
     assert PreprocessConfig().to_dict() == JaxConfig().to_dict()
+    assert SimpleVAEConfig().to_dict() == JaxSimple().to_dict()
+    assert ClusterConfig().to_dict() == JaxCluster().to_dict()
+    args = ["--epochs=3", "hidden_dims=[64, 32]", "--dropout=0.1"]
+    assert (SimpleVAEConfig().override(args).to_dict()
+            == JaxSimple().override(args).to_dict())
+    assert (ClusterConfig().override(["simple_k_sweep=[2, 3]"]).to_dict()
+            == JaxCluster().override(["simple_k_sweep=[2, 3]"]).to_dict())
+    with pytest.raises(KeyError):
+        SimpleVAEConfig().override(["--bogus=1"])
     cfg = PreprocessConfig.from_dict(dict(JaxConfig(duration=2.0,
                                                     n_mels=16).to_dict()))
     assert cfg.num_samples == 44100 and cfg.feature_dim == 146

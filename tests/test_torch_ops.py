@@ -254,9 +254,13 @@ def test_wrappers_run_plain_versions_on_cpu_without_launching(clips):
     b = stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=16, exact=True)
     for x, z in zip(a, b):
         torch.testing.assert_close(x, z, rtol=0, atol=0)
+    x = torch.from_numpy(clips[:1, :64].reshape(8, 8))
+    torch.testing.assert_close(ops.pairwise.self_distances(x),
+                               ops.pairwise.self_distances_plain(x),
+                               rtol=0, atol=0)
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.launch_counts()) == {"stft_features", "tuning",
-                                        "masked_median_select"}
+                                        "masked_median_select", "pairwise"}
 
 
 def test_wrappers_refuse_other_devices():

@@ -1,8 +1,18 @@
-"""Command-line interface of the PyTorch port (``encode`` and ``serve``;
-counterpart of those commands in ``tpuvae/cli.py``):
+"""Command-line interface of the PyTorch port (``train-simple``, ``encode``
+and ``serve``; counterpart of those commands in ``tpuvae/cli.py``):
 
+  python -m tpuvae_torch.cli train-simple [--key=value ...]
   python -m tpuvae_torch.cli encode --arch=simple song.wav [song2.wav ...]
   python -m tpuvae_torch.cli serve  --arch=simple --port=8787   # HTTP daemon
+
+``train-simple`` trains the Simple VAE on a ``processed_data1`` and writes
+``results/clustering_metrics.csv``, ``results/Simple_VAE/best_vae_model/``
+and the serving bundle ``results/Simple_VAE/serving/``.  ``--key=value``
+overrides map onto ``SimpleVAEConfig`` (values parsed as JSON first, so
+``--epochs=5`` is an int); extra flags: ``--data_dir`` (default
+``processed_data1``), ``--results_dir`` (default ``results``), ``--device``
+(default cuda).  Plots are off: the t-SNE figure of the JAX command is not
+ported yet.
 
 ``encode`` maps NEW audio clips through a trained model to latents +
 nearest-training-centroid cluster ids (serving bundle from a prior
@@ -19,7 +29,7 @@ nearest-training-centroid cluster ids (serving bundle from a prior
 ``--max_batch`` (clips per device pass under micro-batching, default 32),
 ``--device`` (default cuda).
 
-Both commands run on the card; without CUDA they stop with an error unless
+Every command runs on the card; without CUDA it stops with an error unless
 ``--device=cpu`` is given.
 """
 
@@ -68,6 +78,25 @@ def main(argv=None) -> int:
 
 def _dispatch(argv) -> int:
     cmd, *rest = argv
+    if cmd == "train-simple":
+        from tpuvae_torch.config import SimpleVAEConfig
+        from tpuvae_torch.pipelines import run_simple_vae
+
+        extra = {"data_dir", "results_dir", "device"}
+        topts, positional = _parse_flags(
+            cmd, rest, extra | set(SimpleVAEConfig().to_dict()))
+        if positional:
+            raise ValueError(f"train-simple takes no positional arguments: "
+                             f"{positional}")
+        cfg = SimpleVAEConfig().override(
+            [f"{k}={v}" for k, v in topts.items() if k not in extra])
+        df = run_simple_vae(topts.get("data_dir", "processed_data1"),
+                            topts.get("results_dir", "results"), cfg,
+                            make_plots=False,
+                            device=topts.get("device", "cuda"))
+        print(df.to_string(index=False))
+        return 0
+
     if cmd == "encode":
         import numpy as np
 
@@ -116,7 +145,7 @@ def _dispatch(argv) -> int:
         return 0
 
     raise KeyError(f"unknown command {cmd!r} (the PyTorch port has "
-                   f"'encode' and 'serve')")
+                   f"'train-simple', 'encode' and 'serve')")
 
 
 if __name__ == "__main__":

@@ -1,16 +1,18 @@
-"""Typed configuration (own copy of ``tpuvae/config.py:22-115``).
+"""Typed configuration (own copy of ``tpuvae/config.py``).
 
-Only what the serving slice reads: the dict round trip and
-``PreprocessConfig`` with the same fields and defaults as the JAX
-package, so a ``config.pkl`` written by either pipeline loads here.
+The dict round trip, ``key=value`` overrides, and the configs the ported
+slices read — ``PreprocessConfig``, ``SimpleVAEConfig`` and
+``ClusterConfig`` — with the same fields and defaults as the JAX package,
+so a ``config.pkl`` written by either pipeline loads here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any
+from typing import Any, Sequence
 
 
 def _asdict(cfg: Any) -> dict[str, Any]:
@@ -19,7 +21,7 @@ def _asdict(cfg: Any) -> dict[str, Any]:
 
 
 class _ConfigBase:
-    """Dict round trip shared by the config dataclasses."""
+    """Dict round trip and overrides shared by the config dataclasses."""
 
     def to_dict(self) -> dict[str, Any]:
         return _asdict(self)
@@ -37,6 +39,21 @@ class _ConfigBase:
                 v = Path(v)
             kwargs[k] = v
         return cls(**kwargs)
+
+    def override(self, args: Sequence[str]):
+        """Apply ``key=value`` CLI overrides, parsing values as JSON first."""
+        d = self.to_dict()
+        for arg in args:
+            key, _, raw = arg.partition("=")
+            key = key.lstrip("-")
+            if key not in d:
+                raise KeyError(f"{type(self).__name__} has no field {key!r}")
+            try:
+                val = json.loads(raw)
+            except json.JSONDecodeError:
+                val = raw
+            d[key] = val
+        return type(self).from_dict(d)
 
 
 @dataclass(frozen=True)
@@ -73,3 +90,48 @@ class PreprocessConfig(_ConfigBase):
     def feature_dim(self) -> int:
         # mel mean+std, mfcc mean+std, 5 spectral stats x2, chroma mean+std
         return self.n_mels * 2 + self.n_mfcc * 2 + 10 + self.n_chroma * 2
+
+
+@dataclass(frozen=True)
+class SimpleVAEConfig(_ConfigBase):
+    """Simple (MLP) VAE hyperparameters (reference ``Simple_VAE.py:118-126``)."""
+
+    input_dim: int = 370
+    hidden_dims: tuple = (128, 64, 32)
+    latent_dim: int = 32
+    dropout: float = 0.2
+    learning_rate: float = 1e-4
+    batch_size: int = 32
+    epochs: int = 500
+    beta: float = 0.8
+    patience: int = 15
+    plateau_patience: int = 15       # ReduceLROnPlateau(factor=.5, patience=15)
+    plateau_factor: float = 0.5
+    # read by the JAX package only (epochs per device call); the port runs
+    # one epoch per step of its host loop and logs that it ignores this
+    scan_epochs: int = 8
+    # mid-train checkpoints (0 = off); the port raises NotImplementedError
+    # when they are asked for (ROADMAP.md, queue 1)
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 1
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class ClusterConfig(_ConfigBase):
+    """Clustering/eval settings covering all three reference sweeps."""
+
+    kmeans_n_init: int = 10
+    kmeans_max_iter: int = 300
+    kmeans_tol: float = 1e-4
+    seed: int = 42
+    simple_k_sweep: tuple = (3, 5, 7, 9)        # ref Simple_VAE.py:241 range(3,10,2)
+    hybrid_k_min: int = 2                        # ref Convolutional_VAE.py:311 range(2,15)
+    hybrid_k_max: int = 14
+    dbscan_eps_min: float = 3.0                  # ref Convolutional_VAE.py:350 arange(3,20,1)
+    dbscan_eps_max: float = 19.0
+    dbscan_eps_step: float = 1.0
+    dbscan_min_samples: int = 5
+    dbscan_fallback_eps: float = 10.0            # ref :370-372
+    tsne_perplexity: float = 30.0
+    results_dir: str = "results"

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from tpuvae_torch.config import PreprocessConfig
-from tpuvae_torch.convert import simple_vae_from_flax, simple_vae_to_flax
+from tpuvae_torch.convert import simple_vae_from_flax
 from tpuvae_torch.device import resolve_device
 from tpuvae_torch.dsp.features import extract_basic_features, make_extractor
 from tpuvae_torch.io.normalize import load_normalizer
@@ -192,20 +192,28 @@ class ClipEncoder:
                             paths=paths)
 
 
+def save_serving_model(results_dir: str | Path, model: SimpleVAE,
+                       centers: np.ndarray, meta: dict) -> Path:
+    """Write the ``simple`` serving model and its centroids in the JAX
+    pipeline's layout (``tpuvae/pipelines.py:549-567``):
+    ``<results_dir>/Simple_VAE/serving/{model/, kmeans_centers.npy}``.
+    Returns the ``serving`` directory."""
+    out = Path(results_dir) / _ARCH_DIRS["simple"][0] / "serving"
+    save_checkpoint(out / "model", model, meta)
+    np.save(out / "kmeans_centers.npy", np.asarray(centers, np.float32))
+    return out
+
+
 def save_serving_bundle(results_dir: str | Path, data_dir: str | Path,
                         model: SimpleVAE, centers: np.ndarray, *,
                         pre_cfg: PreprocessConfig, imputer, scaler,
                         meta: dict) -> None:
-    """Write a ``simple`` serving bundle in the JAX pipeline's layout
-    (``tpuvae/pipelines.py:549-567`` plus the ``io/artifacts.py`` pickles):
-    ``<results_dir>/Simple_VAE/serving/{model/, kmeans_centers.npy}`` and
+    """:func:`save_serving_model` plus the preprocessing pickles a bundle
+    needs (the ``io/artifacts.py`` ones):
     ``<data_dir>/{config,imputer,scaler}.pkl``."""
     import pickle
 
-    out = Path(results_dir) / _ARCH_DIRS["simple"][0] / "serving"
-    save_checkpoint(out / "model", simple_vae_to_flax(model.state_dict()),
-                    meta)
-    np.save(out / "kmeans_centers.npy", np.asarray(centers, np.float32))
+    save_serving_model(results_dir, model, centers, meta)
     data = Path(data_dir)
     data.mkdir(parents=True, exist_ok=True)
     for name, obj in (("config", pre_cfg.to_dict()), ("imputer", imputer),

@@ -7,6 +7,8 @@ kernel                      replaces (Pallas, tpuvae/ops/)          wrapper
                                                                     :func:`stft.stft_power`
 ``tuning``                  tuning.py:352/:367 tuning kernels       :func:`tuning.estimate_tuning`
 ``masked_median_select``    select.py:32 ``_select_kernel``         :func:`select.select_stats`
+``pairwise``                pairwise.py:27 ``_kernel``              :func:`pairwise.squared_distances`,
+                                                                    :func:`pairwise.self_distances`
 ==========================  ======================================  ===========================
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
@@ -14,7 +16,7 @@ plain PyTorch version for a CPU tensor.  :func:`launch_counts` reads each
 kernel's launch counter; :func:`reset_launch_counts` sets them to 0.
 """
 
-from tpuvae_torch.ops import _build, select, stft, tuning  # noqa: F401
+from tpuvae_torch.ops import _build, pairwise, select, stft, tuning  # noqa: F401
 
 
 def launch_counts() -> dict[str, int]:

@@ -36,6 +36,7 @@ _EXTRA_FLAGS = {
     "stft_features": [],
     "tuning": ["-fmad=false"],
     "select": ["-fmad=false"],
+    "pairwise": [],
 }
 
 _LOCK = threading.Lock()

@@ -1,1 +1,2 @@
-"""Training-side helpers the serving slice needs (counterpart of ``tpuvae.train``)."""
+"""Training (counterpart of ``tpuvae.train``): train state, objectives, the
+per-epoch ``fit`` loop and checkpoints."""

@@ -1,9 +1,10 @@
-"""Checkpoint loading (counterpart of ``tpuvae/train/checkpoint.py:195``).
+"""Checkpoints (counterpart of ``tpuvae/train/checkpoint.py``).
 
 A checkpoint directory holds ``weights.npz`` (flax variables flattened to
 ``"params/..."`` / ``"batch_stats/..."`` keys) and ``metadata.json``; both
-read without flax.  :func:`tpuvae_torch.convert.simple_vae_from_flax` maps
-the flat dict onto the port's modules.
+read and write without flax, so ``tpuvae.train.checkpoint.load_checkpoint``
+reads what the port writes and the reverse.
+:mod:`tpuvae_torch.convert` maps the flat dict onto the port's modules.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import json
 from pathlib import Path
 
 import numpy as np
+from torch import nn
+
+from tpuvae_torch.convert import simple_vae_to_flax
 
 
 def load_checkpoint(path: str | Path) -> tuple[dict[str, np.ndarray], dict]:
@@ -23,10 +27,11 @@ def load_checkpoint(path: str | Path) -> tuple[dict[str, np.ndarray], dict]:
     return flat, metadata
 
 
-def save_checkpoint(path: str | Path, flat: dict[str, np.ndarray],
+def save_checkpoint(path: str | Path, model: nn.Module,
                     metadata: dict | None = None) -> None:
-    """Write ``flat`` variables and ``metadata`` in the same layout."""
+    """Write a SimpleVAE's weights and BatchNorm statistics in the flax
+    layout, and ``metadata``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    np.savez(path / "weights.npz", **flat)
+    np.savez(path / "weights.npz", **simple_vae_to_flax(model.state_dict()))
     (path / "metadata.json").write_text(json.dumps(metadata or {}, default=str))
