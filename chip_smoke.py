@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``tpuvae_torch/csrc`` (``nvcc``, one
+2. build the five CUDA kernels from ``tpuvae_torch/csrc`` (``nvcc``, one
    process per source, all started together);
 3. hold each serving kernel against its plain PyTorch version at the main
    path's shapes (32 clips x 661,500 samples): kernel 1 (fused STFT
@@ -29,16 +29,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    after (kernel 5 must have run); the CSV's two rows finite, and
    ``ClipEncoder.load`` serving the trained bundle; then kernel 5 against
    its plain version at N = 1,336 and 10,240, D = 32;
-6. time each kernel, its plain version and the library yardstick with
-   CUDA events (median of 15 runs, L2 flushed before each), ``/encode``
-   latency and the training path's stages;
-7. print the ``kernels`` JSON line, then the ``ok`` line last.
+6. kernel 4 (dense-DFT STFT power) against its plain version at
+   32 x 661,500 and at two ragged shapes, within its stated tolerance
+   (rtol 1e-4 / atol 1e-6 x max power);
+7. the preprocess path at full width: ``generate_dataset`` writes a seeded
+   corpus of 192 WAVs of 30 s plus one truncated file; ``preprocess_basic``
+   (``stft_method=auto``: kernels 1 + 2) and ``preprocess_advanced``
+   (``stft_method=pallas``: kernels 4 + 3) run through the entry points on
+   the card with ``extract_batch`` 128, launch counters set to 0 just
+   before each and read just after (each kernel once per device batch);
+   artifact shapes, zero-mean / unit-variance features, exactly one failed
+   clip (the truncated one), and the 290 columns the two runs share held
+   to the fast-mode contract (2% rtol / 1.0 atol);
+8. the paths joined: ``run_simple_vae`` on the ``processed_data1`` that
+   phase 7 wrote, and ``ClipEncoder`` serving that bundle;
+9. time each kernel, its plain version and the library yardstick with
+   CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
+   also at the pipelines' 128 clips and partial batches, each held
+   against its plain version there too; the extract stage's parts,
+   ``/encode`` latency and the training and preprocess paths' stages;
+10. print the ``kernels`` JSON line, then the ``ok`` line last.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -64,6 +81,8 @@ N_TRAIN = 1336        # rows of the reference's processed_data1
 N_GROUPS = 8
 N_SCALE = 10240       # the pairwise scale point of bench.py
 LATENT = 32
+EXTRACT_BATCH = 128   # device batch of the preprocess pipelines
+CLIPS_PER_GENRE_LANG = 32   # x 3 genres x 2 languages = 192 clips
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s and fp32 FLOP/s
 # outside the tensor cores
@@ -299,6 +318,231 @@ def check_pairwise(torch, x) -> dict:
     return {"max_abs_err": err, "squared_max_abs_err": err2}
 
 
+# -- phase 3 (and again at 128 clips): kernel 1 against its plain version ------
+
+def check_stft_features(torch, y, exact: bool):
+    """Kernel 1 against its plain version on ``y``.  It computes an fp32
+    radix-2 FFT where the plain version calls cuFFT: power, mel power and
+    column maxima within rtol 1e-4 / atol 1e-6 x max power (bf16 power in
+    fast mode within one bf16 step, rtol 2^-7); centroid, bandwidth, zcr
+    and rms within rtol 1e-4 / atol 1e-6; rolloff within one bin (a prefix
+    sum in another order).  Returns ``(kernel, plain, max power, power max
+    abs err, rolloff max err)``."""
+    from tpuvae_torch.ops.stft import (
+        stft_fused_features,
+        stft_fused_features_plain,
+    )
+
+    got = stft_fused_features(y, N_FFT, HOP, sr=SR, n_mels=N_MELS, exact=exact)
+    want = stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=N_MELS,
+                                     exact=exact)
+    torch.cuda.synchronize()
+    check(got.power.dtype == (torch.float32 if exact else torch.bfloat16),
+          f"kernel 1 power dtype {got.power.dtype} (exact={exact})")
+    pmax = want.power.float().max().item()
+    err = (got.power.float() - want.power.float()).abs().max().item()
+    for name in ("power", "mel_power", "colmax"):
+        rtol = 2.0 ** -7 if (name == "power" and not exact) else 1e-4
+        torch.testing.assert_close(getattr(got, name).float(),
+                                   getattr(want, name).float(), rtol=rtol,
+                                   atol=1e-6 * pmax)
+    for name in ("centroid", "bandwidth", "zcr", "rms"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-4, atol=1e-6)
+    roll_err = (got.rolloff - want.rolloff).abs().max().item()
+    check(roll_err <= SR / N_FFT * 1.0001, f"rolloff off by {roll_err} Hz")
+    return got, want, pmax, err, roll_err
+
+
+# -- phase 6: kernel 4 against its plain version -------------------------------
+
+def check_stft_dense(torch, y, n_fft: int, hop: int) -> float:
+    """Kernel 4 against its plain version on ``y``: rtol 1e-4 with an atol
+    of 1e-6 x max power.  The two sum 2,048 fp32 products per bin in
+    different orders, an absolute error near sqrt(K) x eps of the largest
+    terms; relative error is unbounded where ``re`` and ``im`` cancel, so
+    the atol scales with the maximum power (as tests/test_ops.py states
+    the JAX kernel's).  The noise floor of the seeded clips has a mean
+    power near 0.7 against a maximum near 1.7e4, so this atol is a few
+    percent of an off-peak bin."""
+    from tpuvae_torch.ops.stft import stft_power_dense, stft_power_dense_plain
+
+    got = stft_power_dense(y, n_fft, hop)
+    want = stft_power_dense_plain(y, n_fft, hop)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape == (
+        y.shape[0], n_fft // 2 + 1, 1 + y.shape[1] // hop),
+        f"kernel 4 shape {tuple(got.shape)}")
+    pmax = want.max().item()
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * pmax)
+    log(f"kernel 4 at {tuple(y.shape)}, n_fft {n_fft}, hop {hop}: max abs "
+        f"err {err:.4g} (max power {pmax:.4g}) — within rtol 1e-4 / atol "
+        f"1e-6 x max power")
+    return err
+
+
+# -- phases 7 and 8: the preprocess path, then the paths joined ---------------
+
+def preprocess_path(torch, dev, work: Path) -> dict:
+    """``generate_dataset`` -> ``preprocess_basic`` (auto) ->
+    ``preprocess_advanced`` (pallas) -> ``run_simple_vae`` ->
+    ``ClipEncoder``, through the entry points on the card at full width.
+    Returns launch counts and stage times."""
+    import pandas as pd
+
+    from tpuvae_torch import ops, pipelines
+    from tpuvae_torch.config import (
+        AdvancedPreprocessConfig,
+        ClusterConfig,
+        PreprocessConfig,
+        SimpleVAEConfig,
+    )
+    from tpuvae_torch.infer import ClipEncoder
+    from tpuvae_torch.io.artifacts import load_advanced, load_basic
+    from tpuvae_torch.io.synthetic import generate_dataset
+    from tpuvae_torch.utils.logging import RunLogger
+
+    root = work / "Datasets"
+    t0 = time.perf_counter()
+    meta_csv = generate_dataset(root, clips_per_genre_lang=CLIPS_PER_GENRE_LANG,
+                                sr=SR, duration=DURATION, seed=SEED)
+    n_clips = 6 * CLIPS_PER_GENRE_LANG
+    # one deliberately truncated file, catalogued with lyrics so that both
+    # pipelines try to decode it
+    bad = root / "English_Datasets" / "rock" / "en_rock_truncated.wav"
+    good = sorted((root / "English_Datasets" / "rock").glob("*.wav"))[0]
+    bad.write_bytes(good.read_bytes()[:16])
+    meta = pd.read_csv(meta_csv)
+    meta.loc[len(meta)] = {"ID": bad.stem, "genre": "rock",
+                           "lyrics": "a truncated file with lyrics enough"}
+    meta.to_csv(meta_csv, index=False)
+    n_lyricless = 6
+    size_mb = sum(f.stat().st_size for f in root.rglob("*.wav")) / 2**20
+    log(f"preprocess corpus: {n_clips} clips of {DURATION:g} s + 1 truncated, "
+        f"{size_mb:.0f} MB, written in {time.perf_counter() - t0:.1f} s")
+
+    common = dict(sample_rate=SR, duration=DURATION, dataset_root=str(root),
+                  metadata_csv=str(meta_csv), extract_batch=EXTRACT_BATCH)
+    out = {"host_cores": os.cpu_count(),
+           "loader_threads": pipelines._loader_workers()}
+
+    def one(tag, fn, cfg, n_entries, expect, forbid):
+        logger = RunLogger(work / f"{tag}.jsonl", echo=False)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = fn(cfg, device="cuda", logger=logger)
+            torch.cuda.synchronize()
+        finally:
+            logger.close()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        batches = -(-n_entries // EXTRACT_BATCH)
+        stage = res["stages"][f"extract_{tag}"]
+        detail = res["extract_detail"]
+        idle = 1.0 - detail["device_s"] / stage["seconds"]
+        log(f"preprocess_{tag}: {res['n']} clips ok, {len(res['failed'])} "
+            f"failed, wall {wall:.3f} s; extract stage {stage['seconds']:.3f} s "
+            f"= {stage['items_per_sec']:.1f} clips/s, device idle share "
+            f"{idle:.3f}; host cores {out['host_cores']}, loader threads "
+            f"{out['loader_threads']}; launch counts {counts}")
+        log(f"preprocess_{tag} extract_detail: " + json.dumps(detail))
+        log(f"preprocess_{tag} stages_s: " + json.dumps(
+            {k: round(v["seconds"], 4) for k, v in res["stages"].items()}))
+        check(len(res["failed"]) == 1 and res["failed"][0][0] == str(bad),
+              f"failed clips {res['failed']}")
+        for name in expect:
+            check(counts[name] == batches,
+                  f"{name} launched {counts[name]} times for {batches} batches")
+        for name in forbid:
+            check(counts[name] == 0, f"{name} launched on the {tag} run")
+        out[tag] = {"counts": counts, "wall_s": wall, "n": res["n"],
+                    "clips_per_s": stage["items_per_sec"],
+                    "device_idle_share": idle, "extract_detail": detail,
+                    "stages_s": {k: v["seconds"]
+                                 for k, v in res["stages"].items()}}
+        return res
+
+    d1 = work / "preprocess" / "processed_data1"
+    d2 = work / "preprocess" / "processed_data2"
+    one("basic", pipelines.preprocess_basic,
+        PreprocessConfig(output_dir=str(d1), stft_method="auto", **common),
+        n_clips + 1, ("stft_features", "tuning"),
+        ("stft_dense", "masked_median_select"))
+    one("advanced", pipelines.preprocess_advanced,
+        AdvancedPreprocessConfig(output_dir=str(d2), stft_method="pallas",
+                                 **common),
+        n_clips - n_lyricless + 1, ("stft_dense", "masked_median_select"),
+        ("stft_features", "tuning"))
+
+    basic, adv = load_basic(d1), load_advanced(d2)
+    n_adv = n_clips - n_lyricless
+    check(basic["features"].shape == (n_clips, 370)
+          and basic["features_raw"].shape == (n_clips, 370),
+          f"processed_data1 features {basic['features'].shape}")
+    check(adv["mel"].shape == (n_adv, N_MELS, 1024)
+          and adv["handcrafted"].shape == (n_adv, 290)
+          and adv["text"].shape == (n_adv, 768),
+          f"processed_data2 shapes {adv['mel'].shape} "
+          f"{adv['handcrafted'].shape} {adv['text'].shape}")
+    for name, x in (("processed_data1 features", basic["features"]),
+                    ("processed_data2 features", adv["handcrafted"]),
+                    ("processed_data2 mel", adv["mel"].reshape(n_adv, -1))):
+        check(np.isfinite(x).all(), f"{name} not finite")
+        mean, std = x.mean(axis=0), x.std(axis=0)
+        # a column without variance passes through the scaler unscaled
+        check(np.abs(mean[std > 0]).max() < 1e-3
+              and np.abs(std[std > 0] - 1.0).max() < 1e-2,
+              f"{name} not standardized: |mean| {np.abs(mean).max()}, std in "
+              f"[{std.min()}, {std.max()}]")
+    check(len(basic["labels"]) == n_clips and len(adv["labels"]) == n_adv
+          and set(adv["labels"]) == {"rock", "classical", "pop"}, "labels")
+    # the 290 columns both runs compute (mel-dB and the spectral and chroma
+    # statistics), rows joined on the file id: kernel 1 + 2 against kernel
+    # 4 + 3, held to the fast-mode contract
+    raw2 = np.load(d2 / "features_raw.npy")
+    row1 = {Path(f).stem: i for i, f in enumerate(basic["metadata"]["filename"])}
+    rows = [row1[i] for i in adv["metadata"]["file_id"]]
+    shared1 = np.concatenate([basic["features_raw"][rows][:, :2 * N_MELS],
+                              basic["features_raw"][rows][:, -34:]], axis=1)
+    np.testing.assert_allclose(raw2, shared1, rtol=0.02, atol=1.0)
+    dev290 = np.abs(raw2 - shared1)
+    log(f"auto (kernels 1 + 2) vs pallas (kernels 4 + 3) on {n_adv} clips x "
+        f"290 shared columns: max abs diff {dev290.max():.4g}, max over "
+        f"mel-dB columns {dev290[:, :2 * N_MELS].max():.4g}, chroma columns "
+        f"{dev290[:, -24:].max():.4g} — within 2% rtol / 1.0 atol")
+
+    # ---- 8. the paths joined: train on what preprocess_basic wrote ----------
+    results = work / "results_joined"
+    logger = RunLogger(work / "joined.jsonl", echo=False)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        df = pipelines.run_simple_vae(
+            str(d1), str(results), SimpleVAEConfig(epochs=3, batch_size=BATCH),
+            ClusterConfig(simple_k_sweep=(3, 5, 7, 9), kmeans_n_init=10),
+            logger, make_plots=False, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        logger.close()
+    out["joined_train_s"] = time.perf_counter() - t0
+    check(ops.launch_counts()["pairwise"] == 3, "kernel 5 on the joined run")
+    check(np.isfinite(df[["Silhouette", "Calinski-Harabasz"]].to_numpy()).all(),
+          "joined metrics not finite")
+    enc = ClipEncoder.load("simple", results_dir=str(results))
+    check(Path(enc.meta["data_dir"]) == d1, "bundle points at processed_data1")
+    wavs = sorted((root / "Bangla_Datasets" / "pop").glob("*.wav"))[:4]
+    served = enc.encode_paths(wavs)
+    check(served.latents.shape == (4, LATENT)
+          and np.isfinite(served.latents).all() and (served.clusters >= 0).all(),
+          "joined serving")
+    log(f"paths joined: run_simple_vae on the preprocessed {n_clips} x 370 in "
+        f"{out['joined_train_s']:.2f} s, rows {df.to_dict('records')}; "
+        f"ClipEncoder clusters {served.clusters.tolist()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -328,7 +572,8 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------------
     build_s = _build.build_all()
     log(f"build: {build_s:.1f} s (0 = already built)")
-    for name in ("stft_features", "tuning", "select", "pairwise"):
+    for name in ("stft_features", "tuning", "select", "pairwise",
+                 "stft_dense"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -345,7 +590,11 @@ def main() -> int:
 def run(torch, dev, work: Path, card: str) -> int:
     from tpuvae_torch import ops
     from tpuvae_torch.config import PreprocessConfig
-    from tpuvae_torch.dsp.chroma import _tuning_candidates, estimate_tuning_batch
+    from tpuvae_torch.dsp.chroma import (
+        _tuning_candidates,
+        chroma_batch,
+        estimate_tuning_batch,
+    )
     from tpuvae_torch.dsp.features import extract_basic_features, make_extractor
     from tpuvae_torch.dsp.primitives import mel_filterbank
     from tpuvae_torch.infer import ClipEncoder, save_serving_bundle
@@ -361,9 +610,12 @@ def run(torch, dev, work: Path, card: str) -> int:
         select_stats_plain,
     )
     from tpuvae_torch.ops.stft import (
+        _folded_basis,
         stft_fused_features,
         stft_fused_features_plain,
         stft_power,
+        stft_power_dense,
+        stft_power_dense_plain,
     )
     from tpuvae_torch.ops.tuning import (
         _tuning_consts,
@@ -393,33 +645,11 @@ def run(torch, dev, work: Path, card: str) -> int:
     y = torch.from_numpy(waves[:BATCH]).to(dev)
     results = {}
 
-    fe_x = stft_fused_features(y, N_FFT, HOP, sr=SR, n_mels=N_MELS,
-                               exact=True)
-    pl_x = stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=N_MELS,
-                                     exact=True)
-    torch.cuda.synchronize()
-    pmax = pl_x.power.max().item()
-    k1_err = (fe_x.power - pl_x.power).abs().max().item()
-    for name in ("power", "mel_power", "colmax"):
-        torch.testing.assert_close(getattr(fe_x, name), getattr(pl_x, name),
-                                   rtol=1e-4, atol=1e-6 * pmax)
-    for name in ("centroid", "bandwidth", "zcr", "rms"):
-        torch.testing.assert_close(getattr(fe_x, name), getattr(pl_x, name),
-                                   rtol=1e-4, atol=1e-6)
-    roll_err = (fe_x.rolloff - pl_x.rolloff).abs().max().item()
-    check(roll_err <= SR / N_FFT * 1.0001, f"rolloff off by {roll_err} Hz")
+    fe_x, pl_x, pmax, k1_err, roll_err = check_stft_features(torch, y, True)
     log(f"kernel 1 exact: power max abs err {k1_err:.4g} (max power "
         f"{pmax:.4g}); rolloff max err {roll_err:.4g} Hz — within rtol 1e-4 "
         f"/ atol 1e-6 x max power, one bin")
-    fe_f = stft_fused_features(y, N_FFT, HOP, sr=SR, n_mels=N_MELS,
-                               exact=False)
-    pl_f = stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=N_MELS,
-                                     exact=False)
-    check(fe_f.power.dtype == torch.bfloat16, "fast mode stores bf16 power")
-    torch.testing.assert_close(fe_f.power.float(), pl_f.power.float(),
-                               rtol=2.0 ** -7, atol=1e-6 * pmax)
-    torch.testing.assert_close(fe_f.mel_power, pl_f.mel_power, rtol=1e-4,
-                               atol=1e-6 * pmax)
+    fe_f, pl_f, *_ = check_stft_features(torch, y, False)
     bf16_diff = (fe_f.power != pl_f.power).float().mean().item()
     log(f"kernel 1 fast: bf16 power within one bf16 step; share of bins that "
         f"differ {bf16_diff:.3g}")
@@ -603,7 +833,17 @@ def run(torch, dev, work: Path, card: str) -> int:
     for x in (x1336, x_scale):
         results["pairwise"] = check_pairwise(torch, x)
 
-    # ---- 6. timing ----------------------------------------------------------
+    # ---- 6. kernel 4 against its plain version -------------------------------
+    k4_err = check_stft_dense(torch, y, N_FFT, HOP)
+    ragged = torch.from_numpy(waves[:3, :2 * SR].copy()).to(dev)
+    check_stft_dense(torch, ragged, N_FFT, HOP)
+    check_stft_dense(torch, ragged[:, :30001].contiguous(), 1024, 256)
+    results["stft_dense"] = {"max_abs_err": k4_err}
+
+    # ---- 7 + 8. the preprocess path, then the paths joined -------------------
+    pre = preprocess_path(torch, dev, work)
+
+    # ---- 9. timing ----------------------------------------------------------
     nbins = N_FFT // 2 + 1
     fb = mel_filterbank(SR, N_FFT, N_MELS)
     frames = BATCH * n_frames
@@ -639,6 +879,24 @@ def run(torch, dev, work: Path, card: str) -> int:
     n_sc = x_scale.shape[0]
     k5_bytes = 2 * n_sc * LATENT * 4 + n_sc * n_sc * 4
     k5_flops = 2 * n_sc * n_sc * LATENT + 3 * n_sc * n_sc
+    # kernel 4: two dense products of every frame against the 1,025 bins
+    k4_flops = 4.0 * frames * N_FFT * nbins
+    k4_bytes = (y.numel() * 4 + 2 * N_FFT * nbins * 4
+                + BATCH * nbins * n_frames * 4)
+    basis_cat = torch.from_numpy(
+        np.concatenate(_folded_basis(N_FFT), axis=1)).to(dev)
+
+    def library_k4_cublas():
+        # the same arithmetic through cuBLAS: frames x [cos | sin]
+        fr = torch.nn.functional.pad(y, (N_FFT // 2, N_FFT // 2)).unfold(
+            -1, N_FFT, HOP)
+        z = torch.matmul(fr, basis_cat)
+        return (z[..., :nbins].square() + z[..., nbins:].square()).transpose(1, 2)
+
+    def library_k4_stft():
+        spec = torch.stft(y, N_FFT, HOP, window=window, center=True,
+                          pad_mode="constant", return_complex=True)
+        return spec.real.square() + spec.imag.square()
 
     timings = {
         "stft_features": (
@@ -662,6 +920,10 @@ def run(torch, dev, work: Path, card: str) -> int:
             lambda: torch.cdist(x_scale, x_scale,
                                 compute_mode="use_mm_for_euclid_dist"),
             k5_bytes, k5_flops),
+        "stft_dense": (
+            lambda: stft_power_dense(y, N_FFT, HOP),
+            lambda: stft_power_dense_plain(y, N_FFT, HOP),
+            library_k4_stft, k4_bytes, k4_flops),
     }
     static = {
         "stft_features": ("tpuvae_torch/csrc/stft_features.cu",
@@ -675,10 +937,16 @@ def run(torch, dev, work: Path, card: str) -> int:
                      "tpuvae/ops/pairwise.py:27",
                      f"run_simple_vae at {N_TRAIN} x 370 (timed at "
                      f"N = {N_SCALE}, D = {LATENT})"),
+        "stft_dense": ("tpuvae_torch/csrc/stft_dense.cu",
+                       "tpuvae/ops/stft.py:73",
+                       f"preprocess_advanced(stft_method='pallas') at "
+                       f"extract_batch {EXTRACT_BATCH} (timed at {BATCH} "
+                       f"clips)"),
     }
     counts = dict(served_counts)
     counts["masked_median_select"] = staged_counts["masked_median_select"]
     counts["pairwise"] = train["counts"]["pairwise"]
+    counts["stft_dense"] = pre["advanced"]["counts"]["stft_dense"]
     kernels = []
     for name, (kern, plain, lib, nbytes, nflops) in timings.items():
         ms = time_ms(torch, kern, flush)
@@ -697,6 +965,72 @@ def run(torch, dev, work: Path, card: str) -> int:
         log(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
+    k4_cublas_ms = time_ms(torch, library_k4_cublas, flush)
+    log(f"time stft_dense, the cuBLAS form (unfold x [cos | sin], square, "
+        f"add): {k4_cublas_ms:.4f} ms")
+    kernels[-1]["cublas_form_ms"] = k4_cublas_ms
+    del basis_cat
+
+    # where the extract stage's time goes at 32 clips (its host clock read
+    # 21 ms around ~4.5 ms of kernels 1 + 2): each part alone, CUDA events
+    waves32 = waves[:BATCH]
+    pinned = torch.from_numpy(waves32).pin_memory()
+    fe32 = stft_fused_features(y, N_FFT, HOP, sr=SR, n_mels=N_MELS)
+    parts = {
+        "h2d_pageable_f32": lambda: torch.as_tensor(waves32).to(dev),
+        "h2d_pinned_f32": lambda: pinned.to(dev, non_blocking=True),
+        "extract_basic_features_on_card": lambda: extract_basic_features(y, cfg),
+        "chroma_batch (kernel 2 + projection)": lambda: chroma_batch(
+            fe32.power, SR, N_FFT, fe32.colmax),
+        "features_d2h": lambda: feats_dev.cpu(),
+    }
+    feats_dev = extract_basic_features(y, cfg)
+    extract_parts = {k: round(time_ms(torch, fn, flush, runs=7), 4)
+                     for k, fn in parts.items()}
+    log("extract stage parts at 32 clips, ms: " + json.dumps(extract_parts))
+    del fe32, pinned
+
+    # kernels 1-3 at the preprocess pipelines' device batch of 128 clips
+    # (the band of kernels 2 and 3 no longer fits the L2 there)
+    y128 = torch.from_numpy(np.concatenate([waves, waves])[:EXTRACT_BATCH]).to(dev)
+    fe128 = stft_fused_features(y128, N_FFT, HOP, sr=SR, n_mels=N_MELS)
+    _, mags128, mask128 = _tuning_candidates(fe128.power.float(), SR, N_FFT,
+                                             fe128.colmax)
+    keys128 = masked_keys(mags128.reshape(EXTRACT_BATCH, -1),
+                          mask128.reshape(EXTRACT_BATCH, -1)).contiguous()
+    del mags128, mask128
+    check(torch.equal(estimate_tuning(fe128.power, fe128.colmax, SR, N_FFT),
+                      estimate_tuning_plain(fe128.power, fe128.colmax, SR,
+                                            N_FFT)),
+          "kernel 2 != plain at 128 clips")
+    check(torch.equal(select_stats(keys128), select_stats_plain(keys128)),
+          "kernel 3 != plain at 128 clips")
+    # kernels 1 and 4 at the shapes the pipelines launch them at: the full
+    # device batch and each run's partial one (193 = 128 + 65 clips decoded
+    # by the basic run, 187 = 128 + 59 by the advanced one)
+    for part in (y128, y128[:65]):
+        *_, err128, roll128 = check_stft_features(torch, part, False)
+        log(f"kernel 1 fast at {tuple(part.shape)}: bf16 power max abs err "
+            f"{err128:.4g}, rolloff max err {roll128:.4g} Hz — within phase "
+            f"3's tolerance")
+    for part in (y128, y128[:59]):
+        check_stft_dense(torch, part, N_FFT, HOP)
+    at128 = {
+        "stft_features": time_ms(torch, lambda: stft_fused_features(
+            y128, N_FFT, HOP, sr=SR, n_mels=N_MELS), flush, runs=7),
+        "tuning": time_ms(torch, lambda: estimate_tuning(
+            fe128.power, fe128.colmax, SR, N_FFT), flush, runs=7),
+        "masked_median_select": time_ms(
+            torch, lambda: select_stats(keys128), flush, runs=7),
+        "stft_dense": time_ms(torch, lambda: stft_power_dense(
+            y128, N_FFT, HOP), flush, runs=5),
+    }
+    log(f"kernels at {EXTRACT_BATCH} clips (1 and 4 within tolerance of "
+        f"plain, 2 and 3 equal), ms: "
+        + json.dumps({k: round(v, 4) for k, v in at128.items()}))
+    del y128, fe128, keys128
+
+    log("preprocess path: " + json.dumps(pre))
     log("encode latency: " + json.dumps(encode_ms))
     log("training path: " + json.dumps(train["stages"]))
     log(f"card: {card_line()}")

@@ -11,6 +11,12 @@ calls cuFFT — rtol 1e-4 / atol 1e-6 x max power, rolloff within one bin
 Kernel 5: squared distances within 1e-5 x (max|x|^2 + max|y|^2) of its
 plain version (fp32 FMAs against cuBLAS's fp32 product), self-distances
 within the square root of that bound, with an exactly-zero diagonal.
+Kernel 4 (dense-DFT STFT power): rtol 1e-4 with an atol of 1e-6 x max
+power against its plain version — fp32 FMAs in sample order against
+cuBLAS's fp32 product, 2,048-term sums in two orders; relative error is
+unbounded where ``re`` and ``im`` cancel, so the atol scales with the
+maximum power.  The preprocess pipelines run on the card through their
+entry points and must launch each kernel once per device batch.
 """
 
 import numpy as np
@@ -186,3 +192,94 @@ def test_run_simple_vae_on_the_card(cuda, tmp_path):
                         logger=RunLogger(echo=False))
     assert ops.launch_counts()["pairwise"] == 3
     assert np.isfinite(df[["Silhouette", "Calinski-Harabasz"]].to_numpy()).all()
+
+
+@pytest.mark.parametrize("n_clips,n_samples,n_fft,hop", [
+    (3, 44100, 2048, 512),       # frame tiles straddle clips
+    (1, 2 * SR + 101, 2048, 512),
+    (2, 30001, 1024, 256),
+    (5, 5000, 512, 512),         # hop == n_fft, fewer bins than a tile
+    (2, 4096, 2048, 1024)])
+def test_stft_dense_kernel_matches_plain(cuda, n_clips, n_samples, n_fft, hop):
+    from tpuvae_torch.ops.stft import stft_power_dense, stft_power_dense_plain
+
+    y = torch.from_numpy(_tones(n_clips, n_samples, n_fft + hop)).to(cuda)
+    got = stft_power_dense(y, n_fft, hop)
+    want = stft_power_dense_plain(y, n_fft, hop)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n_clips, n_fft // 2 + 1,
+                                       1 + n_samples // hop)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-6 * want.max().item())
+
+
+@pytest.mark.parametrize("pad_mode", ["edge", "reflect", "wrap"])
+def test_stft_dense_kernel_pad_modes(cuda, pad_mode):
+    from tpuvae_torch.ops.stft import stft_power_dense, stft_power_dense_plain
+
+    y = torch.from_numpy(_tones(2, 9000, 6) + 0.5).to(cuda)
+    got = stft_power_dense(y, 1024, 256, pad_mode=pad_mode)
+    want = stft_power_dense_plain(y, 1024, 256, pad_mode=pad_mode)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-6 * want.max().item())
+
+
+def test_stft_dense_kernel_counts_launches_and_raises(cuda):
+    from tpuvae_torch.dsp.primitives import stft_power
+    from tpuvae_torch.ops.stft import STFT_DENSE, stft_power_dense
+
+    y = torch.zeros((2, 4096), device=cuda)
+    before = STFT_DENSE.launches
+    assert float(stft_power_dense(y).abs().max()) == 0.0
+    assert STFT_DENSE.launches == before + 1
+    stft_power(y, method="pallas")
+    assert STFT_DENSE.launches == before + 2
+    with pytest.raises(ValueError, match="hop"):
+        stft_power_dense(y, 2048, 500)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        stft_power_dense(y, 40, 10)
+    with pytest.raises(ValueError, match="float32"):
+        stft_power_dense(y.double())
+    assert stft_power_dense(y[:0]).shape == (0, 1025, 9)
+    assert STFT_DENSE.launches == before + 2
+
+
+def test_preprocess_pipelines_on_the_card(cuda, tmp_path):
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import AdvancedPreprocessConfig, PreprocessConfig
+    from tpuvae_torch.io.artifacts import load_advanced, load_basic
+    from tpuvae_torch.io.synthetic import generate_dataset
+    from tpuvae_torch.pipelines import preprocess_advanced, preprocess_basic
+    from tpuvae_torch.utils.logging import RunLogger
+
+    root = tmp_path / "Datasets"
+    meta = generate_dataset(root, clips_per_genre_lang=3, duration=2.0)
+    common = dict(duration=2.0, dataset_root=str(root), metadata_csv=str(meta),
+                  extract_batch=8)
+    ops.reset_launch_counts()
+    r1 = preprocess_basic(PreprocessConfig(
+        output_dir=str(tmp_path / "d1"), **common), logger=RunLogger(echo=False))
+    counts = ops.launch_counts()
+    assert r1["n"] == 18 and r1["failed"] == []
+    assert counts["stft_features"] == counts["tuning"] == 3     # 8 + 8 + 2
+    assert counts["stft_dense"] == counts["masked_median_select"] == 0
+    assert r1["extract_detail"]["device_s"] > 0
+    ops.reset_launch_counts()
+    r2 = preprocess_advanced(AdvancedPreprocessConfig(
+        output_dir=str(tmp_path / "d2"), stft_method="pallas",
+        fixed_time_steps=64, **common), logger=RunLogger(echo=False))
+    counts = ops.launch_counts()
+    assert r2["n"] == 12
+    assert counts["stft_dense"] == counts["masked_median_select"] == 2
+    assert counts["stft_features"] == counts["tuning"] == 0
+    # the card's artifacts against the plain versions' on the CPU
+    c1 = preprocess_basic(PreprocessConfig(
+        output_dir=str(tmp_path / "c1"), **common), device="cpu",
+        logger=RunLogger(echo=False))
+    assert c1["n"] == 18
+    a, b = load_basic(tmp_path / "d1"), load_basic(tmp_path / "c1")
+    np.testing.assert_allclose(a["features_raw"], b["features_raw"],
+                               rtol=0.02, atol=1.0)    # bf16 power, fast mode
+    adv = load_advanced(tmp_path / "d2")
+    assert adv["mel"].shape == (12, 128, 64) and np.isfinite(adv["mel"]).all()
+    assert adv["handcrafted"].shape == (12, 290)

@@ -66,7 +66,12 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from tpuvae_torch import cli
     from tpuvae_torch.device import resolve_device
     from tpuvae_torch.infer import ClipEncoder
-    from tpuvae_torch.pipelines import run_simple_vae
+    from tpuvae_torch.config import AdvancedPreprocessConfig, PreprocessConfig
+    from tpuvae_torch.pipelines import (
+        preprocess_advanced,
+        preprocess_basic,
+        run_simple_vae,
+    )
     from tpuvae_torch.serve import serve
 
     with pytest.raises(RuntimeError, match="cuda"):
@@ -77,6 +82,12 @@ def test_entry_points_raise_without_cuda(tmp_path):
         serve("simple", results_dir=str(tmp_path), warmup=False)
     with pytest.raises(RuntimeError, match="cuda"):
         run_simple_vae(str(tmp_path), str(tmp_path / "results"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        preprocess_basic(PreprocessConfig(output_dir=str(tmp_path / "d1")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        preprocess_advanced(
+            AdvancedPreprocessConfig(output_dir=str(tmp_path / "d2")))
+    assert not (tmp_path / "d1").exists() and not (tmp_path / "d2").exists()
     assert cli.main(["encode", f"--results_dir={tmp_path}", "x.wav"]) == 2
     assert cli.main(["train-simple", f"--data_dir={tmp_path}",
                      f"--results_dir={tmp_path / 'results'}",
@@ -103,8 +114,8 @@ def test_kernel_library_is_not_built_on_import():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ("[('masked_median_select', 0), "
-                                  "('pairwise', 0), ('stft_features', 0), "
-                                  "('tuning', 0)]")
+                                  "('pairwise', 0), ('stft_dense', 0), "
+                                  "('stft_features', 0), ('tuning', 0)]")
 
 
 def test_bundle_unpickler_maps_jax_classes_and_refuses_others(tmp_path):

@@ -260,7 +260,8 @@ def test_wrappers_run_plain_versions_on_cpu_without_launching(clips):
                                rtol=0, atol=0)
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.launch_counts()) == {"stft_features", "tuning",
-                                        "masked_median_select", "pairwise"}
+                                        "masked_median_select", "pairwise",
+                                        "stft_dense"}
 
 
 def test_wrappers_refuse_other_devices():

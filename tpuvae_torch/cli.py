@@ -1,9 +1,28 @@
-"""Command-line interface of the PyTorch port (``train-simple``, ``encode``
-and ``serve``; counterpart of those commands in ``tpuvae/cli.py``):
+"""Command-line interface of the PyTorch port (counterpart of the same
+commands in ``tpuvae/cli.py``):
 
+  python -m tpuvae_torch.cli synth-data  [--root=Datasets --clips_per_genre_lang=4]
+  python -m tpuvae_torch.cli preprocess           [--key=value ...]
+  python -m tpuvae_torch.cli preprocess-advanced  [--key=value ...]
   python -m tpuvae_torch.cli train-simple [--key=value ...]
   python -m tpuvae_torch.cli encode --arch=simple song.wav [song2.wav ...]
   python -m tpuvae_torch.cli serve  --arch=simple --port=8787   # HTTP daemon
+
+``synth-data`` writes a seeded reference-layout corpus of WAVs with its
+``updated_metadata.csv``.  Flags: ``--root`` (default ``Datasets``),
+``--clips_per_genre_lang`` (4), ``--seed_data`` (42), ``--separation``
+(1.0), ``--container`` (``wav``; the FLAC containers are not ported).  It
+touches no device.
+
+``preprocess`` extracts the 370-d features of every catalogued clip into
+``processed_data1/``; ``preprocess-advanced`` the mel images, 290-d
+features and lyrics embeddings into ``processed_data2/``.  ``--key=value``
+overrides map onto ``PreprocessConfig`` / ``AdvancedPreprocessConfig``
+(``--duration=2.0``, ``--extract_batch=8``, ``--stft_method=pallas``, ...);
+extra flag: ``--device`` (default cuda).  ``stft_method``: ``auto`` =
+the fused FFT kernel with the fused tuning kernel; ``pallas`` = the
+dense-DFT kernel with the staged tuning route; ``fft`` / ``dft`` = library
+FFT / dense matmuls with the staged route.
 
 ``train-simple`` trains the Simple VAE on a ``processed_data1`` and writes
 ``results/clustering_metrics.csv``, ``results/Simple_VAE/best_vae_model/``
@@ -78,6 +97,46 @@ def main(argv=None) -> int:
 
 def _dispatch(argv) -> int:
     cmd, *rest = argv
+    if cmd == "synth-data":
+        from tpuvae_torch.io.synthetic import generate_dataset
+
+        dopts, positional = _parse_flags(
+            cmd, rest, {"root", "clips_per_genre_lang", "container",
+                        "seed_data", "separation"})
+        if positional:
+            raise ValueError(f"synth-data takes no positional arguments: "
+                             f"{positional}")
+        meta = generate_dataset(
+            dopts.get("root", "Datasets"),
+            clips_per_genre_lang=int(dopts.get("clips_per_genre_lang", 4)),
+            container=dopts.get("container", "wav"),
+            seed=int(dopts.get("seed_data", 42)),
+            separation=float(dopts.get("separation", 1.0)),
+        )
+        print(f"synthetic dataset written; metadata: {meta}")
+        return 0
+
+    if cmd in ("preprocess", "preprocess-advanced"):
+        from tpuvae_torch import pipelines
+        from tpuvae_torch.config import (
+            AdvancedPreprocessConfig,
+            PreprocessConfig,
+        )
+
+        cfg_cls, run = (
+            (PreprocessConfig, pipelines.preprocess_basic)
+            if cmd == "preprocess"
+            else (AdvancedPreprocessConfig, pipelines.preprocess_advanced))
+        popts, positional = _parse_flags(
+            cmd, rest, {"device"} | set(cfg_cls().to_dict()))
+        if positional:
+            raise ValueError(f"{cmd} takes no positional arguments: "
+                             f"{positional}")
+        cfg = cfg_cls().override(
+            [f"{k}={v}" for k, v in popts.items() if k != "device"])
+        run(cfg, device=popts.get("device", "cuda"))
+        return 0
+
     if cmd == "train-simple":
         from tpuvae_torch.config import SimpleVAEConfig
         from tpuvae_torch.pipelines import run_simple_vae
@@ -145,6 +204,7 @@ def _dispatch(argv) -> int:
         return 0
 
     raise KeyError(f"unknown command {cmd!r} (the PyTorch port has "
+                   f"'synth-data', 'preprocess', 'preprocess-advanced', "
                    f"'train-simple', 'encode' and 'serve')")
 
 

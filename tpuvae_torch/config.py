@@ -1,8 +1,9 @@
 """Typed configuration (own copy of ``tpuvae/config.py``).
 
 The dict round trip, ``key=value`` overrides, and the configs the ported
-slices read — ``PreprocessConfig``, ``SimpleVAEConfig`` and
-``ClusterConfig`` — with the same fields and defaults as the JAX package,
+slices read — ``PreprocessConfig``, ``AdvancedPreprocessConfig``,
+``SimpleVAEConfig`` and ``ClusterConfig`` — with the same fields and
+defaults as the JAX package,
 so a ``config.pkl`` written by either pipeline loads here.
 """
 
@@ -75,9 +76,13 @@ class PreprocessConfig(_ConfigBase):
     # 'fast' stores the (B, 1025, T) power spectrogram as bfloat16 (every
     # statistic is still computed from fp32 power); 'exact' keeps it fp32
     precision_mode: str = "fast"
-    # read by the JAX package only (its STFT lowering); kept so a config
-    # written by either package round-trips
-    stft_method: str = "auto"
+    # 'auto' and 'ct_pallas' = the fused FFT kernel (kernel 1, with the
+    # fused tuning kernel 2); 'pallas' = the dense-DFT kernel (kernel 4);
+    # 'fft' = torch.fft.rfft; 'dft' = dense matmuls outside any kernel.
+    # Every method but the first two runs the staged front end (fp32 power
+    # in both precision modes) and the staged tuning route (kernel 3).
+    # 'ct' (the JAX package's XLA reference lowering) raises.
+    stft_method: str = "auto"  # 'auto'|'fft'|'dft'|'ct'|'ct_pallas'|'pallas'
     # host->device wire dtype: 'int16' ships PCM and widens on device
     # (x * 2^-15); 'auto' = int16 in fast mode, float32 in exact mode
     transfer_dtype: str = "auto"
@@ -90,6 +95,46 @@ class PreprocessConfig(_ConfigBase):
     def feature_dim(self) -> int:
         # mel mean+std, mfcc mean+std, 5 spectral stats x2, chroma mean+std
         return self.n_mels * 2 + self.n_mfcc * 2 + 10 + self.n_chroma * 2
+
+
+@dataclass(frozen=True)
+class AdvancedPreprocessConfig(_ConfigBase):
+    """Advanced pipeline settings (reference ``1_preprocessing_advanced.py:28-47``)."""
+
+    sample_rate: int = 22050
+    duration: float = 30.0
+    n_mels: int = 128
+    n_fft: int = 2048
+    hop_length: int = 512
+    n_chroma: int = 12
+    fixed_time_steps: int = 1024
+    max_samples_per_class: int = 200
+    min_lyrics_chars: int = 15       # ref :246-249
+    exclude_genres: tuple = ("jazz",)  # ref :227-229
+    dataset_root: str = "Datasets"
+    metadata_csv: str = "Datasets/updated_metadata.csv"
+    output_dir: str = "processed_data2"
+    text_model: str = "sentence-transformers/paraphrase-multilingual-mpnet-base-v2"
+    text_dim: int = 768
+    extract_batch: int = 128
+    precision_mode: str = "fast"   # see PreprocessConfig.precision_mode
+    stft_method: str = "auto"      # see PreprocessConfig.stft_method
+    transfer_dtype: str = "auto"   # see PreprocessConfig.transfer_dtype
+    # 'inmem' | 'stream' | 'auto': how the mel artifacts are assembled from
+    # extraction shards.  'stream' bounds host RAM to one shard + one chunk
+    # (tpuvae_torch.io.assembly); 'auto' streams once the raw mel tensor
+    # exceeds 1 GiB.  'stream' requires resume=True (shards are the source).
+    assembly_mode: str = "auto"
+
+    @property
+    def num_samples(self) -> int:
+        return int(self.sample_rate * self.duration)
+
+    @property
+    def flat_feature_dim(self) -> int:
+        # mel(db) mean+std + 5 spectral x2 + chroma mean+std = 290 (no MFCC;
+        # ref :120-156)
+        return self.n_mels * 2 + 10 + self.n_chroma * 2
 
 
 @dataclass(frozen=True)

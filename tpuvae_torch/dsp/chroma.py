@@ -135,16 +135,21 @@ def _tuning_vote(pitches, mags, pitch_mask, thresh, resolution: float,
 
 
 def estimate_tuning_batch(s_power: torch.Tensor, sr: int, n_fft: int,
-                          colmax: torch.Tensor, resolution: float = 0.01,
+                          colmax: torch.Tensor | None,
+                          resolution: float = 0.01,
                           bins_per_octave: int = 12,
                           route: str = "fused") -> torch.Tensor:
     """Batched tuning estimation ``(B, n_bins, T) -> (B,)``.
 
     ``route='fused'`` runs kernel 2 over the band; ``'staged'`` computes
     the candidates here and takes the median through kernel 3.  Both give
-    the same tunings.
+    the same tunings.  ``colmax (B, T)`` is the per-frame max power over
+    the full column, as the fused front end emits it; a staged front end
+    hands ``None`` and the max is taken here.
     """
     if route == "fused":
+        if colmax is None:
+            colmax = torch.amax(s_power.float(), dim=1)
         from tpuvae_torch.ops.tuning import estimate_tuning
 
         return estimate_tuning(s_power, colmax, sr, n_fft, resolution,
@@ -207,14 +212,16 @@ def _tuning_grid_index(tuning_b: torch.Tensor, resolution: float):
 
 
 def chroma_batch(s_power: torch.Tensor, sr: int, n_fft: int,
-                 colmax: torch.Tensor, n_chroma: int = 12,
+                 colmax: torch.Tensor | None, n_chroma: int = 12,
                  tuning_route: str = "fused") -> torch.Tensor:
     """Batched chroma ``(B, n_bins, T) -> (B, n_chroma, T)`` with the tuning
     estimated per clip (librosa's ``tuning=None``).
 
-    A bf16 spectrogram (fast mode) is projected with the filterbank rounded
-    to bf16, as the JAX package does; products of two bf16 values are
-    exact in fp32, and the sum runs in fp32.
+    A bf16 spectrogram (fast mode on the fused front end) is projected
+    with the filterbank rounded to bf16, as the JAX package does; products
+    of two bf16 values are exact in fp32, and the sum runs in fp32.  An
+    fp32 spectrogram (exact mode, and every staged front end) keeps the
+    fp32 filterbank.  ``colmax=None``: see :func:`estimate_tuning_batch`.
     """
     resolution = 0.01
     tuning_b = estimate_tuning_batch(s_power, sr, n_fft, colmax,

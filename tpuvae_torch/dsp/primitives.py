@@ -1,10 +1,12 @@
 """Low-level DSP building blocks (own copy of ``tpuvae/dsp/primitives.py``).
 
 Host constant builders in numpy (identical arithmetic to the JAX package,
-so both packages see bit-identical windows and filterbanks) and the few
-tensor functions the serving slice needs, in PyTorch:
+so both packages see bit-identical windows and filterbanks) and the
+tensor functions the extractors need, in PyTorch:
 
   * ``hann_window``: periodic Hann window (scipy ``get_window('hann')``);
+  * ``frame_signal`` / ``stft_power``: centred frames and the power
+    spectrogram, by one of five methods (two of them CUDA kernels);
   * ``mel_filterbank``: Slaney mel scale, ``norm='slaney'``;
   * ``power_to_db``: ``10*log10(max(S, amin))`` relative to ``ref``,
     floored at ``max - top_db`` per clip;
@@ -28,6 +30,110 @@ def hann_window(n: int, dtype=np.float32) -> np.ndarray:
 def num_frames(n_samples: int, hop_length: int) -> int:
     """Frame count of a centered STFT (librosa: ``1 + n_samples // hop``)."""
     return 1 + n_samples // hop_length
+
+
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect", "wrap": "circular"}
+
+
+def center_pad(y: torch.Tensor, frame_length: int,
+               pad_mode: str = "constant") -> torch.Tensor:
+    """``y (B, T)`` padded by ``frame_length // 2`` on both sides.
+    ``pad_mode`` takes numpy's names for what ``torch.nn.functional.pad``
+    offers (constant, edge, reflect, wrap) and raises for the rest."""
+    if pad_mode not in _PAD_MODES:
+        raise ValueError(f"pad_mode must be one of {sorted(_PAD_MODES)}, got "
+                         f"{pad_mode!r}")
+    half = frame_length // 2
+    if pad_mode == "constant":
+        return torch.nn.functional.pad(y, (half, half))
+    return torch.nn.functional.pad(y[:, None, :], (half, half),
+                                   mode=_PAD_MODES[pad_mode])[:, 0]
+
+
+def frame_signal(y: torch.Tensor, frame_length: int, hop_length: int, *,
+                 pad_mode: str = "constant") -> torch.Tensor:
+    """Center-pad and slice ``y (B, T)`` into frames ``(B, n_frames,
+    frame_length)`` (a strided view of the padded signal).
+
+    ``pad_mode='constant'`` matches librosa.stft's zero padding; ``'edge'``
+    matches librosa.feature.zero_crossing_rate's padding.
+    """
+    return center_pad(y, frame_length, pad_mode).unfold(
+        -1, frame_length, hop_length)
+
+
+@functools.lru_cache(maxsize=4)
+def _dft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real-DFT basis (cos, -sin) matrices, each ``(n_fft, n_fft//2 + 1)``."""
+    n_bins = n_fft // 2 + 1
+    t = np.arange(n_fft)[:, None]
+    k = np.arange(n_bins)[None, :]
+    ang = 2.0 * np.pi * t * k / n_fft
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+STFT_METHODS = ("auto", "ct_pallas", "pallas", "fft", "dft", "ct")
+
+
+def stft_power(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 512, *,
+               window: np.ndarray | None = None, pad_mode: str = "constant",
+               method: str = "auto") -> torch.Tensor:
+    """Power spectrogram ``|STFT|^2`` of shape ``(B, n_fft//2+1, n_frames)``,
+    fp32.  The methods keep the JAX package's names:
+
+    * ``'ct_pallas'`` (and ``'auto'``): kernel 1 without its epilogue
+      (:func:`tpuvae_torch.ops.stft.stft_power`), an fp32 FFT per frame;
+    * ``'pallas'``: kernel 4, the dense-DFT products
+      (:func:`tpuvae_torch.ops.stft.stft_power_dense`);
+    * ``'fft'``: ``torch.fft.rfft`` on the framed signal;
+    * ``'dft'``: two ``torch.matmul`` against the cos / sin bases, outside
+      any kernel, as the JAX package computes it;
+    * ``'ct'``: the JAX package's XLA Cooley-Tukey lowering, not ported.
+
+    The two kernel methods run their plain versions on a CPU tensor.  They
+    bake in the Hann window: a custom ``window=`` is only supported by
+    ``'fft'`` and ``'dft'``.
+    """
+    if method not in STFT_METHODS:
+        raise ValueError(f"stft method must be one of {STFT_METHODS}, got "
+                         f"{method!r}")
+    if method == "auto":
+        method = "ct_pallas"
+    if method == "ct":
+        raise NotImplementedError(
+            "stft method 'ct' (the XLA Cooley-Tukey reference lowering) is "
+            "not ported to tpuvae_torch (ROADMAP.md, queue 1, item 9); use "
+            "'fft', 'dft', 'pallas' or 'ct_pallas'")
+    if method in ("pallas", "ct_pallas"):
+        if window is not None:
+            raise ValueError(
+                f"method={method!r} bakes in the hann window; custom "
+                f"window= is only supported by 'fft'/'dft'")
+        from tpuvae_torch.ops import stft as ops_stft
+
+        if method == "pallas":
+            return ops_stft.stft_power_dense(y, n_fft, hop_length,
+                                             pad_mode=pad_mode)
+        if pad_mode != "constant":
+            raise ValueError("method='ct_pallas' pads with zeros; "
+                             f"pad_mode={pad_mode!r} needs another method")
+        return ops_stft.stft_power(y, n_fft, hop_length)
+    if window is None:
+        window = hann_window(n_fft)
+    frames = frame_signal(y, n_fft, hop_length, pad_mode=pad_mode)
+    frames = frames * torch.from_numpy(
+        np.asarray(window, np.float32)).to(y.device)
+    if method == "dft":
+        cos_b, sin_b = (torch.from_numpy(m).to(y.device)
+                        for m in _dft_basis(n_fft))
+        re = torch.matmul(frames, cos_b)
+        im = torch.matmul(frames, sin_b)
+        power = re * re + im * im
+    else:
+        spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+        power = spec.real * spec.real + spec.imag * spec.imag
+    return power.transpose(1, 2).contiguous()
 
 
 def fft_frequencies(sr: float, n_fft: int) -> np.ndarray:

@@ -1,5 +1,5 @@
 """Normalizers: StandardScaler + mean SimpleImputer equivalents
-(counterpart of ``tpuvae/io/normalize.py:31-91``, host numpy only).
+(counterpart of ``tpuvae/io/normalize.py``, host numpy only).
 
 The fitted parameters are small dataclasses persisted as the
 ``scaler.pkl`` / ``imputer.pkl`` artifacts.  :func:`load_normalizer`
@@ -65,6 +65,50 @@ class StandardScaler:
 
     def fit_transform(self, x: np.ndarray) -> np.ndarray:
         return self.fit(x).transform(x)
+
+
+@dataclasses.dataclass
+class StreamingScalerFit:
+    """Accumulates StandardScaler statistics over row chunks.
+
+    float64 sum / sum-of-squares accumulation matches the full-array
+    :class:`StandardScaler` fit to ~1e-6 while only ever holding one chunk
+    of rows in memory — the fit path of the streaming (host-RAM-bounded)
+    artifact assembly (``tpuvae_torch.io.assembly``).
+    """
+
+    n: int = 0
+    s: np.ndarray | None = None
+    ss: np.ndarray | None = None
+
+    def update(self, x: np.ndarray) -> "StreamingScalerFit":
+        x = np.asarray(x, np.float64).reshape(len(x), -1)
+        if self.s is None:
+            self.s = np.zeros(x.shape[1])
+            self.ss = np.zeros(x.shape[1])
+        self.n += len(x)
+        self.s += x.sum(axis=0)
+        self.ss += np.square(x).sum(axis=0)
+        return self
+
+    def finalize(self) -> StandardScaler:
+        if not self.n:
+            raise ValueError("no rows accumulated")
+        mean = self.s / self.n
+        var = np.maximum(self.ss / self.n - mean * mean, 0.0)
+        scale = np.sqrt(var)
+        scale[scale == 0.0] = 1.0
+        return StandardScaler(mean=mean.astype(np.float32),
+                              scale=scale.astype(np.float32))
+
+
+def normalize_mel_images(mels: np.ndarray):
+    """Per-pixel StandardScaler over flattened (N, H*W) mel images
+    (ref ``1_preprocessing_advanced.py:376-382``)."""
+    n, h, w = mels.shape
+    scaler = StandardScaler()
+    flat = scaler.fit_transform(mels.reshape(n, -1))
+    return flat.reshape(n, h, w).astype(np.float32), scaler
 
 
 def impute_and_scale(features: np.ndarray):

@@ -9,6 +9,7 @@ kernel                      replaces (Pallas, tpuvae/ops/)          wrapper
 ``masked_median_select``    select.py:32 ``_select_kernel``         :func:`select.select_stats`
 ``pairwise``                pairwise.py:27 ``_kernel``              :func:`pairwise.squared_distances`,
                                                                     :func:`pairwise.self_distances`
+``stft_dense``              stft.py:73 ``_make_kernel``             :func:`stft.stft_power_dense`
 ==========================  ======================================  ===========================
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the

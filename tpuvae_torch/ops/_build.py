@@ -37,6 +37,7 @@ _EXTRA_FLAGS = {
     "tuning": ["-fmad=false"],
     "select": ["-fmad=false"],
     "pairwise": [],
+    "stft_dense": [],
 }
 
 _LOCK = threading.Lock()

@@ -1,5 +1,6 @@
-"""Fused STFT power + spectral-feature epilogue (kernel 1 and its plain
-version).
+"""STFT power kernels and their plain versions: the fused STFT power +
+spectral-feature epilogue (kernel 1) and the dense-DFT STFT power
+(kernel 4, at the end of the module).
 
 Counterpart of ``tpuvae/ops/stft.py``'s fused Cooley-Tukey kernel
 (``stft_fused_features_ct_pallas``) and, through :func:`stft_power`, of its
@@ -19,6 +20,11 @@ Mosaic's DMA alignment and have no counterpart here.
 On a CUDA tensor the CUDA kernel ``csrc/stft_features.cu`` runs; on a CPU
 tensor the plain PyTorch version does (``torch.fft.rfft`` on framed input
 plus the staged features of :mod:`tpuvae_torch.dsp.features`).
+
+Kernel 4 (``csrc/stft_dense.cu``) is the counterpart of
+``tpuvae/ops/stft.py``'s ``stft_power_pallas``: the same power spectrogram
+as two dense products of the frames against window-folded cos / sin bases,
+in fp32, with any ``n_fft`` that ``hop_length`` divides.
 """
 
 from __future__ import annotations
@@ -197,3 +203,101 @@ def stft_power(y: torch.Tensor, n_fft: int = 2048,
         raise ValueError(f"unsupported device {y.device}")
     power, _, _ = _launch(y, n_fft, hop_length, torch.float32)
     return power
+
+
+# -----------------------------------------------------------------------------
+# Kernel 4: dense-DFT STFT power
+# -----------------------------------------------------------------------------
+
+STFT_DENSE = _build.Kernel(
+    "stft_dense", "stft_dense", "tpuvae_stft_dense",
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+_DENSE_K_CHUNK = 16      # samples the kernel stages per step
+_DENSE_BIN_TILE = 128    # packed bins per CTA
+
+
+def _check_dense_geometry(n_fft: int, hop_length: int) -> None:
+    if hop_length <= 0 or n_fft % hop_length:
+        # the JAX kernel's message: 'pallas' is the method's name in both
+        raise ValueError("pallas STFT requires hop_length | n_fft")
+
+
+@functools.lru_cache(maxsize=4)
+def _folded_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(cos, -sin)`` real-DFT bases ``(n_fft, n_fft//2 + 1)`` with the
+    periodic Hann window folded in (float64 angles, cast to fp32, then an
+    fp32 multiply — the arithmetic of ``stft_power_pallas``)."""
+    cos_b, sin_b = prim._dft_basis(n_fft)
+    window = prim.hann_window(n_fft).astype(np.float32)[:, None]
+    return cos_b * window, sin_b * window
+
+
+@functools.lru_cache(maxsize=4)
+def _packed_basis(device: str, n_fft: int):
+    """The folded bases in the kernel's layout, on ``device``: ``n_fft // 2``
+    packed columns padded with zeros to a multiple of the bin tile.  The sin
+    column of bin 0 (identically zero) carries the Nyquist bin's cosine,
+    whose own sine is zero as well."""
+    cos_w, sin_w = _folded_basis(n_fft)
+    n_half = n_fft // 2
+    nb_pad = -(-n_half // _DENSE_BIN_TILE) * _DENSE_BIN_TILE
+    cos_p = np.zeros((n_fft, nb_pad), np.float32)
+    sin_p = np.zeros((n_fft, nb_pad), np.float32)
+    cos_p[:, :n_half] = cos_w[:, :n_half]
+    sin_p[:, :n_half] = sin_w[:, :n_half]
+    sin_p[:, 0] = cos_w[:, n_half]
+    return (torch.from_numpy(cos_p).to(device),
+            torch.from_numpy(sin_p).to(device), nb_pad)
+
+
+def stft_power_dense_plain(y: torch.Tensor, n_fft: int = 2048,
+                           hop_length: int = 512, *,
+                           pad_mode: str = "constant") -> torch.Tensor:
+    """Plain version of kernel 4: pad, frame, one ``torch.matmul`` against
+    each window-folded basis, square and add -> ``(B, n_fft//2+1, T)``."""
+    _check_dense_geometry(n_fft, hop_length)
+    _check_waveform(y)
+    frames = prim.frame_signal(y, n_fft, hop_length, pad_mode=pad_mode)
+    cos_w, sin_w = (torch.from_numpy(m).to(y.device)
+                    for m in _folded_basis(n_fft))
+    re = torch.matmul(frames, cos_w)
+    im = torch.matmul(frames, sin_w)
+    return (re * re + im * im).transpose(1, 2).contiguous()
+
+
+def stft_power_dense(y: torch.Tensor, n_fft: int = 2048,
+                     hop_length: int = 512, *,
+                     pad_mode: str = "constant") -> torch.Tensor:
+    """Dense-DFT STFT power ``(B, n_fft//2+1, 1 + n_samples // hop)`` fp32.
+
+    A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
+    through :func:`stft_power_dense_plain`.  The kernel replaces
+    ``tpuvae/ops/stft.py:73`` (``_make_kernel``); it is bound by its fp32
+    operations, and ``csrc/stft_dense.cu`` says how its design gathers the
+    frames from the waveform and keeps ``re`` and ``im`` in registers.
+    Padding stays out here, as in the JAX wrapper: the kernel reads the
+    padded signal.
+    """
+    _check_dense_geometry(n_fft, hop_length)
+    if y.device.type == "cpu":
+        return stft_power_dense_plain(y, n_fft, hop_length, pad_mode=pad_mode)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    _check_waveform(y)
+    if n_fft % _DENSE_K_CHUNK:
+        raise ValueError(f"the CUDA dense-DFT kernel needs n_fft to be a "
+                         f"multiple of {_DENSE_K_CHUNK}, got {n_fft}")
+    b, n_samples = y.shape
+    t = prim.num_frames(n_samples, hop_length)
+    y_pad = prim.center_pad(y, n_fft, pad_mode).contiguous()
+    cos_p, sin_p, nb_pad = _packed_basis(str(y.device), n_fft)
+    out = torch.empty((b, n_fft // 2 + 1, t), dtype=torch.float32,
+                      device=y.device)
+    if b:
+        STFT_DENSE(_build.ptr(y_pad), b, y_pad.shape[1], n_fft, hop_length, t,
+                   _build.ptr(cos_p), _build.ptr(sin_p), nb_pad,
+                   _build.ptr(out), _build.stream_ptr(y.device))
+    return out

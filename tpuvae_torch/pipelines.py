@@ -1,16 +1,26 @@
 """End-to-end pipelines (counterpart of ``tpuvae/pipelines.py``).
 
-Ported so far: ``run_simple_vae`` (≙ ``src/Simple_VAE.py``), step for step
-as ``tpuvae/pipelines.py:587-676`` runs it — fit, ``best_vae_model/``,
-latents, the silhouette k-sweep, the VAE row, the serving bundle, the
-PCA + KMeans row and the consolidated metrics CSV — on one device.  The
-artifact and CSV contracts are the JAX pipeline's, so either package reads
-what the other writes.
+  preprocess_basic      ≙ src/1_preprocessing.py          -> processed_data1/
+  preprocess_advanced   ≙ src/1_preprocessing_advanced.py -> processed_data2/
+  run_simple_vae        ≙ src/Simple_VAE.py
+
+The preprocess pipelines decode clips on a thread pool, extract features
+on the device in batches (:func:`_extract_batched`), persist each batch as
+a shard so an interrupted run resumes, and write the artifact sets.
+``run_simple_vae`` goes step for step as ``tpuvae/pipelines.py:587-676``
+runs it — fit, ``best_vae_model/``, latents, the silhouette k-sweep, the
+VAE row, the serving bundle, the PCA + KMeans row and the consolidated
+metrics CSV.  All run on one device; the artifact, shard and CSV contracts
+are the JAX pipeline's, so either package reads what the other writes.
 """
 
 from __future__ import annotations
 
+import os
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from itertools import islice
 
 import numpy as np
 import pandas as pd
@@ -19,11 +29,26 @@ import torch
 from tpuvae_torch.cluster.kmeans import centers_from_labels, kmeans
 from tpuvae_torch.cluster.pca import pca_transform
 from tpuvae_torch.cluster.sweeps import kmeans_k_sweep
-from tpuvae_torch.config import ClusterConfig, SimpleVAEConfig
+from tpuvae_torch.config import (
+    AdvancedPreprocessConfig,
+    ClusterConfig,
+    PreprocessConfig,
+    SimpleVAEConfig,
+)
 from tpuvae_torch.device import resolve_device
+from tpuvae_torch.dsp.features import (
+    extract_advanced,
+    extract_basic_features,
+    make_extractor,
+    resolve_transfer_dtype,
+)
 from tpuvae_torch.infer import save_serving_model
-from tpuvae_torch.io.artifacts import load_basic
+from tpuvae_torch.io.artifacts import load_basic, save_advanced, save_basic
+from tpuvae_torch.io.catalog import collect_audio_files
+from tpuvae_torch.io.normalize import impute_and_scale, normalize_mel_images
 from tpuvae_torch.io.results import consolidate_metrics
+from tpuvae_torch.io.resume import ExtractionManifest
+from tpuvae_torch.io.wav import load_audio
 from tpuvae_torch.metrics.internal import (
     calinski_harabasz_score,
     silhouette_from_distances,
@@ -36,7 +61,432 @@ from tpuvae_torch.train.loop import FitConfig, fit
 from tpuvae_torch.train.objectives import simple_vae_objective
 from tpuvae_torch.train.state import create_state
 from tpuvae_torch.utils.batching import batched_apply
-from tpuvae_torch.utils.logging import RunLogger
+from tpuvae_torch.text.embedder import embed_lyrics
+from tpuvae_torch.utils.logging import RunLogger, StageTimer
+
+
+# -----------------------------------------------------------------------------
+# Shared extraction loop
+# -----------------------------------------------------------------------------
+
+def _loader_workers() -> int:
+    """Decode-pool width: ``TPUVAE_LOADER_THREADS`` override, else one
+    thread per core up to 32 (WAV decode is numpy code that releases the
+    GIL over the large arrays)."""
+    env = os.environ.get("TPUVAE_LOADER_THREADS")
+    if env:
+        return max(1, int(env))
+    return max(1, min(32, (os.cpu_count() or 1)))
+
+
+class _BatchSlot:
+    """One of the rotating batch buffers: a host buffer the loader threads
+    fill (pinned when the device is a card), its device twin, and the two
+    events that say when each may be written again."""
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        on_card = device.type == "cuda"
+        # every row is written whole by its loader before it is read
+        self.host = torch.empty(shape, dtype=dtype, pin_memory=on_card)
+        self.host_np = self.host.numpy()
+        self.dev = (torch.empty(shape, dtype=dtype, device=device)
+                    if on_card else self.host)
+        self.copied = None      # recorded after the copy that read `host`
+        self.consumed = None    # recorded after the extraction that read `dev`
+
+
+def _extract_batched(entries, extract_fn, cfg, device: torch.device,
+                     logger: RunLogger | None = None,
+                     manifest=None, shard_keys: tuple = ("out",)):
+    """Decode clips into preallocated batch buffers on a thread pool,
+    extract on the device, skip-and-tally failures (ref per-file
+    try/except, ``1_preprocessing.py:237-256``).
+
+    On a card the stages of consecutive batches overlap, each ordered by
+    CUDA events and never by a device-wide synchronize:
+
+    * loader threads write each clip into its slot of one of three
+      rotating **pinned** ``(extract_batch, num_samples)`` buffers in the
+      wire dtype (int16 PCM in fast mode);
+    * the main thread enqueues a non-blocking copy on a copy stream into
+      the slot's device twin, then the extraction on the compute stream,
+      which waits for the copy's event.  A host buffer is decoded into
+      again only after the copy that read it has finished, a device buffer
+      copied into again only after the extraction that read it;
+    * one drain-worker thread waits for the batch's extraction event,
+      copies the outputs to pinned host memory on a fetch stream, and
+      persists the shard.
+
+    On the CPU the same loop runs without streams.  With a ``manifest``
+    (:class:`tpuvae_torch.io.resume.ExtractionManifest`) each flushed batch
+    is persisted as a shard so interrupted runs resume.  A clip that fails
+    to decode is skipped and returned in ``failed``; nothing that happens
+    on the device is caught.
+    """
+    t_setup = time.time()
+    # int() truncation, matching load_audio's clip-length convention
+    nsamp = int(cfg.sample_rate * cfg.duration)
+    bs = cfg.extract_batch
+    on_card = device.type == "cuda"
+    wire = resolve_transfer_dtype(cfg)
+    wire_t = torch.int16 if wire == np.int16 else torch.float32
+    slots = [_BatchSlot((bs, nsamp), wire_t, device) for _ in range(3)]
+    if on_card:
+        compute = torch.cuda.current_stream(device)
+        copy_stream = torch.cuda.Stream(device)
+        fetch_stream = torch.cuda.Stream(device)
+    ok_entries, outputs, failed = [], [], []
+
+    def load_slot(e, dest):
+        y = load_audio(e.path, cfg.sample_rate, cfg.duration)
+        if wire == np.int16:
+            y = np.clip(np.rint(y * 32768.0), -32768, 32767)
+        dest[:] = y
+
+    # main-thread wall = setup + decode_wait + drain_wait + enqueue overhead:
+    #   setup        — allocating (and pinning) the batch buffers
+    #   decode_wait  — blocking on loader futures (0 when decode fully
+    #                  overlaps the device work of earlier batches)
+    #   transfer     — the host->device copies (CUDA events on the card)
+    #   device       — the extractions (CUDA events on the card: a host
+    #                  clock around an asynchronous launch reads near zero)
+    #   drain_wait   — backpressure: blocking on the drain worker when two
+    #                  outputs are still in flight
+    #   fetch_worker / persist_worker — the drain worker's wait for the
+    #                  extraction plus the device->host fetch, and the
+    #                  shard write; they overlap the next batches
+    detail = {"decode_wait_s": 0.0, "transfer_s": 0.0, "device_s": 0.0,
+              "drain_wait_s": 0.0, "fetch_worker_s": 0.0,
+              "persist_worker_s": 0.0, "wire_mb_per_batch":
+              round(slots[0].host_np.nbytes / 2**20, 1),
+              "setup_s": time.time() - t_setup}
+
+    fetch_host: list = []   # the drain worker's pinned output buffers
+
+    def drain_one(kept, out_dev, timing):
+        t0 = time.time()
+        n = len(kept)
+        if on_card:
+            t_copy0, t_copy1, t_dev0, t_dev1 = timing
+            if not fetch_host:
+                # pinned once, at the first batch: this worker is the only
+                # reader, and it has written or copied a batch's rows out
+                # (below) before it fetches the next batch into them
+                fetch_host.extend(
+                    torch.empty((bs,) + tuple(o.shape[1:]), dtype=o.dtype,
+                                pin_memory=True) for o in out_dev)
+            with torch.cuda.stream(fetch_stream):
+                fetch_stream.wait_event(t_dev1)
+                for h, o in zip(fetch_host, out_dev):
+                    h[:n].copy_(o[:n], non_blocking=True)
+            fetch_stream.synchronize()
+            detail["transfer_s"] += t_copy0.elapsed_time(t_copy1) / 1e3
+            detail["device_s"] += t_dev0.elapsed_time(t_dev1) / 1e3
+            out_np = tuple(h[:n].numpy() for h in fetch_host)
+        else:
+            out_np = tuple(o[:n].numpy() for o in out_dev)
+        t1 = time.time()
+        detail["fetch_worker_s"] += t1 - t0
+        if manifest is not None:
+            # shards on disk are the source of truth; no second in-RAM copy
+            manifest.add_shard([e.file_id for e in kept],
+                               dict(zip(shard_keys, out_np)))
+            detail["persist_worker_s"] += time.time() - t1
+        else:
+            outputs.append(tuple(np.array(o) for o in out_np))
+        ok_entries.extend(kept)
+
+    drain: deque = deque()      # in-flight (future) outputs, depth <= 2
+
+    def process(chunk, slot, futures, writer):
+        t0 = time.time()
+        kept = []
+        for j, (e, fut) in enumerate(zip(chunk, futures)):
+            try:
+                fut.result()
+            except Exception as exc:  # skip-and-tally contract (decode only)
+                failed.append((e.path, str(exc)))
+                if logger:
+                    logger.log("decode_failed", path=e.path,
+                               error=f"{type(exc).__name__}: {exc}")
+                continue
+            k = len(kept)
+            if k != j:          # compact over failed slots (rare)
+                slot.host_np[k] = slot.host_np[j]
+            kept.append(e)
+        detail["decode_wait_s"] += time.time() - t0
+        if not kept:
+            return
+        n = len(kept)
+        if on_card:
+            t_copy0 = torch.cuda.Event(enable_timing=True)
+            t_copy1 = torch.cuda.Event(enable_timing=True)
+            t_dev0 = torch.cuda.Event(enable_timing=True)
+            t_dev1 = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(copy_stream):
+                if slot.consumed is not None:
+                    copy_stream.wait_event(slot.consumed)
+                t_copy0.record(copy_stream)
+                slot.dev[:n].copy_(slot.host[:n], non_blocking=True)
+                t_copy1.record(copy_stream)
+            slot.copied = t_copy1
+            compute.wait_event(t_copy1)
+            t_dev0.record(compute)
+            out = extract_fn(slot.dev[:n])
+            t_dev1.record(compute)
+            slot.consumed = t_dev1
+            timing = (t_copy0, t_copy1, t_dev0, t_dev1)
+        else:
+            t1 = time.time()
+            out = extract_fn(slot.dev[:n])
+            detail["device_s"] += time.time() - t1
+            timing = None
+        out_list = out if isinstance(out, tuple) else (out,)
+        # bound the in-flight device outputs (the mel images)
+        while len(drain) >= 2:
+            t3 = time.time()
+            drain.popleft().result()
+            detail["drain_wait_s"] += time.time() - t3
+        drain.append(writer.submit(drain_one, kept, out_list, timing))
+
+    it = iter(entries)
+    pending: deque = deque()
+    ci = 0
+    with ThreadPoolExecutor(max_workers=_loader_workers()) as pool, \
+            ThreadPoolExecutor(max_workers=1) as writer:
+        while True:
+            while len(pending) < 2:
+                chunk = list(islice(it, bs))
+                if not chunk:
+                    break
+                slot = slots[ci % len(slots)]
+                ci += 1
+                if slot.copied is not None:
+                    slot.copied.synchronize()   # the copy three batches back
+                pending.append((chunk, slot, [
+                    pool.submit(load_slot, e, slot.host_np[j])
+                    for j, e in enumerate(chunk)
+                ]))
+            if not pending:
+                break
+            process(*pending.popleft(), writer)
+        while drain:            # propagate drain-worker exceptions
+            t3 = time.time()
+            drain.popleft().result()
+            detail["drain_wait_s"] += time.time() - t3
+    detail = {k: (round(v, 4) if isinstance(v, float) else v)
+              for k, v in detail.items()}
+    if logger:
+        logger.log("extract", ok=len(ok_entries), failed=len(failed),
+                   loader_threads=_loader_workers(), **detail)
+    return ok_entries, outputs, failed, detail
+
+
+def _metadata_frame(entries, labels):
+    df = pd.DataFrame(
+        [
+            {"language": e.language, "genre": e.genre, "filename": e.filename,
+             "file_id": e.file_id}
+            for e in entries
+        ]
+    )
+    df["label"] = labels
+    return df
+
+
+def _resume_manifest(output_dir, entries, resume: bool, logger: RunLogger):
+    """``(manifest or None, entries still to extract)``."""
+    if not resume:
+        return None, entries
+    manifest = ExtractionManifest(output_dir)
+    pending = manifest.filter_pending(entries)
+    if len(pending) < len(entries):
+        logger.log("resume", already_done=len(entries) - len(pending))
+    return manifest, pending
+
+
+def _entries_of(ids, entries, manifest):
+    """The catalog entries of the manifest's file ids, in manifest order."""
+    by_id = {e.file_id: e for e in entries}
+    unknown = [i for i in ids if i not in by_id]
+    if unknown:
+        raise ValueError(
+            f"extraction manifest contains {len(unknown)} file ids not in "
+            f"the current catalog (config/catalog changed between runs?); "
+            f"delete {manifest.dir} to start fresh")
+    return [by_id[i] for i in ids]
+
+
+# -----------------------------------------------------------------------------
+# Preprocessing pipelines
+# -----------------------------------------------------------------------------
+
+def preprocess_basic(
+    cfg: PreprocessConfig = PreprocessConfig(),
+    device: str = "cuda",
+    logger: RunLogger | None = None,
+    resume: bool = True,
+) -> dict:
+    """Raw audio under ``cfg.dataset_root`` -> ``processed_data1/`` (370-d
+    features, normalizers, labels, metadata).  ``device`` defaults to CUDA
+    and raises without a card."""
+    dev = resolve_device(device)
+    logger = logger or RunLogger()
+    timer = StageTimer(logger)
+    with timer.stage("catalog"):
+        entries, skipped = collect_audio_files(
+            cfg.dataset_root, cfg.metadata_csv,
+            max_per_class=cfg.max_samples_per_class, strict=False,
+        )
+    manifest, pending = _resume_manifest(cfg.output_dir, entries, resume,
+                                         logger)
+    extract = make_extractor(extract_basic_features, cfg, dev)
+    with timer.stage("extract_basic", items=len(pending)):
+        ok, outs, failed, detail = _extract_batched(
+            pending, extract, cfg, dev, logger,
+            manifest=manifest, shard_keys=("features",),
+        )
+    t_asm = time.time()
+    if manifest is not None:
+        ids, arrays = manifest.load_all()
+        ok = _entries_of(ids, entries, manifest)
+        features = arrays.get("features", np.zeros((0, cfg.feature_dim)))
+        assert len(ok) == len(features), (len(ok), len(features))
+    else:
+        features = (np.concatenate([o[0] for o in outs])
+                    if outs else np.zeros((0, cfg.feature_dim)))
+    timer.stages["assemble"] = {"seconds": time.time() - t_asm}
+    if not ok:
+        raise ValueError("No audio files collected! Check paths and metadata.")
+    labels = np.array([e.genre for e in ok])
+    with timer.stage("normalize"):
+        normalized, imputer, scaler = impute_and_scale(features)
+    with timer.stage("save_artifacts"):
+        save_basic(
+            cfg.output_dir,
+            features_raw=features, features_normalized=normalized,
+            labels=labels,
+            metadata=_metadata_frame(ok, labels)[
+                ["language", "genre", "filename", "label"]],
+            scaler=scaler, imputer=imputer, config=cfg,
+        )
+    if manifest is not None:
+        manifest.cleanup()
+    logger.log("saved", dir=cfg.output_dir, n=len(ok),
+               feature_dim=int(features.shape[1]), failed=len(failed),
+               skipped=skipped)
+    return {"n": len(ok), "failed": failed, "stages": timer.stages,
+            "extract_detail": detail}
+
+
+def preprocess_advanced(
+    cfg: AdvancedPreprocessConfig = AdvancedPreprocessConfig(),
+    device: str = "cuda",
+    logger: RunLogger | None = None,
+    text_checkpoint: str | None = None,
+    resume: bool = True,
+) -> dict:
+    """Raw audio + lyrics -> ``processed_data2/`` (mel images, 290-d
+    features, 768-d lyrics embeddings, normalizers, labels, metadata).
+    ``device`` defaults to CUDA and raises without a card."""
+    if cfg.assembly_mode not in ("auto", "inmem", "stream"):
+        raise ValueError(f"assembly_mode must be 'auto'|'inmem'|'stream', "
+                         f"got {cfg.assembly_mode!r}")
+    if cfg.assembly_mode == "stream" and not resume:
+        raise ValueError("assembly_mode='stream' requires resume=True "
+                         "(extraction shards are the streaming source)")
+    dev = resolve_device(device)
+    logger = logger or RunLogger()
+    timer = StageTimer(logger)
+    with timer.stage("catalog"):
+        entries, skipped = collect_audio_files(
+            cfg.dataset_root, cfg.metadata_csv,
+            max_per_class=cfg.max_samples_per_class, strict=True,
+            exclude_genres=cfg.exclude_genres,
+            min_lyrics_chars=cfg.min_lyrics_chars,
+        )
+    if not entries:
+        raise ValueError("No audio files collected! Check paths and metadata.")
+    manifest, pending = _resume_manifest(cfg.output_dir, entries, resume,
+                                         logger)
+    extract = make_extractor(extract_advanced, cfg, dev)
+    with timer.stage("extract_advanced", items=len(pending)):
+        ok, outs, failed, detail = _extract_batched(
+            pending, extract, cfg, dev, logger,
+            manifest=manifest, shard_keys=("mel", "flat"),
+        )
+    streaming = False
+    t_asm = time.time()
+    if manifest is not None:
+        mel_bytes = manifest.total_rows() * cfg.n_mels * cfg.fixed_time_steps * 4
+        streaming = bool(manifest.total_rows()) and (
+            cfg.assembly_mode == "stream"
+            or (cfg.assembly_mode == "auto" and mel_bytes > 1 << 30))
+        if streaming:
+            from tpuvae_torch.io.assembly import assemble_advanced_streaming
+
+            with timer.stage("assemble_stream", items=manifest.total_rows()):
+                ids, flats, mel_scaler = assemble_advanced_streaming(
+                    manifest, cfg.output_dir,
+                    (cfg.n_mels, cfg.fixed_time_steps), cfg.flat_feature_dim,
+                )
+            mels = None  # on disk already; never resident
+        else:
+            ids, arrays = manifest.load_all()
+            mels = arrays.get("mel",
+                              np.zeros((0, cfg.n_mels, cfg.fixed_time_steps)))
+            flats = arrays.get("flat", np.zeros((0, cfg.flat_feature_dim)))
+        ok = _entries_of(ids, entries, manifest)
+        assert len(ok) == len(flats), (len(ok), len(flats))
+    else:
+        mels = (np.concatenate([o[0] for o in outs]) if outs
+                else np.zeros((0, cfg.n_mels, cfg.fixed_time_steps)))
+        flats = (np.concatenate([o[1] for o in outs]) if outs
+                 else np.zeros((0, cfg.flat_feature_dim)))
+    if not ok:
+        raise ValueError(
+            "No audio files decoded successfully! Check paths and formats.")
+    # shard reload / in-RAM concatenate, net of assemble_stream, which
+    # times itself when streaming
+    asm = time.time() - t_asm - timer.stages.get(
+        "assemble_stream", {}).get("seconds", 0.0)
+    timer.stages["assemble"] = {"seconds": asm}
+    labels = np.array([e.genre for e in ok])
+    with timer.stage("lyrics_embeddings", items=len(ok)):
+        embeddings, embedder_backend = embed_lyrics(
+            [e.lyrics for e in ok], checkpoint=text_checkpoint)
+    logger.log("lyrics_embedder", backend=embedder_backend)
+    assert len(ok) == len(embeddings), "Mismatch between audio and lyrics samples!"
+    with timer.stage("normalize"):
+        if not streaming:
+            mel_norm, mel_scaler = normalize_mel_images(mels)
+        else:  # mel artifacts + scaler already written by the streaming pass
+            mel_norm = None
+        flat_norm, imputer, flat_scaler = impute_and_scale(flats)
+    with timer.stage("save_artifacts"):
+        save_advanced(
+            cfg.output_dir,
+            mel_raw=mels, mel_normalized=mel_norm,
+            features_raw=flats, features_normalized=flat_norm,
+            lyrics_embeddings=embeddings, labels=labels,
+            metadata=_metadata_frame(ok, labels),
+            mel_scaler=mel_scaler, flat_scaler=flat_scaler, imputer=imputer,
+            # record WHICH embedder produced lyrics_embeddings.npy so
+            # downstream results are attributable
+            config={**cfg.to_dict(),
+                    "lyrics_embedder_backend": embedder_backend},
+        )
+    if manifest is not None:
+        manifest.cleanup()
+    logger.log("saved", dir=cfg.output_dir, n=len(ok), failed=len(failed),
+               skipped=skipped)
+    return {"n": len(ok), "failed": failed, "stages": timer.stages,
+            "extract_detail": detail}
+
+
+# -----------------------------------------------------------------------------
+# Training pipelines
+# -----------------------------------------------------------------------------
 
 
 def _silhouette_ch(x: torch.Tensor, labels: np.ndarray) -> tuple[float, float]:
