@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the five CUDA kernels from ``tpuvae_torch/csrc`` (``nvcc``, one
+2. build the six CUDA kernels from ``tpuvae_torch/csrc`` (``nvcc``, one
    process per source, all started together);
 3. hold each serving kernel against its plain PyTorch version at the main
    path's shapes (32 clips x 661,500 samples): kernel 1 (fused STFT
@@ -43,12 +43,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    to the fast-mode contract (2% rtol / 1.0 atol);
 8. the paths joined: ``run_simple_vae`` on the ``processed_data1`` that
    phase 7 wrote, and ``ClipEncoder`` serving that bundle;
-9. time each kernel, its plain version and the library yardstick with
-   CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
-   also at the pipelines' 128 clips and partial batches, each held
-   against its plain version there too; the extract stage's parts,
-   ``/encode`` latency and the training and preprocess paths' stages;
-10. print the ``kernels`` JSON line, then the ``ok`` line last.
+9. kernel 6 (the fused conv + BatchNorm-statistics pair of the conv
+   trunk) against its plain version at 32 x 128 x 1024: y0, y1, both means
+   and both variances within their stated tolerances, two runs bit-equal;
+10. train the Conditional VAE and cluster its latents:
+    ``run_conditional_vae`` through the entry point at full width (mel
+    128 x 1024, trunks 1-32-64-128-256-512-512 and back, text 768, latent
+    64, batch 32) on the ``processed_data2`` that phase 7 wrote.  Cuts: 186
+    of the reference's 1,336 clips, 3 of 600 epochs.  Launch counters are
+    set to 0 just before and read just after (kernel 6 on every trunk
+    forward, kernel 5 once per metric row); the four rows finite; the saved
+    bundle's ``weights.npz`` reloaded and its latents on the card held to
+    the CPU's plain path on 4 clips (rtol 1e-3 / atol 1e-4);
+11. time each kernel, its plain version and the library yardstick with
+    CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
+    also at the pipelines' 128 clips and partial batches, each held
+    against its plain version there too; the extract stage's parts,
+    ``/encode`` latency, the training and preprocess paths' stages, and the
+    Conditional VAE's training step split into forward, backward and
+    optimizer, with the cost of the fused pair's backward;
+12. print the ``kernels`` JSON line, then the ``ok`` line last.
 """
 
 from __future__ import annotations
@@ -83,6 +97,9 @@ N_SCALE = 10240       # the pairwise scale point of bench.py
 LATENT = 32
 EXTRACT_BATCH = 128   # device batch of the preprocess pipelines
 CLIPS_PER_GENRE_LANG = 32   # x 3 genres x 2 languages = 192 clips
+MEL_HW = (128, 1024)  # the mel image of processed_data2
+CVAE_EPOCHS = 3       # of the reference's 600
+CVAE_LATENT = 64
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s and fp32 FLOP/s
 # outside the tensor cores
@@ -426,6 +443,7 @@ def preprocess_path(torch, dev, work: Path) -> dict:
                   metadata_csv=str(meta_csv), extract_batch=EXTRACT_BATCH)
     out = {"host_cores": os.cpu_count(),
            "loader_threads": pipelines._loader_workers()}
+    out["data2_dir"] = str(work / "preprocess" / "processed_data2")
 
     def one(tag, fn, cfg, n_entries, expect, forbid):
         logger = RunLogger(work / f"{tag}.jsonl", echo=False)
@@ -543,6 +561,243 @@ def preprocess_path(torch, dev, work: Path) -> dict:
     return out
 
 
+# -- phase 9: kernel 6 against its plain version -------------------------------
+
+def fusedconv_inputs(torch, dev, batch: int = BATCH):
+    """Seeded inputs of the fused pair at the main path's shape: a
+    standardized image batch (as ``mel_spectrograms_normalized``), weights at
+    flax's initial scale, non-trivial biases and BatchNorm parameters."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def rn(shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=g, device=dev) * std + mean
+
+    return [rn((batch, *MEL_HW, 1)), rn((3, 3, 1, 32), 1 / 3), rn((32,), 0.1),
+            rn((32,), 0.2, 1.0), rn((32,), 0.1),
+            rn((3, 3, 32, 64), (9 * 32) ** -0.5), rn((64,), 0.1)]
+
+
+def check_fusedconv(torch, args) -> dict:
+    """Kernel 6 against its plain version on ``args``.  y0: rtol / atol 1e-5
+    (9 fp32 FMAs against cuDNN's fp32 convolution).  y1: rtol / atol 1e-4
+    (288-term fp32 sums in two orders, on a normalised input that carries
+    y0's and the statistics' rounding).  Means: atol 1e-5.  Variances: rtol
+    1e-4 / atol 1e-6 — each side sums ~1.05 M (layer 0) or ~262 k (layer 1)
+    values per channel in fp32, the kernel over per-CTA partials in a fixed
+    tree order and ``torch.sum`` in its own, and then subtracts ``mean^2``;
+    both are pairwise-like sums with a relative error near 1e-7 x
+    (mean^2 + var) / var, measured ~2-5e-7.  Two runs give the same bits:
+    the kernel uses no float atomics."""
+    from tpuvae_torch.ops import fusedconv as fc
+
+    x, w0, b0 = args[0], args[1], args[2]
+    y0, _, _ = fc.conv0_stats(x[..., 0], w0[:, :, 0], b0)
+    py0, _, _ = fc.conv0_stats_plain(x[..., 0], w0[:, :, 0], b0)
+    torch.testing.assert_close(y0, py0, rtol=1e-5, atol=1e-5)
+    y0_err = (y0 - py0).abs().max().item()
+    del y0, py0
+    got = fc.fused_trunk2_forward(*args)
+    again = fc.fused_trunk2_forward(*args)
+    want = fc.fused_trunk2_forward_plain(*args)
+    torch.cuda.synchronize()
+    b, h, w = x.shape[0], x.shape[1], x.shape[2]
+    check(got[0].shape == want[0].shape == (b, h // 4, w // 4, 64),
+          f"kernel 6 y1 shape {tuple(got[0].shape)}")
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    errs = {"y0": y0_err, "y1": (got[0] - want[0]).abs().max().item()}
+    for i, name in ((1, "0"), (2, "1")):
+        (m, v), (pm, pv) = got[i], want[i]
+        torch.testing.assert_close(m, pm, rtol=0, atol=1e-5)
+        torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-6)
+        errs[f"mean{name}"] = (m - pm).abs().max().item()
+        errs[f"var{name}_rel"] = ((v - pv).abs() / pv).max().item()
+    same = (torch.equal(got[0], again[0])
+            and all(torch.equal(a, c) for a, c in
+                    zip(got[1] + got[2], again[1] + again[2])))
+    check(same, "kernel 6: two runs differ in some bit")
+    check(bool(torch.isfinite(got[0]).all()), "kernel 6 y1 not finite")
+    log(f"kernel 6 at {tuple(x.shape)}: max abs err y0 {errs['y0']:.4g}, y1 "
+        f"{errs['y1']:.4g} (max |y1| {want[0].abs().max().item():.4g}), mean0 "
+        f"{errs['mean0']:.4g}, mean1 {errs['mean1']:.4g}; max rel err var0 "
+        f"{errs['var0_rel']:.4g}, var1 {errs['var1_rel']:.4g} — within rtol "
+        f"1e-4 / atol 1e-4 (y1), atol 1e-5 (means), rtol 1e-4 (variances); "
+        f"two runs bit-equal")
+    return errs
+
+
+# -- phase 10: train the Conditional VAE ------------------------------------------
+
+def train_conditional_vae(torch, dev, work: Path, data2: Path) -> dict:
+    """``run_conditional_vae`` on the card at full width on ``data2`` (the
+    ``processed_data2`` of the preprocess phase), twice in this process;
+    then the saved bundle's weights reloaded and held to the CPU's plain
+    path.  Returns the launch counts of the first run and both runs' stage
+    times."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import ClusterConfig, ConditionalVAEConfig
+    from tpuvae_torch.convert import from_flax
+    from tpuvae_torch.io.artifacts import load_advanced
+    from tpuvae_torch.metrics.labels import encode_labels, one_hot_np
+    from tpuvae_torch.models import ConditionalVAE
+    from tpuvae_torch.pipelines import run_conditional_vae
+    from tpuvae_torch.train.checkpoint import load_checkpoint
+    from tpuvae_torch.utils.logging import RunLogger
+
+    cfg = ConditionalVAEConfig(epochs=CVAE_EPOCHS, batch_size=BATCH)
+    ccfg = ClusterConfig()
+    methods = ["CVAE (Multi-Modal)", "PCA + K-Means", "Autoencoder + K-Means",
+               "Direct Spectral"]
+
+    def one_run(tag: str):
+        log_path = work / f"cvae_{tag}.jsonl"
+        logger = RunLogger(log_path, echo=False)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            df = run_conditional_vae(str(data2), str(work / f"cvae_{tag}"), cfg,
+                                     ccfg, logger, make_plots=False,
+                                     device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            logger.close()
+        ev = {rec["event"]: rec for rec in
+              (json.loads(line) for line in log_path.read_text().splitlines())}
+        fit = ev["fit"]
+        return df, {
+            "run_conditional_vae_s": wall_s,
+            "setup_before_first_epoch_s": ev["fit_start"]["setup_seconds"],
+            "n_train": ev["fit_start"]["n_train"],
+            "n_val": ev["fit_start"]["n_val"],
+            "fit_s": fit["seconds"], "epoch_s": fit["epoch_seconds"],
+            "steps_per_sec": fit["steps_per_sec"],
+            "train_loss": fit["train_loss"], "val_loss": fit["val_loss"],
+            "latents_s": ev["latents"]["seconds"],
+            "ae_baseline_s": ev["ae_baseline"]["seconds"],
+            "evaluate_clustering_s": ev["evaluate_clustering"]["seconds"],
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "metrics": df.to_dict("records")}
+
+    ops.reset_launch_counts()
+    df, stages = one_run("first")
+    counts = ops.launch_counts()
+    n = stages["n_train"] + stages["n_val"]
+    forwards = CVAE_EPOCHS * (-(-stages["n_train"] // BATCH)
+                              + -(-stages["n_val"] // BATCH)) + -(-n // BATCH)
+    log(f"cvae path: run_conditional_vae {n} clips x {MEL_HW} in "
+        f"{stages['run_conditional_vae_s']:.2f} s; launch counts {counts}; "
+        f"rows {df.to_dict('records')}")
+    for name in ("fusedconv_conv0", "fusedconv_conv1"):
+        check(counts[name] == forwards,
+              f"{name} launched {counts[name]} times for {forwards} trunk "
+              f"forwards")
+    check(counts["pairwise"] == 4, f"kernel 5 launched {counts['pairwise']} "
+          f"times for 4 metric rows")
+    check(df["Method"].tolist() == methods, f"rows {df['Method'].tolist()}")
+    check(np.isfinite(df[["Silhouette", "NMI", "ARI", "Purity"]].to_numpy()).all(),
+          "cvae metrics not finite")
+    check(all(np.isfinite(stages["train_loss"] + stages["val_loss"])),
+          "cvae losses not finite")
+    check(stages["train_loss"][-1] < stages["train_loss"][0],
+          f"cvae train loss did not fall: {stages['train_loss']}")
+
+    # the saved bundle, reloaded: latents on the card against the CPU's
+    # plain path (library convolutions of two devices, twelve layers)
+    serving = work / "cvae_first" / "Conditional_VAE" / "serving"
+    flat, meta = load_checkpoint(serving / "model")
+    check(meta["arch"] == "cvae" and tuple(meta["input_hw"]) == MEL_HW,
+          f"bundle meta {meta}")
+    centers = np.load(serving / "kmeans_centers.npy")
+    check(centers.shape == (meta["num_classes"], CVAE_LATENT)
+          and np.isfinite(centers).all(), f"centres {centers.shape}")
+    data = load_advanced(data2)
+    y_genre, _ = encode_labels(data["metadata"]["genre"].values)
+    batch = [np.asarray(data["mel"][:4], np.float32)[..., None],
+             np.asarray(data["text"][:4], np.float32), one_hot_np(y_genre)[:4]]
+    model = ConditionalVAE(latent_dim=CVAE_LATENT, text_dim=meta["text_dim"],
+                           num_classes=meta["num_classes"], input_hw=MEL_HW)
+    model.load_state_dict(from_flax(flat))
+    model.eval()
+    with torch.no_grad():
+        lat_cpu = model.latent(*[torch.from_numpy(a) for a in batch])
+        model.to(dev)
+        lat = model.latent(*[torch.from_numpy(a).to(dev) for a in batch]).cpu()
+    check(lat.shape == (4, CVAE_LATENT) and bool(torch.isfinite(lat).all()),
+          "reloaded latents")
+    torch.testing.assert_close(lat, lat_cpu, rtol=1e-3, atol=1e-4)
+    log(f"cvae bundle reloaded: latents on the card within rtol 1e-3 / atol "
+        f"1e-4 of the CPU's plain path (max abs diff "
+        f"{(lat - lat_cpu).abs().max().item():.3g})")
+
+    df_again, again = one_run("again")
+    log(f"cvae path, second run in the process: "
+        f"{again['run_conditional_vae_s']:.2f} s")
+    return {"counts": counts, "stages": {"first": stages, "again": again}}
+
+
+def time_cvae_step(torch, dev, flush) -> dict:
+    """One training step of the full-width Conditional VAE at batch 32,
+    split with CUDA events into forward (loss included), backward and Adam
+    (median of 7 steps after 3); and the fused pair alone: its forward and
+    its backward (layer 1 rebuilt from the saved y0, cuDNN gradients)."""
+    from tpuvae_torch.models import ConditionalVAE, cvae_loss
+    from tpuvae_torch.ops.fusedconv import fused_trunk2
+    from tpuvae_torch.train.state import create_state
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    model = ConditionalVAE(num_classes=3, input_hw=MEL_HW,
+                           generator=torch.Generator().manual_seed(SEED)).to(dev)
+    opt = create_state(model, 1e-4).optimizer
+    audio = torch.randn((BATCH, *MEL_HW, 1), generator=g, device=dev)
+    text = torch.randn((BATCH, 768), generator=g, device=dev)
+    cond = torch.eye(3, device=dev)[torch.arange(BATCH, device=dev) % 3]
+    model.train()
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for step in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        ra, rt, mu, lv = model(audio, text, cond, generator=g)
+        loss = cvae_loss(ra, audio, rt, text, mu, lv)[0]
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        ev[3].synchronize()
+        if step >= 3:
+            for k, a, b in zip(parts, ev[:-1], ev[1:]):
+                parts[k].append(a.elapsed_time(b))
+    out = {f"{k}_ms": statistics.median(v) for k, v in parts.items()}
+    out["step_ms"] = sum(out.values())
+    del model, opt, ra, rt, mu, lv, loss
+
+    args = [a.requires_grad_(i > 0) for i, a in
+            enumerate(fusedconv_inputs(torch, dev))]
+    cot = torch.randn((BATCH, MEL_HW[0] // 4, MEL_HW[1] // 4, 64), generator=g,
+                      device=dev)
+    held = {}
+
+    def pair_forward():
+        y1, _, (m1, v1) = fused_trunk2(*args)
+        held["out"] = (y1 * cot).sum() + m1.sum() + v1.sum()
+
+    out["pair_forward_ms"] = time_ms(torch, pair_forward, flush, runs=7)
+    times = []
+    for _ in range(7):
+        pair_forward()
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        held["out"].backward()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out["pair_backward_ms"] = statistics.median(times)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -573,7 +828,7 @@ def main() -> int:
     build_s = _build.build_all()
     log(f"build: {build_s:.1f} s (0 = already built)")
     for name in ("stft_features", "tuning", "select", "pairwise",
-                 "stft_dense"):
+                 "stft_dense", "fusedconv"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -843,7 +1098,15 @@ def run(torch, dev, work: Path, card: str) -> int:
     # ---- 7 + 8. the preprocess path, then the paths joined -------------------
     pre = preprocess_path(torch, dev, work)
 
-    # ---- 9. timing ----------------------------------------------------------
+    # ---- 9. kernel 6 against its plain version --------------------------------
+    k6_args = fusedconv_inputs(torch, dev)
+    k6_errs = check_fusedconv(torch, k6_args)
+    results["fusedconv"] = {"max_abs_err": k6_errs["y1"]}
+
+    # ---- 10. train the Conditional VAE, cluster its latents ------------------
+    cvae = train_conditional_vae(torch, dev, work, Path(pre.pop("data2_dir")))
+
+    # ---- 11. timing ---------------------------------------------------------
     nbins = N_FFT // 2 + 1
     fb = mel_filterbank(SR, N_FFT, N_MELS)
     frames = BATCH * n_frames
@@ -971,6 +1234,89 @@ def run(torch, dev, work: Path, card: str) -> int:
     kernels[-1]["cublas_form_ms"] = k4_cublas_ms
     del basis_cat
 
+    # kernel 6: the pair through its wrapper, each half alone, the plain
+    # version, and the library route (the same function through PyTorch
+    # calls in their own layout: conv2d, mean / var, affine, leaky_relu,
+    # conv2d, mean / var; TF32 off)
+    from tpuvae_torch.ops import fusedconv as fc
+
+    F = torch.nn.functional
+    x6, w06, b06, g06, be06, w16, b16 = k6_args
+    x6_hw, w06_hwf = x6[..., 0].contiguous(), w06[:, :, 0].contiguous()
+    y06, _, _ = fc.conv0_stats(x6_hw, w06_hwf, b06)
+    ones32 = torch.ones(32, device=dev)
+    zeros32 = torch.zeros(32, device=dev)
+    x6_nchw = x6.permute(0, 3, 1, 2).contiguous()
+    w06_oihw = w06.permute(3, 2, 0, 1).contiguous()
+    w16_oihw = w16.permute(3, 2, 0, 1).contiguous()
+
+    def library_k6():
+        y0 = F.conv2d(F.pad(x6_nchw, (0, 1, 0, 1)), w06_oihw, b06, stride=2)
+        var0, mean0 = torch.var_mean(y0, dim=(0, 2, 3), unbiased=False)
+        scale = g06 * torch.rsqrt(var0 + 1e-5)
+        z = F.leaky_relu(y0 * scale.view(1, -1, 1, 1)
+                         + (be06 - mean0 * scale).view(1, -1, 1, 1), 0.01)
+        y1 = F.conv2d(F.pad(z, (0, 1, 0, 1)), w16_oihw, b16, stride=2)
+        return y1, torch.var_mean(y1, dim=(0, 2, 3), unbiased=False)
+
+    lib_y1, _ = library_k6()
+    k6_y1, _, _ = fc.fused_trunk2_forward(*k6_args)
+    torch.testing.assert_close(k6_y1, lib_y1.permute(0, 2, 3, 1), rtol=1e-4,
+                               atol=1e-4)
+    del lib_y1, k6_y1
+    n0 = BATCH * (MEL_HW[0] // 2) * (MEL_HW[1] // 2)     # y0 pixels
+    n1 = n0 // 4                                         # y1 pixels
+    # conv0: 9 FMAs + bias per output, 3 operations for the two sums
+    k6a_flops = n0 * 32 * (2 * 9 + 1 + 3)
+    k6a_bytes = (x6.numel() + w06.numel() + b06.numel() + n0 * 32
+                 + 2 * BATCH * 32) * 4
+    # conv1: affine + LeakyReLU per y0 element, 9 x 32 FMAs + bias + sums
+    k6b_flops = n0 * 32 * 3 + n1 * 64 * (2 * 9 * 32 + 1 + 3)
+    k6b_bytes = (n0 * 32 + 2 * 32 + w16.numel() + b16.numel() + n1 * 64
+                 + 2 * BATCH * 64) * 4
+    halves = []
+    for name, fn, nbytes, nflops, replaces in (
+            ("fusedconv_conv0", lambda: fc.conv0_stats(x6_hw, w06_hwf, b06),
+             k6a_bytes, k6a_flops, "tpuvae/ops/fusedconv.py:67"),
+            ("fusedconv_conv1", lambda: fc.conv1_norm_stats(
+                y06, ones32, zeros32, w16, b16),
+             k6b_bytes, k6b_flops, "tpuvae/ops/fusedconv.py:88")):
+        b_ms, b_by = bound(nbytes, nflops)
+        halves.append({"name": name, "replaces": replaces,
+                       "launches": cvae["counts"][name],
+                       "ms": time_ms(torch, fn, flush), "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes": int(nbytes),
+                       "flops": float(nflops)})
+    k6_ms = time_ms(torch, lambda: fc.fused_trunk2_forward(*k6_args), flush)
+    k6_plain_ms = time_ms(
+        torch, lambda: fc.fused_trunk2_forward_plain(*k6_args), flush)
+    k6_lib_ms = time_ms(torch, library_k6, flush)
+    kernels.append({
+        "name": "fusedconv", "route": "cuda",
+        "source": "tpuvae_torch/csrc/fusedconv.cu",
+        "replaces": "tpuvae/ops/fusedconv.py:67",
+        "launches": cvae["counts"]["fusedconv_conv1"],
+        "max_abs_err": results["fusedconv"]["max_abs_err"], "ms": k6_ms,
+        "plain_ms": k6_plain_ms,
+        "bound_ms": halves[0]["bound_ms"] + halves[1]["bound_ms"],
+        "bound_by": "operations", "library_ms": k6_lib_ms,
+        "path": f"run_conditional_vae at {BATCH} x {MEL_HW} (each half "
+                f"launched once per trunk forward; the pair's bound is the "
+                f"sum of conv0's, by bytes, and conv1's, by operations)",
+        "bytes": int(k6a_bytes + k6b_bytes),
+        "flops": float(k6a_flops + k6b_flops), "halves": halves,
+        "errors": k6_errs})
+    log(f"time fusedconv: pair {k6_ms:.4f} ms (conv0 {halves[0]['ms']:.4f}, "
+        f"conv1 {halves[1]['ms']:.4f}), plain {k6_plain_ms:.4f} ms, library "
+        f"{k6_lib_ms:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms (conv0 "
+        f"{halves[0]['bound_ms']:.4f} {halves[0]['bound_by']}, conv1 "
+        f"{halves[1]['bound_ms']:.4f} {halves[1]['bound_by']})")
+    del y06, x6_nchw, x6_hw
+    cvae_step = time_cvae_step(torch, dev, flush)
+    log("cvae training step at full width, ms: " + json.dumps(
+        {k: round(v, 4) for k, v in cvae_step.items()}))
+    del k6_args
+
     # where the extract stage's time goes at 32 clips (its host clock read
     # 21 ms around ~4.5 ms of kernels 1 + 2): each part alone, CUDA events
     waves32 = waves[:BATCH]
@@ -1033,6 +1379,7 @@ def run(torch, dev, work: Path, card: str) -> int:
     log("preprocess path: " + json.dumps(pre))
     log("encode latency: " + json.dumps(encode_ms))
     log("training path: " + json.dumps(train["stages"]))
+    log("cvae path: " + json.dumps(cvae["stages"]))
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,14 @@ cuBLAS's fp32 product, 2,048-term sums in two orders; relative error is
 unbounded where ``re`` and ``im`` cancel, so the atol scales with the
 maximum power.  The preprocess pipelines run on the card through their
 entry points and must launch each kernel once per device batch.
+Kernel 6 (fused conv + BatchNorm statistics): y0 rtol 1e-5 / atol 1e-5 (9
+fp32 FMAs against cuDNN), y1 rtol 1e-4 / atol 1e-4 (288-term fp32 sums in
+two orders), means atol 1e-5, variances rtol 1e-4 / atol 1e-6 (per-CTA
+partial sums in a fixed tree order against ``torch.sum``, then
+``ss / n - mean^2``); two runs bit-equal.  The trunk's gradient on the card
+against the CPU: within 1e-2 of each tensor's largest entry and 5e-3 in
+relative L2 (a LeakyReLU pre-activation within rounding of zero may take
+the other slope on one device; otherwise ~1e-5).
 """
 
 import numpy as np
@@ -283,3 +291,148 @@ def test_preprocess_pipelines_on_the_card(cuda, tmp_path):
     adv = load_advanced(tmp_path / "d2")
     assert adv["mel"].shape == (12, 128, 64) and np.isfinite(adv["mel"]).all()
     assert adv["handcrafted"].shape == (12, 290)
+
+
+def _pair_inputs(b, h, w, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, h, w, 1)),
+            rng.standard_normal((3, 3, 1, 32)) * 0.3,
+            rng.standard_normal(32) * 0.1,
+            1.0 + 0.2 * rng.standard_normal(32),
+            rng.standard_normal(32) * 0.1,
+            rng.standard_normal((3, 3, 32, 64)) * 0.1,
+            rng.standard_normal(64) * 0.1]
+    return [torch.tensor(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("b,h,w", [
+    (2, 16, 32), (3, 8, 64),      # the shapes of tests/test_fusedconv.py
+    (1, 4, 4),                    # one CTA, mostly masked
+    (7, 64, 128),                 # a ragged batch
+    (5, 68, 196),                 # a non-reference input_hw: partial tiles
+    (32, 128, 1024),              # the main path's batch
+])
+def test_fusedconv_kernels_match_plain(cuda, b, h, w):
+    from tpuvae_torch.ops import fusedconv as fc
+
+    x, w0, b0, g0, be0, w1, b1 = _pair_inputs(b, h, w, cuda)
+    y0, s0, ss0 = fc.conv0_stats(x[..., 0], w0[:, :, 0], b0)
+    py0, ps0, pss0 = fc.conv0_stats_plain(x[..., 0], w0[:, :, 0], b0)
+    assert y0.shape == (b, h // 2, w // 2, 32) and s0.shape == (b, 1, 32)
+    torch.testing.assert_close(y0, py0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s0, ps0, rtol=1e-5, atol=1e-5 * (h * w / 4))
+    torch.testing.assert_close(ss0, pss0, rtol=1e-5, atol=1e-5 * (h * w / 4))
+    got = fc.fused_trunk2_forward(x, w0, b0, g0, be0, w1, b1)
+    again = fc.fused_trunk2_forward(x, w0, b0, g0, be0, w1, b1)
+    want = fc.fused_trunk2_forward_plain(x, w0, b0, g0, be0, w1, b1)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, h // 4, w // 4, 64)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for (m, v), (pm, pv) in zip(got[1:], want[1:]):
+        torch.testing.assert_close(m, pm, rtol=0, atol=1e-5)
+        torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-6)
+    assert torch.equal(got[0], again[0])
+    for a, c in zip(got[1] + got[2], again[1] + again[2]):
+        assert torch.equal(a, c)
+
+
+def test_fusedconv_counts_launches_and_raises(cuda):
+    from tpuvae_torch import ops
+    from tpuvae_torch.ops import fusedconv as fc
+
+    x, w0, b0, g0, be0, w1, b1 = _pair_inputs(2, 8, 16, cuda)
+    ops.reset_launch_counts()
+    fc.fused_trunk2_forward(x, w0, b0, g0, be0, w1, b1)
+    counts = ops.launch_counts()
+    assert counts["fusedconv_conv0"] == 1 and counts["fusedconv_conv1"] == 1
+    fc.fused_trunk2_forward_plain(x, w0, b0, g0, be0, w1, b1)
+    assert ops.launch_counts() == counts          # the plain version counts nothing
+    with pytest.raises(ValueError, match="built for"):
+        fc.conv0_stats(x[..., 0], torch.zeros((3, 3, 16), device=cuda),
+                       torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError, match="built for"):
+        fc.conv1_norm_stats(torch.zeros((1, 4, 4, 16), device=cuda),
+                            torch.ones(16, device=cuda),
+                            torch.zeros(16, device=cuda),
+                            torch.zeros((3, 3, 16, 64), device=cuda), b1)
+    with pytest.raises(ValueError, match="even"):
+        fc.conv0_stats(x[:, :7, :, 0], w0[:, :, 0], b0)
+    with pytest.raises(ValueError, match="do not pair"):
+        fc.conv0_stats(x[..., 0], w0[:, :, 0].cpu().to(cuda), b0.cpu())
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_conv_trunk_on_the_card_matches_the_cpu(cuda, mode):
+    import copy
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.models.layers import ConvEncoderTrunk, lecun_init_
+
+    cpu = lecun_init_(ConvEncoderTrunk(), torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for norm in cpu.norm:
+            norm.running_mean.normal_(0, 0.1, generator=torch.Generator().manual_seed(2))
+            norm.running_var.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(3))
+    cpu.train(mode == "train")
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn((4, 64, 128, 1), generator=torch.Generator().manual_seed(4))
+    cot = torch.randn((4, 1024), generator=torch.Generator().manual_seed(5))
+    ops.reset_launch_counts()
+    out_cpu, out_card = cpu(x), card(x.to(cuda))
+    assert ops.launch_counts()["fusedconv_conv1"] == 1
+    (out_cpu * cot).sum().backward()
+    (out_card * cot.to(cuda)).sum().backward()
+    torch.testing.assert_close(out_card.cpu(), out_cpu, rtol=1e-3, atol=1e-4)
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        scale = float(p.grad.abs().max())
+        if name.endswith("bias") and name.startswith("conv") and mode == "train":
+            scale = float(dict(cpu.named_parameters())[
+                name.replace("bias", "weight")].grad.abs().max())
+        diff = q.grad.cpu() - p.grad
+        assert float(diff.abs().max()) <= 1e-2 * scale, name
+        assert float(diff.norm()) <= 5e-3 * max(float(p.grad.norm()), scale), name
+    for a, c in zip(cpu.buffers(), card.buffers()):
+        torch.testing.assert_close(c.cpu(), a, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("host_stream", [False, True], ids=["resident", "stream"])
+def test_run_conditional_vae_on_the_card(cuda, tmp_path, host_stream):
+    import pandas as pd
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import ClusterConfig, ConditionalVAEConfig
+    from tpuvae_torch.io.artifacts import save_advanced
+    from tpuvae_torch.io.normalize import impute_and_scale, normalize_mel_images
+    from tpuvae_torch.pipelines import run_conditional_vae
+    from tpuvae_torch.train.checkpoint import load_checkpoint
+
+    rng = np.random.default_rng(0)
+    n, hw = 40, (128, 256)
+    g = np.arange(n) % 3
+    mel = (rng.normal(size=(n, *hw)) + 0.5 * g[:, None, None]).astype(np.float32)
+    feats = (rng.normal(size=(n, 290)) + 2.0 * g[:, None]).astype(np.float32)
+    mel_norm, mel_scaler = normalize_mel_images(mel)
+    feats_norm, imputer, flat_scaler = impute_and_scale(feats)
+    labels = np.array(["classical", "pop", "rock"])[g]
+    save_advanced(
+        tmp_path / "d2", mel_raw=mel, mel_normalized=mel_norm,
+        features_raw=feats, features_normalized=feats_norm,
+        lyrics_embeddings=rng.normal(size=(n, 768)).astype(np.float32),
+        labels=labels, mel_scaler=mel_scaler, flat_scaler=flat_scaler,
+        imputer=imputer, config={},
+        metadata=pd.DataFrame({"file_id": [f"c{i}" for i in range(n)],
+                               "genre": labels, "language": "english"}))
+    cfg = ConditionalVAEConfig(epochs=2, batch_size=16, host_stream=host_stream)
+    ops.reset_launch_counts()
+    df = run_conditional_vae(str(tmp_path / "d2"), str(tmp_path / "results"),
+                             cfg, ClusterConfig(), make_plots=False)
+    counts = ops.launch_counts()
+    # 34 train rows = 3 steps, 6 val rows = 1 batch, 2 epochs; 3 latent batches
+    assert counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == 2 * 4 + 3
+    assert counts["pairwise"] == 4
+    assert len(df) == 4
+    assert np.isfinite(df[["Silhouette", "NMI", "ARI", "Purity"]].to_numpy()).all()
+    flat, meta = load_checkpoint(
+        tmp_path / "results" / "Conditional_VAE" / "serving" / "model")
+    assert meta["arch"] == "cvae" and meta["input_hw"] == list(hw)
+    assert all(np.isfinite(v).all() for v in flat.values())

@@ -70,6 +70,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from tpuvae_torch.pipelines import (
         preprocess_advanced,
         preprocess_basic,
+        run_conditional_vae,
         run_simple_vae,
     )
     from tpuvae_torch.serve import serve
@@ -83,6 +84,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         run_simple_vae(str(tmp_path), str(tmp_path / "results"))
     with pytest.raises(RuntimeError, match="cuda"):
+        run_conditional_vae(str(tmp_path), str(tmp_path / "results"))
+    with pytest.raises(RuntimeError, match="cuda"):
         preprocess_basic(PreprocessConfig(output_dir=str(tmp_path / "d1")))
     with pytest.raises(RuntimeError, match="cuda"):
         preprocess_advanced(
@@ -90,6 +93,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
     assert not (tmp_path / "d1").exists() and not (tmp_path / "d2").exists()
     assert cli.main(["encode", f"--results_dir={tmp_path}", "x.wav"]) == 2
     assert cli.main(["train-simple", f"--data_dir={tmp_path}",
+                     f"--results_dir={tmp_path / 'results'}",
+                     "--epochs=1"]) == 2
+    assert cli.main(["train-cvae", f"--data_dir={tmp_path}",
                      f"--results_dir={tmp_path / 'results'}",
                      "--epochs=1"]) == 2
     assert not (tmp_path / "results").exists()
@@ -113,7 +119,10 @@ def test_kernel_library_is_not_built_on_import():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == ("[('masked_median_select', 0), "
+    # six kernels; kernel 6 counts its two halves apart
+    assert out.stdout.strip() == ("[('fusedconv_conv0', 0), "
+                                  "('fusedconv_conv1', 0), "
+                                  "('masked_median_select', 0), "
                                   "('pairwise', 0), ('stft_dense', 0), "
                                   "('stft_features', 0), ('tuning', 0)]")
 

@@ -258,10 +258,17 @@ def test_wrappers_run_plain_versions_on_cpu_without_launching(clips):
     torch.testing.assert_close(ops.pairwise.self_distances(x),
                                ops.pairwise.self_distances_plain(x),
                                rtol=0, atol=0)
+    img = torch.from_numpy(clips[:1, :128].reshape(1, 8, 16, 1))
+    args = [img, torch.ones((3, 3, 1, 32)), torch.zeros(32), torch.ones(32),
+            torch.zeros(32), torch.ones((3, 3, 32, 64)) * 0.01, torch.zeros(64)]
+    got = ops.fusedconv.fused_trunk2_forward(*args)
+    want = ops.fusedconv.fused_trunk2_forward_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.launch_counts()) == {"stft_features", "tuning",
                                         "masked_median_select", "pairwise",
-                                        "stft_dense"}
+                                        "stft_dense", "fusedconv_conv0",
+                                        "fusedconv_conv1"}
 
 
 def test_wrappers_refuse_other_devices():

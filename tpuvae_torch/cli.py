@@ -5,6 +5,7 @@ commands in ``tpuvae/cli.py``):
   python -m tpuvae_torch.cli preprocess           [--key=value ...]
   python -m tpuvae_torch.cli preprocess-advanced  [--key=value ...]
   python -m tpuvae_torch.cli train-simple [--key=value ...]
+  python -m tpuvae_torch.cli train-cvae   [--key=value ...]
   python -m tpuvae_torch.cli encode --arch=simple song.wav [song2.wav ...]
   python -m tpuvae_torch.cli serve  --arch=simple --port=8787   # HTTP daemon
 
@@ -32,6 +33,16 @@ overrides map onto ``SimpleVAEConfig`` (values parsed as JSON first, so
 ``processed_data1``), ``--results_dir`` (default ``results``), ``--device``
 (default cuda).  Plots are off: the t-SNE figure of the JAX command is not
 ported yet.
+
+``train-cvae`` trains the Conditional VAE on a ``processed_data2`` and
+writes ``results/clustering_metrics.csv`` (four rows: CVAE, PCA + K-Means,
+Autoencoder + K-Means, Direct Spectral), a copy under
+``results/Conditional_VAE/`` and the serving bundle
+``results/Conditional_VAE/serving/``.  ``--key=value`` overrides map onto
+``ConditionalVAEConfig`` (``--epochs=5``, ``--batch_size=8``,
+``--host_stream=true`` to keep the mel images on the host); extra flags as
+``train-simple`` with ``--data_dir`` defaulting to ``processed_data2``
+(``--data2_dir`` is read too).  ``train-hybrid`` is not ported yet.
 
 ``encode`` maps NEW audio clips through a trained model to latents +
 nearest-training-centroid cluster ids (serving bundle from a prior
@@ -156,6 +167,30 @@ def _dispatch(argv) -> int:
         print(df.to_string(index=False))
         return 0
 
+    if cmd == "train-cvae":
+        from tpuvae_torch.config import ConditionalVAEConfig
+        from tpuvae_torch.pipelines import run_conditional_vae
+
+        extra = {"data_dir", "data2_dir", "results_dir", "device"}
+        topts, positional = _parse_flags(
+            cmd, rest, extra | set(ConditionalVAEConfig().to_dict()))
+        if positional:
+            raise ValueError(f"train-cvae takes no positional arguments: "
+                             f"{positional}")
+        cfg = ConditionalVAEConfig().override(
+            [f"{k}={v}" for k, v in topts.items() if k not in extra])
+        df = run_conditional_vae(
+            topts.get("data2_dir") or topts.get("data_dir", "processed_data2"),
+            topts.get("results_dir", "results"), cfg, make_plots=False,
+            device=topts.get("device", "cuda"))
+        print(df.to_string(index=False))
+        return 0
+
+    if cmd == "train-hybrid":
+        raise NotImplementedError(
+            "train-hybrid is not ported to tpuvae_torch yet (ROADMAP.md, "
+            "queue 1, item 6: the agglomerative and DBSCAN sweeps come first)")
+
     if cmd == "encode":
         import numpy as np
 
@@ -205,7 +240,7 @@ def _dispatch(argv) -> int:
 
     raise KeyError(f"unknown command {cmd!r} (the PyTorch port has "
                    f"'synth-data', 'preprocess', 'preprocess-advanced', "
-                   f"'train-simple', 'encode' and 'serve')")
+                   f"'train-simple', 'train-cvae', 'encode' and 'serve')")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 The dict round trip, ``key=value`` overrides, and the configs the ported
 slices read — ``PreprocessConfig``, ``AdvancedPreprocessConfig``,
-``SimpleVAEConfig`` and ``ClusterConfig`` — with the same fields and
-defaults as the JAX package,
+``SimpleVAEConfig``, ``ConditionalVAEConfig``, ``HybridVAEConfig`` and
+``ClusterConfig`` — with the same fields and defaults as the JAX package,
 so a ``config.pkl`` written by either pipeline loads here.
 """
 
@@ -163,6 +163,57 @@ class SimpleVAEConfig(_ConfigBase):
 
 
 @dataclass(frozen=True)
+class ConditionalVAEConfig(_ConfigBase):
+    """Conditional conv VAE hyperparameters (reference ``Conditional_VAE.py:29-41``)."""
+
+    latent_dim: int = 64
+    text_dim: int = 768
+    num_classes: int = 10
+    # the port computes in float32 only: 'bfloat16' raises (kernel 6 has no
+    # bf16 form; ROADMAP.md, queue 1, item 5)
+    compute_dtype: str = "float32"
+    learning_rate: float = 1e-4
+    batch_size: int = 32
+    epochs: int = 600
+    beta: float = 4.0
+    text_loss_weight: float = 200.0  # dim-balancing weight, ref :238-240
+    patience: int = 20
+    val_fraction: float = 0.15
+    scan_epochs: int = 4             # read by the JAX package only
+    # memory-map the mel tensor and stream one batch per step
+    # (FitConfig.host_stream): O(batch) host and device memory instead of
+    # O(N), for datasets larger than either
+    host_stream: bool = False
+    # mid-train checkpoints (0 = off); the port raises NotImplementedError
+    # when they are asked for (ROADMAP.md, queue 1)
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 1
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class HybridVAEConfig(_ConfigBase):
+    """Hybrid conv+MLP VAE hyperparameters (reference ``Convolutional_VAE.py:202-205``)."""
+
+    latent_dim: int = 128
+    text_dim: int = 768
+    compute_dtype: str = "float32"   # see ConditionalVAEConfig
+    learning_rate: float = 1e-4
+    batch_size: int = 32
+    epochs: int = 500
+    beta: float = 1.0
+    alpha: float = 1.0               # declared-but-unused in the reference (:187)
+    text_loss_weight: float = 350.0  # ref :194
+    patience: int = 15
+    val_fraction: float = 0.15
+    scan_epochs: int = 4             # read by the JAX package only
+    host_stream: bool = False        # see ConditionalVAEConfig
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 1
+    seed: int = 42
+
+
+@dataclass(frozen=True)
 class ClusterConfig(_ConfigBase):
     """Clustering/eval settings covering all three reference sweeps."""
 
@@ -180,3 +231,13 @@ class ClusterConfig(_ConfigBase):
     dbscan_fallback_eps: float = 10.0            # ref :370-372
     tsne_perplexity: float = 30.0
     results_dir: str = "results"
+
+
+DEFAULTS = {
+    "preprocess": PreprocessConfig,
+    "preprocess_advanced": AdvancedPreprocessConfig,
+    "simple_vae": SimpleVAEConfig,
+    "conditional_vae": ConditionalVAEConfig,
+    "hybrid_vae": HybridVAEConfig,
+    "cluster": ClusterConfig,
+}

@@ -18,8 +18,9 @@ Usage::
     out.clusters  # (1,) int — nearest training centroid
 
 or ``python -m tpuvae_torch.cli encode --arch=simple song.wav``.  Only the
-``simple`` architecture is ported; ``cvae`` / ``hybrid`` serving is queued
-in ROADMAP.md.
+``simple`` architecture is served; ``cvae`` / ``hybrid`` serving is queued
+in ROADMAP.md (queue 1, item 8), though ``run_conditional_vae`` already
+writes its bundle through :func:`save_serving_model`.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ class ClipEncoder:
         if arch != "simple":
             raise NotImplementedError(
                 f"arch {arch!r} is not ported to tpuvae_torch yet "
-                f"(ROADMAP.md, queue 1: cvae/hybrid serving)")
+                f"(ROADMAP.md, queue 1, item 8: cvae/hybrid serving)")
         dev = resolve_device(device)
         subdir, default_data = _ARCH_DIRS[arch]
         serving = Path(results_dir) / subdir / "serving"
@@ -192,13 +193,13 @@ class ClipEncoder:
                             paths=paths)
 
 
-def save_serving_model(results_dir: str | Path, model: SimpleVAE,
+def save_serving_model(results_dir: str | Path, model: torch.nn.Module,
                        centers: np.ndarray, meta: dict) -> Path:
-    """Write the ``simple`` serving model and its centroids in the JAX
-    pipeline's layout (``tpuvae/pipelines.py:549-567``):
-    ``<results_dir>/Simple_VAE/serving/{model/, kmeans_centers.npy}``.
+    """Write the serving model of ``meta["arch"]`` and its centroids in the
+    JAX pipeline's layout (``tpuvae/pipelines.py:549-567``):
+    ``<results_dir>/<Arch dir>/serving/{model/, kmeans_centers.npy}``.
     Returns the ``serving`` directory."""
-    out = Path(results_dir) / _ARCH_DIRS["simple"][0] / "serving"
+    out = Path(results_dir) / _ARCH_DIRS[meta["arch"]][0] / "serving"
     save_checkpoint(out / "model", model, meta)
     np.save(out / "kmeans_centers.npy", np.asarray(centers, np.float32))
     return out

@@ -23,3 +23,12 @@ def encode_labels(values) -> tuple[np.ndarray, list]:
     values = np.asarray(values)
     classes, codes = np.unique(values, return_inverse=True)
     return codes.astype(np.int32), list(classes)
+
+
+def one_hot_np(codes: np.ndarray, k: int | None = None) -> np.ndarray:
+    """OneHotEncoder equivalent (ref ``Conditional_VAE.py:89-90``)."""
+    codes = np.asarray(codes)
+    k = k if k is not None else int(codes.max()) + 1
+    out = np.zeros((len(codes), k), dtype=np.float32)
+    out[np.arange(len(codes)), codes] = 1.0
+    return out

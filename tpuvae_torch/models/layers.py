@@ -5,7 +5,10 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from tpuvae_torch.ops.fusedconv import LEAKY_SLOPE, fused_trunk2
 
 # flax's lecun_normal draws a standard normal truncated to [-2, 2] and
 # divides by its standard deviation (jax.nn.initializers.variance_scaling)
@@ -21,20 +24,49 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
 
 def lecun_init_(module: nn.Module,
                 generator: torch.Generator | None = None) -> nn.Module:
-    """flax's default initialisation, in place: every ``nn.Linear`` weight
-    from ``lecun_normal`` (a truncated normal of variance 1/fan_in) drawn
-    from ``generator``, zero biases; BatchNorm scale 1, bias 0, running
-    mean 0 and variance 1."""
+    """flax's default initialisation, in place: every ``nn.Linear`` and
+    3x3 conv weight from ``lecun_normal`` (a truncated normal of variance
+    1/fan_in; fan_in = 9 x input channels for a conv kernel) drawn from
+    ``generator``, zero biases; BatchNorm scale 1, bias 0, running mean 0
+    and variance 1."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Linear):
-                std = m.in_features ** -0.5 / _TRUNC_STD
+            if isinstance(m, (nn.Linear, Stride2Conv, Stride2ConvTranspose)):
+                fan_in = (m.in_features if isinstance(m, nn.Linear)
+                          else 9 * m.in_channels)
+                std = fan_in ** -0.5 / _TRUNC_STD
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
                                       2.0 * std, generator=generator)
                 m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm1d):
+            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 m.reset_parameters()
     return module
+
+
+def _flax_batch_norm(bn, x: torch.Tensor, dims, stats=None) -> torch.Tensor:
+    """Training-mode ``flax.linen.BatchNorm`` of ``x`` over ``dims`` for the
+    torch BatchNorm module ``bn``: normalise with the batch's biased
+    statistics (flax's fast variance, or ``stats = (mean, var)`` where a
+    kernel has gathered them already) and move the running statistics by
+    ``0.99 * old + 0.01 * batch`` with that biased variance."""
+    if stats is None:
+        mean = x.mean(dim=dims)
+        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+    else:
+        mean, var = stats
+    shape = (1, -1) + (1,) * (x.dim() - 2)       # channels are dim 1
+    y = ((x - mean.view(shape))
+         * (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
+         + bn.bias.view(shape))
+    _move_running_stats(bn, mean, var)
+    return y
+
+
+def _move_running_stats(bn, mean: torch.Tensor, var: torch.Tensor) -> None:
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+        bn.num_batches_tracked.add_(1)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -55,16 +87,22 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
-        var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
-        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
-        return y
+        return _flax_batch_norm(self, x, (0,))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """:class:`BatchNorm1d`'s semantics for an ``(N, C, H, W)`` tensor: the
+    statistics run over (N, H, W).  ``forward(x, stats=(mean, var))``
+    normalises with batch statistics gathered elsewhere (kernel 6 returns
+    them with the raw convolution output)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor, stats=None) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        return _flax_batch_norm(self, x, (0, 2, 3), stats)
 
 
 def apply_dropout(x: torch.Tensor, rate: float, training: bool,
@@ -98,3 +136,107 @@ class MLPBlock(nn.Module):
             x = apply_dropout(torch.relu(norm(dense(x))), self.rate,
                               self.training, generator)
         return x
+
+
+class Stride2Conv(nn.Module):
+    """3x3 stride-2 SAME convolution (``tpuvae/models/layers.py:95``) on an
+    ``(N, C, H, W)`` tensor with even H and W: XLA's SAME padding is (0, 1)
+    there, one zero row and column at the high edge only.  ``weight`` is
+    ``(F, C, 3, 3)``; flax's ``kernel`` is its (3, 3, C, F) transpose."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.in_channels = in_channels
+        self.features = features
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] % 2 or x.shape[3] % 2:
+            raise ValueError(f"H and W must be even, got {tuple(x.shape)}")
+        return F.conv2d(F.pad(x, (0, 1, 0, 1)), self.weight, self.bias,
+                        stride=2)
+
+
+class Stride2ConvTranspose(nn.Module):
+    """3x3 stride-2 SAME transposed convolution
+    (``tpuvae/models/layers.py:124``) on ``(N, C, H, W)`` ->
+    ``(N, F, 2H, 2W)``.  ``lax.conv_transpose(..., "SAME")`` dilates the
+    input by 2, pads (2, 1) and does not flip the kernel; that map is
+    ``conv_transpose2d(stride=2, padding=0)`` with the kernel flipped on
+    both spatial axes, cut to the first 2H x 2W outputs.  ``weight`` holds
+    the flipped kernel as ``(C, F, 3, 3)`` (``convert.py`` flips flax's)."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.in_channels = in_channels
+        self.features = features
+        self.weight = nn.Parameter(torch.empty(in_channels, features, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[2], x.shape[3]
+        y = F.conv_transpose2d(x, self.weight, self.bias, stride=2)
+        return y[:, :, :2 * h, :2 * w]
+
+
+class ConvEncoderTrunk(nn.Module):
+    """6x stride-2 Conv(3x3) + BN + LeakyReLU, 1->32->64->128->256->512->512
+    (``tpuvae/models/layers.py:179``).  Input ``(B, H, W, 1)`` NHWC, as the
+    JAX package's; output ``(B, 512 * H/64 * W/64)`` flattened in (H, W, C)
+    order, which the Linear layers after it depend on.
+
+    Layers 0-1 run through kernel 6 (:func:`fused_trunk2`): in training
+    with the batch statistics it gathers, which also move the running
+    averages of BatchNorm 0 and 1; in eval mode with layer 0 folded from
+    its running statistics.  Layers 2-5 are library convolutions on the
+    channels-last view of the kernel's NHWC output."""
+
+    def __init__(self, features: Sequence[int] = (32, 64, 128, 256, 512, 512)):
+        super().__init__()
+        chans = [1, *features]
+        self.conv = nn.ModuleList(
+            Stride2Conv(a, b) for a, b in zip(chans[:-1], chans[1:]))
+        self.norm = nn.ModuleList(BatchNorm2d(f) for f in features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"the conv trunk computes in float32 only (got {x.dtype}): "
+                f"kernel 6 has no bfloat16 form (ROADMAP.md, queue 1, item 5)")
+        c0, c1 = self.conv[0], self.conv[1]
+        n0, n1 = self.norm[0], self.norm[1]
+        running0 = None if self.training else (n0.running_mean, n0.running_var)
+        y1, stats0, stats1 = fused_trunk2(
+            x, c0.weight.permute(2, 3, 1, 0), c0.bias, n0.weight, n0.bias,
+            c1.weight.permute(2, 3, 1, 0), c1.bias, n0.eps, running0)
+        if self.training:
+            _move_running_stats(n0, *stats0)
+        h = y1.permute(0, 3, 1, 2)            # channels-last view, no copy
+        h = F.leaky_relu(n1(h, stats1), LEAKY_SLOPE)
+        for conv, norm in zip(self.conv[2:], self.norm[2:]):
+            h = F.leaky_relu(norm(conv(h)), LEAKY_SLOPE)
+        return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+
+
+class ConvDecoderTrunk(nn.Module):
+    """6x stride-2 ConvTranspose(3x3) mirror, 512->512->256->128->64->32->1
+    (``tpuvae/models/layers.py:206``).  Input ``(B, 512 * fh * fw)`` in
+    (H, W, C) order -> ``(B, 64 fh, 64 fw, 1)`` NHWC; no BatchNorm or
+    activation after the last layer."""
+
+    def __init__(self, features: Sequence[int] = (512, 256, 128, 64, 32),
+                 feature_hw: tuple = (2, 16)):
+        super().__init__()
+        chans = [512, *features, 1]
+        self.feature_hw = tuple(feature_hw)
+        self.conv = nn.ModuleList(
+            Stride2ConvTranspose(a, b) for a, b in zip(chans[:-1], chans[1:]))
+        self.norm = nn.ModuleList(BatchNorm2d(f) for f in features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fh, fw = self.feature_hw
+        h = x.reshape(x.shape[0], fh, fw, 512).permute(0, 3, 1, 2)
+        for conv, norm in zip(self.conv[:-1], self.norm):
+            h = F.leaky_relu(norm(conv(h)), LEAKY_SLOPE)
+        return self.conv[-1](h).permute(0, 2, 3, 1)

@@ -10,6 +10,9 @@ kernel                      replaces (Pallas, tpuvae/ops/)          wrapper
 ``pairwise``                pairwise.py:27 ``_kernel``              :func:`pairwise.squared_distances`,
                                                                     :func:`pairwise.self_distances`
 ``stft_dense``              stft.py:73 ``_make_kernel``             :func:`stft.stft_power_dense`
+``fusedconv_conv0``,        fusedconv.py:67 ``_conv0_kernel``,      :func:`fusedconv.conv0_stats`,
+``fusedconv_conv1``         :88 ``_conv1_kernel``                   :func:`fusedconv.conv1_norm_stats`,
+                                                                    :func:`fusedconv.fused_trunk2`
 ==========================  ======================================  ===========================
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
@@ -17,7 +20,14 @@ plain PyTorch version for a CPU tensor.  :func:`launch_counts` reads each
 kernel's launch counter; :func:`reset_launch_counts` sets them to 0.
 """
 
-from tpuvae_torch.ops import _build, pairwise, select, stft, tuning  # noqa: F401
+from tpuvae_torch.ops import (  # noqa: F401
+    _build,
+    fusedconv,
+    pairwise,
+    select,
+    stft,
+    tuning,
+)
 
 
 def launch_counts() -> dict[str, int]:

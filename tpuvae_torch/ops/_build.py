@@ -38,6 +38,7 @@ _EXTRA_FLAGS = {
     "select": ["-fmad=false"],
     "pairwise": [],
     "stft_dense": [],
+    "fusedconv": [],
 }
 
 _LOCK = threading.Lock()

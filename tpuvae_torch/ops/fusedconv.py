@@ -1,0 +1,316 @@
+"""Fused conv + BatchNorm statistics for the conv trunk's first two layers
+(kernel 6 and its plain version).
+
+Counterpart of ``tpuvae/ops/fusedconv.py``.  Layers 0 and 1 of
+``ConvEncoderTrunk`` are 3x3 stride-2 SAME convolutions (pads (0, 1) on
+even dims), each followed by BatchNorm and LeakyReLU(0.01).  The pair
+writes each raw activation once and gathers its BatchNorm statistics while
+it is written; layer 1 normalises layer 0's output on load:
+
+* :func:`conv0_stats` — ``x (B, H, W)``, ``w0 (3, 3, F0)``, ``b0`` ->
+  raw ``y0 (B, H/2, W/2, F0)`` and per-image sums / sums of squares
+  ``(B, 1, F0)``;
+* :func:`conv1_norm_stats` — raw ``y0``, folded BatchNorm ``scale`` /
+  ``shift``, ``w1 (3, 3, C, F1)``, ``b1`` -> raw ``y1 (B, H/4, W/4, F1)``
+  and its sums; the zero padding applies after the affine;
+* :func:`fused_trunk2_forward` — both, with the ``(C,)`` finalisation in
+  the JAX op order (``tpuvae/ops/fusedconv.py:141-145``);
+* :func:`fused_trunk2` — the same function for a model: differentiable
+  (:class:`torch.autograd.Function`), with batch statistics in training or
+  given running statistics in eval mode.
+
+On a CUDA tensor the two kernels of ``csrc/fusedconv.cu`` run, fp32, at the
+trunk's widths (F0 = C = 32, F1 = 64), or the call raises; on a CPU tensor
+the plain PyTorch versions (``*_plain``) run.  The JAX package has no
+backward kernel for the pair, so the gradient goes through PyTorch's
+convolution gradients, from the saved input, the raw ``y0`` and the
+statistics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from tpuvae_torch.ops import _build
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+CONV0 = _build.Kernel(
+    "fusedconv_conv0", "fusedconv", "tpuvae_fusedconv_conv0",
+    [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR])
+CONV1 = _build.Kernel(
+    "fusedconv_conv1", "fusedconv", "tpuvae_fusedconv_conv1",
+    [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
+     _PTR, _PTR, _PTR])
+
+LEAKY_SLOPE = 0.01
+# output pixels per CTA (rows, columns) of the two kernels in csrc/fusedconv.cu
+_TILE0 = (8, 32)
+_TILE1 = (8, 16)
+_KERNEL_WIDTHS = (32, 32, 64)       # F0, C, F1 the CUDA kernels are built for
+
+
+# -- plain versions -----------------------------------------------------------
+
+def _conv_s2_same(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-2 SAME conv on even dims, NHWC in and out: the padding is
+    (0, 1) on both axes (``lax.conv_general_dilated(..., "SAME")``)."""
+    xp = F.pad(x_nhwc.permute(0, 3, 1, 2), (0, 1, 0, 1))
+    y = F.conv2d(xp, w_hwio.permute(3, 2, 0, 1), b, stride=2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _image_sums(y: torch.Tensor):
+    return (y.sum(dim=(1, 2))[:, None, :], (y * y).sum(dim=(1, 2))[:, None, :])
+
+
+def conv0_stats_plain(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor):
+    """Plain version of kernel 6's first half (``_conv0_kernel``)."""
+    y0 = _conv_s2_same(x[..., None], w0[:, :, None, :], b0)
+    return (y0, *_image_sums(y0))
+
+
+def conv1_norm_stats_plain(y0: torch.Tensor, scale: torch.Tensor,
+                           shift: torch.Tensor, w1: torch.Tensor,
+                           b1: torch.Tensor):
+    """Plain version of kernel 6's second half (``_conv1_kernel``): the
+    affine and LeakyReLU first, then the zero padding of the convolution."""
+    z = F.leaky_relu(y0 * scale + shift, LEAKY_SLOPE)
+    y1 = _conv_s2_same(z, w1, b1)
+    return (y1, *_image_sums(y1))
+
+
+def _finalize(s: torch.Tensor, ss: torch.Tensor, n: int):
+    """Batch mean and biased variance from the partial sums, in the op
+    order of ``tpuvae/ops/fusedconv.py:142-143``."""
+    mean = s.sum(dim=(0, 1)) / n
+    var = torch.clamp_min(ss.sum(dim=(0, 1)) / n - mean * mean, 0.0)
+    return mean, var
+
+
+def _fold(mean, var, gamma, beta, eps: float):
+    scale = gamma * torch.rsqrt(var + eps)
+    return scale, beta - mean * scale
+
+
+def fused_trunk2_forward_plain(x, w0, b0, gamma0, beta0, w1, b1,
+                               eps: float = 1e-5):
+    """Plain version of :func:`fused_trunk2_forward`."""
+    return _pair_forward(conv0_stats_plain, conv1_norm_stats_plain,
+                         x, w0, b0, gamma0, beta0, w1, b1, eps, None)[:3]
+
+
+# -- wrappers -------------------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, shape) -> None:
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+
+
+def _check_even(h: int, w: int) -> None:
+    if h % 2 or w % 2 or h <= 0 or w <= 0:
+        raise ValueError(f"H and W must be even and positive, got {h} x {w} "
+                         f"(SAME pads (0, 1) only on even dims)")
+
+
+def _tiles(h2: int, w2: int, tile) -> int:
+    return -(-h2 // tile[0]) * -(-w2 // tile[1])
+
+
+def _launch_args(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device} do not pair")
+        if not t.is_contiguous():
+            raise ValueError("kernel arguments must be contiguous")
+    return [_build.ptr(t) for t in tensors], dev
+
+
+def conv0_stats(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor):
+    """``x (B, H, W)``, ``w0 (3, 3, F0)``, ``b0 (F0,)`` ->
+    ``(y0 (B, H/2, W/2, F0) raw, s (B, 1, F0), ss (B, 1, F0))``.
+
+    A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
+    through :func:`conv0_stats_plain`.  The kernel replaces
+    ``tpuvae/ops/fusedconv.py:67`` (``_conv0_kernel``); it is bound by the
+    bytes of ``y0``.
+    """
+    _check(x, "x", (None, None, None))
+    f0 = w0.shape[-1]
+    _check(w0, "w0", (3, 3, f0))
+    _check(b0, "b0", (f0,))
+    b, h, w = x.shape
+    _check_even(h, w)
+    if x.device.type == "cpu":
+        return conv0_stats_plain(x, w0, b0)
+    if f0 != _KERNEL_WIDTHS[0]:
+        raise ValueError(f"the conv0 kernel is built for F0 = "
+                         f"{_KERNEL_WIDTHS[0]}, got {f0}")
+    x, w0, b0 = x.contiguous(), w0.contiguous(), b0.contiguous()
+    h2, w2 = h // 2, w // 2
+    tiles = _tiles(h2, w2, _TILE0)
+    y0 = torch.empty((b, h2, w2, f0), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, b, tiles, f0), dtype=torch.float32, device=x.device)
+    if b:
+        (px, pw, pb, py, ps, pss), dev = _launch_args(
+            x, w0, b0, y0, part[0], part[1])
+        CONV0(px, pw, pb, b, h, w, f0, tiles, py, ps, pss,
+              _build.stream_ptr(dev))
+    sums = part.sum(dim=2, keepdim=True)
+    return y0, sums[0], sums[1]
+
+
+def conv1_norm_stats(y0: torch.Tensor, scale: torch.Tensor,
+                     shift: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor):
+    """Raw ``y0 (B, H, W, C)``, folded BatchNorm ``scale`` / ``shift (C,)``,
+    ``w1 (3, 3, C, F1)``, ``b1 (F1,)`` ->
+    ``(y1 (B, H/2, W/2, F1) raw, s (B, 1, F1), ss (B, 1, F1))``.
+
+    A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
+    through :func:`conv1_norm_stats_plain`.  The kernel replaces
+    ``tpuvae/ops/fusedconv.py:88`` (``_conv1_kernel``); it is bound by its
+    fp32 operations.
+    """
+    _check(y0, "y0", (None, None, None, None))
+    b, h, w, c = y0.shape
+    f1 = w1.shape[-1]
+    _check(scale, "scale", (c,))
+    _check(shift, "shift", (c,))
+    _check(w1, "w1", (3, 3, c, f1))
+    _check(b1, "b1", (f1,))
+    _check_even(h, w)
+    if y0.device.type == "cpu":
+        return conv1_norm_stats_plain(y0, scale, shift, w1, b1)
+    if (c, f1) != _KERNEL_WIDTHS[1:]:
+        raise ValueError(f"the conv1 kernel is built for C, F1 = "
+                         f"{_KERNEL_WIDTHS[1:]}, got {(c, f1)}")
+    y0, scale, shift, w1, b1 = (t.contiguous()
+                                for t in (y0, scale, shift, w1, b1))
+    h2, w2 = h // 2, w // 2
+    tiles = _tiles(h2, w2, _TILE1)
+    y1 = torch.empty((b, h2, w2, f1), dtype=torch.float32, device=y0.device)
+    part = torch.empty((2, b, tiles, f1), dtype=torch.float32,
+                       device=y0.device)
+    if b:
+        (py0, psc, psh, pw, pb, py1, ps, pss), dev = _launch_args(
+            y0, scale, shift, w1, b1, y1, part[0], part[1])
+        CONV1(py0, psc, psh, pw, pb, b, h, w, c, f1, tiles, py1, ps, pss,
+              _build.stream_ptr(dev))
+    sums = part.sum(dim=2, keepdim=True)
+    return y1, sums[0], sums[1]
+
+
+def _pair_forward(conv0, conv1, x, w0, b0, gamma0, beta0, w1, b1, eps,
+                  running0):
+    """The pair through ``conv0`` / ``conv1``; layer 0 is normalised with
+    its batch statistics, or with ``running0 = (mean, var)`` when given.
+    Returns ``(y1, (mean0, var0), (mean1, var1), y0)`` with the batch
+    statistics of both raw outputs."""
+    if x.dim() != 4 or x.shape[-1] != 1:
+        raise ValueError(f"x must be (B, H, W, 1), got {tuple(x.shape)}")
+    y0, s0, ss0 = conv0(x[..., 0], w0[:, :, 0, :], b0)
+    mean0, var0 = _finalize(s0, ss0, y0.shape[0] * y0.shape[1] * y0.shape[2])
+    m, v = (mean0, var0) if running0 is None else running0
+    scale0, shift0 = _fold(m, v, gamma0, beta0, eps)
+    y1, s1, ss1 = conv1(y0, scale0, shift0, w1, b1)
+    mean1, var1 = _finalize(s1, ss1, y1.shape[0] * y1.shape[1] * y1.shape[2])
+    return y1, (mean0, var0), (mean1, var1), y0
+
+
+def fused_trunk2_forward(x, w0, b0, gamma0, beta0, w1, b1, eps: float = 1e-5):
+    """Forward of trunk layers 0-1 with single-write activations
+    (``tpuvae/ops/fusedconv.py:176``): ``x (B, H, W, 1)``,
+    ``w0 (3, 3, 1, F0)``, ``w1 (3, 3, F0, F1)`` ->
+    ``(y1_raw, (mean0, var0), (mean1, var1))``, the second conv's pre-BN
+    output and the BatchNorm batch statistics of each conv output.  Not
+    differentiable: models call :func:`fused_trunk2`."""
+    with torch.no_grad():
+        return _pair_forward(conv0_stats, conv1_norm_stats, x, w0, b0,
+                             gamma0, beta0, w1, b1, eps, None)[:3]
+
+
+# -- the differentiable pair -------------------------------------------------------
+
+def _batch_stats(y: torch.Tensor):
+    mean = y.mean(dim=(0, 1, 2))
+    var = torch.clamp_min((y * y).mean(dim=(0, 1, 2)) - mean * mean, 0.0)
+    return mean, var
+
+
+class _FusedTrunk2(torch.autograd.Function):
+    """``(y1, mean0, var0, mean1, var1)`` of the pair.  ``forward`` runs the
+    wrappers (the kernels on the card); ``backward`` rebuilds layer 1 from
+    the saved raw ``y0`` with PyTorch operations and takes the convolution
+    gradients from PyTorch (the JAX package has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, gamma0, beta0, w1, b1, eps, run_mean, run_var):
+        running0 = None if run_mean is None else (run_mean, run_var)
+        y1, (mean0, var0), (mean1, var1), y0 = _pair_forward(
+            conv0_stats, conv1_norm_stats, x, w0, b0, gamma0, beta0, w1, b1,
+            eps, running0)
+        ctx.eps = eps
+        ctx.batch_stats = running0 is None
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w0, gamma0, beta0, w1, b1, y0,
+                              *(() if running0 is None else running0))
+        ctx.mark_non_differentiable(mean0, var0)
+        return y1, mean0, var0, mean1, var1
+
+    @staticmethod
+    def backward(ctx, g_y1, _g_mean0, _g_var0, g_mean1, g_var1):
+        x, w0, gamma0, beta0, w1, b1, y0, *running0 = ctx.saved_tensors
+        with torch.enable_grad():
+            y0v = y0.detach().requires_grad_(True)
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (gamma0, beta0, w1, b1)]
+            g0, be0, w1v, b1v = leaves
+            mean0, var0 = _batch_stats(y0v) if ctx.batch_stats else running0
+            scale0, shift0 = _fold(mean0, var0, g0, be0, ctx.eps)
+            z = F.leaky_relu(y0v * scale0 + shift0, LEAKY_SLOPE)
+            y1 = _conv_s2_same(z, w1v, b1v)
+            mean1, var1 = _batch_stats(y1)
+            outs, grads = [y1], [g_y1]
+            for out, g in ((mean1, g_mean1), (var1, g_var1)):
+                if g is not None:
+                    outs.append(out)
+                    grads.append(g)
+            g_y0, g_g0, g_be0, g_w1, g_b1 = torch.autograd.grad(
+                outs, [y0v, *leaves], grads)
+        # layer 0: y0 = conv(pad(x), w0) + b0
+        g_nchw = g_y0.permute(0, 3, 1, 2)
+        xp = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1))
+        w0_oihw = w0.permute(3, 2, 0, 1)
+        g_w0 = torch.nn.grad.conv2d_weight(
+            xp, w0_oihw.shape, g_nchw, stride=2).permute(2, 3, 1, 0)
+        g_b0 = g_y0.sum(dim=(0, 1, 2))
+        g_x = None
+        if ctx.needs_input_grad[0]:
+            g_xp = torch.nn.grad.conv2d_input(
+                xp.shape, w0_oihw, g_nchw, stride=2)
+            g_x = g_xp[:, :, :x.shape[1], :x.shape[2]].permute(0, 2, 3, 1)
+        return g_x, g_w0, g_b0, g_g0, g_be0, g_w1, g_b1, None, None, None
+
+
+def fused_trunk2(x, w0, b0, gamma0, beta0, w1, b1, eps: float = 1e-5,
+                 running0=None):
+    """Differentiable trunk layers 0-1 through kernel 6:
+    ``(y1_raw, (mean0, var0), (mean1, var1))`` as
+    :func:`fused_trunk2_forward`.  With ``running0 = (mean, var)`` layer 0
+    is normalised with those statistics (eval mode) and not with the
+    batch's.  Gradients flow through ``y1``, ``mean1`` and ``var1``."""
+    run_mean, run_var = (None, None) if running0 is None else running0
+    y1, mean0, var0, mean1, var1 = _FusedTrunk2.apply(
+        x, w0, b0, gamma0, beta0, w1, b1, eps, run_mean, run_var)
+    return y1, (mean0, var0), (mean1, var1)

@@ -3,6 +3,7 @@
   preprocess_basic      ≙ src/1_preprocessing.py          -> processed_data1/
   preprocess_advanced   ≙ src/1_preprocessing_advanced.py -> processed_data2/
   run_simple_vae        ≙ src/Simple_VAE.py
+  run_conditional_vae   ≙ src/Conditional_VAE.py
 
 The preprocess pipelines decode clips on a thread pool, extract features
 on the device in batches (:func:`_extract_batched`), persist each batch as
@@ -10,8 +11,12 @@ a shard so an interrupted run resumes, and write the artifact sets.
 ``run_simple_vae`` goes step for step as ``tpuvae/pipelines.py:587-676``
 runs it — fit, ``best_vae_model/``, latents, the silhouette k-sweep, the
 VAE row, the serving bundle, the PCA + KMeans row and the consolidated
-metrics CSV.  All run on one device; the artifact, shard and CSV contracts
-are the JAX pipeline's, so either package reads what the other writes.
+metrics CSV.  ``run_conditional_vae`` goes as ``tpuvae/pipelines.py:683-815``:
+one-hot genre condition, 85/15 split, fit on the validation loss, batched
+latents, k-means at k = number of genres, the serving bundle, and the four
+rows of ``evaluate_clustering`` (CVAE, PCA, autoencoder, raw features).  All
+run on one device; the artifact, shard and CSV contracts are the JAX
+pipeline's, so either package reads what the other writes.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from tpuvae_torch.cluster.sweeps import kmeans_k_sweep
 from tpuvae_torch.config import (
     AdvancedPreprocessConfig,
     ClusterConfig,
+    ConditionalVAEConfig,
+    HybridVAEConfig,
     PreprocessConfig,
     SimpleVAEConfig,
 )
@@ -43,7 +50,12 @@ from tpuvae_torch.dsp.features import (
     resolve_transfer_dtype,
 )
 from tpuvae_torch.infer import save_serving_model
-from tpuvae_torch.io.artifacts import load_basic, save_advanced, save_basic
+from tpuvae_torch.io.artifacts import (
+    load_advanced,
+    load_basic,
+    save_advanced,
+    save_basic,
+)
 from tpuvae_torch.io.catalog import collect_audio_files
 from tpuvae_torch.io.normalize import impute_and_scale, normalize_mel_images
 from tpuvae_torch.io.results import consolidate_metrics
@@ -53,14 +65,27 @@ from tpuvae_torch.metrics.internal import (
     calinski_harabasz_score,
     silhouette_from_distances,
 )
-from tpuvae_torch.metrics.labels import compact_labels
+from tpuvae_torch.metrics.external import (
+    adjusted_rand_score,
+    normalized_mutual_info,
+    purity_score,
+)
+from tpuvae_torch.metrics.labels import (
+    compact_labels,
+    encode_labels,
+    one_hot_np,
+)
 from tpuvae_torch.metrics.pairwise import self_distances
-from tpuvae_torch.models import SimpleVAE
+from tpuvae_torch.models import ConditionalVAE, SimpleAutoencoder, SimpleVAE
 from tpuvae_torch.train.checkpoint import save_checkpoint
-from tpuvae_torch.train.loop import FitConfig, fit
-from tpuvae_torch.train.objectives import simple_vae_objective
+from tpuvae_torch.train.loop import FitConfig, fit, train_val_split
+from tpuvae_torch.train.objectives import (
+    autoencoder_objective,
+    cvae_objective,
+    simple_vae_objective,
+)
 from tpuvae_torch.train.state import create_state
-from tpuvae_torch.utils.batching import batched_apply
+from tpuvae_torch.utils.batching import RowView, batched_apply
 from tpuvae_torch.text.embedder import embed_lyrics
 from tpuvae_torch.utils.logging import RunLogger, StageTimer
 
@@ -588,3 +613,197 @@ def run_simple_vae(
     logger.log("metrics", architecture="Simple VAE",
                rows=df.to_dict("records"))
     return df
+
+
+# -----------------------------------------------------------------------------
+# Shared evaluation helper (ref evaluate_clustering, Conditional_VAE.py:289-308)
+# -----------------------------------------------------------------------------
+
+def evaluate_clustering(latents, y_true_codes, n_true: int,
+                        seed: int = 42) -> dict:
+    """KMeans with k = #true classes; Silhouette + NMI + ARI + Purity.
+    ``latents`` is a tensor (the work runs where it lies) or a host array."""
+    x = torch.as_tensor(latents, dtype=torch.float32)
+    km = kmeans(x, n_true, n_init=10, seed=seed)
+    lab, k = compact_labels(km.labels)
+    sil = float(silhouette_from_distances(self_distances(x), lab, k))
+    return {
+        "Silhouette": sil,
+        "NMI": normalized_mutual_info(y_true_codes, lab, n_true, k),
+        "ARI": adjusted_rand_score(y_true_codes, lab, n_true, k),
+        "Purity": purity_score(y_true_codes, lab, n_true, k),
+    }
+
+
+def _batched_latents(fn, arrays, batch_size: int,
+                     device: torch.device) -> np.ndarray:
+    """``fn`` over host ``arrays`` in batches on ``device`` (the reference
+    encodes all N mel images in one tensor, ``Conditional_VAE.py:398-402``);
+    returns the host result."""
+    with torch.no_grad():
+        return batched_apply(
+            lambda *chunk: fn(*(torch.from_numpy(np.array(c))
+                                .to(device) for c in chunk)),
+            arrays, batch_size)
+
+
+# -----------------------------------------------------------------------------
+# Conditional VAE pipeline (≙ src/Conditional_VAE.py main())
+# -----------------------------------------------------------------------------
+
+def run_conditional_vae(
+    data_dir: str = "processed_data2",
+    results_dir: str = "results",
+    cfg: ConditionalVAEConfig = ConditionalVAEConfig(),
+    ccfg: ClusterConfig = ClusterConfig(),
+    logger: RunLogger | None = None,
+    make_plots: bool = False,
+    device: str = "cuda",
+) -> pd.DataFrame:
+    """Train the Conditional VAE on ``data_dir`` (a ``processed_data2``),
+    cluster its latents at k = number of genres, and write the serving
+    bundle and the four metric rows under ``results_dir``.  Returns the
+    rows.
+
+    ``device`` defaults to CUDA and raises without a card.  On the card
+    every trunk forward launches kernel 6 and every
+    ``evaluate_clustering`` kernel 5.  Plots and ``compute_dtype=
+    "bfloat16"`` are not ported and raise.
+    """
+    if make_plots:
+        raise NotImplementedError(
+            "t-SNE, the reconstruction pair and the plots are not ported to "
+            "tpuvae_torch yet (ROADMAP.md, queue 1, item 9: viz/); pass "
+            "make_plots=False")
+    if str(cfg.compute_dtype) != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is not ported to "
+            f"tpuvae_torch: the conv trunk's fused kernel computes in "
+            f"float32 only (ROADMAP.md, queue 1, item 5: bfloat16)")
+    dev = resolve_device(device)
+    logger = logger or RunLogger()
+    t_start = time.perf_counter()
+    stream = bool(cfg.host_stream)
+    data = load_advanced(data_dir, mmap=stream)
+    if stream:
+        mel = RowView(data["mel"], add_channel=True)          # NHWC, lazy
+    else:
+        mel = np.asarray(data["mel"], np.float32)[..., None]  # NHWC
+    text = np.asarray(data["text"], np.float32)
+    handcrafted = np.asarray(data["handcrafted"], np.float32)
+    y_genre, genre_names = encode_labels(data["metadata"]["genre"].values)
+    cond = one_hot_np(y_genre)
+    n_classes = cond.shape[1]
+
+    model = ConditionalVAE(
+        latent_dim=cfg.latent_dim, text_dim=text.shape[1],
+        num_classes=n_classes, input_hw=(mel.shape[1], mel.shape[2]),
+        generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    state = create_state(model, cfg.learning_rate)
+    tr, va = train_val_split(len(mel), cfg.val_fraction, cfg.seed)
+    fit_cfg = FitConfig(
+        epochs=cfg.epochs, batch_size=cfg.batch_size, patience=cfg.patience,
+        monitor="val", restore_best=False, seed=cfg.seed,
+        scan_epochs=cfg.scan_epochs, host_stream=stream,
+        # mid-train checkpoints (off by default): fit does not take them yet
+        checkpoint_dir=(f"{results_dir}/Conditional_VAE/checkpoints"
+                        if cfg.checkpoint_every > 0 else None),
+    )
+    if stream:
+        splits = [(RowView(data["mel"], r, add_channel=True), text[r], cond[r])
+                  for r in (tr, va)]
+    else:
+        splits = [tuple(torch.from_numpy(a[r]).to(dev)
+                        for a in (mel, text, cond)) for r in (tr, va)]
+    t0 = time.perf_counter()
+    logger.log("fit_start", setup_seconds=t0 - t_start, n_train=len(tr),
+               n_val=len(va), host_stream=stream)
+    res = fit(state, cvae_objective(cfg.beta, cfg.text_loss_weight),
+              splits[0], fit_cfg, val_data=splits[1], logger=logger)
+    del splits
+    logger.log("fit", seconds=time.perf_counter() - t0,
+               epochs=len(res.history["train_loss"]),
+               best_epoch=res.best_epoch, steps_per_sec=res.steps_per_sec,
+               epoch_seconds=res.history["epoch_seconds"],
+               train_loss=res.history["train_loss"],
+               val_loss=res.history["val_loss"])
+
+    t0 = time.perf_counter()
+    model.eval()
+    z_cvae = _batched_latents(model.latent, (mel, text, cond), cfg.batch_size,
+                              dev)
+    logger.log("latents", shape=list(z_cvae.shape),
+               seconds=time.perf_counter() - t0)
+
+    zd = torch.from_numpy(z_cvae).to(dev)
+    km_cvae = kmeans(zd, n_classes, n_init=ccfg.kmeans_n_init, seed=ccfg.seed)
+    serving = save_serving_model(
+        results_dir, model, km_cvae.centers,
+        meta={"arch": "cvae", "latent_dim": cfg.latent_dim,
+              "text_dim": int(text.shape[1]), "num_classes": int(n_classes),
+              "input_hw": [int(mel.shape[1]), int(mel.shape[2])],
+              "compute_dtype": str(cfg.compute_dtype),
+              "genre_names": [str(g) for g in genre_names],
+              "data_dir": str(data_dir)})
+    logger.log("serving_saved", dir=str(serving),
+               n_centers=int(len(km_cvae.centers)))
+
+    results = []
+    eval_s = 0.0
+
+    def row(method: str, feats) -> None:
+        nonlocal eval_s
+        t0 = time.perf_counter()
+        m = evaluate_clustering(feats, y_genre, n_classes, ccfg.seed)
+        eval_s += time.perf_counter() - t0
+        m["Method"] = method
+        results.append(m)
+
+    row("CVAE (Multi-Modal)", zd)
+
+    # PCA + KMeans on handcrafted (ref :419-426)
+    hd = torch.from_numpy(handcrafted).to(dev)
+    row("PCA + K-Means", pca_transform(hd, cfg.latent_dim))
+
+    # Autoencoder + KMeans (ref :429-452: 50 epochs, Adam 1e-3, bs 32)
+    t0 = time.perf_counter()
+    ae = SimpleAutoencoder(
+        input_dim=handcrafted.shape[1], latent_dim=cfg.latent_dim,
+        generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    ae_fit = FitConfig(epochs=50, batch_size=32, patience=10**9, seed=cfg.seed)
+    fit(create_state(ae, 1e-3), autoencoder_objective(), (hd,), ae_fit)
+    ae.eval()
+    with torch.no_grad():
+        _, z_ae = ae(hd)
+    logger.log("ae_baseline", seconds=time.perf_counter() - t0)
+    row("Autoencoder + K-Means", z_ae)
+
+    # "Direct Spectral" is KMeans on the raw handcrafted features (ref
+    # :454-459, misnamed in the reference; kept for CSV parity)
+    row("Direct Spectral", hd)
+    logger.log("evaluate_clustering", seconds=eval_s, rows=len(results))
+
+    df = pd.DataFrame(results)
+    consolidate_metrics(results_dir, df, "Conditional VAE",
+                        per_arch_subdir="Conditional_VAE")
+    logger.log("metrics", architecture="Conditional VAE",
+               rows=df.to_dict("records"))
+    return df
+
+
+def run_hybrid_vae(
+    data_dir: str = "processed_data2",
+    results_dir: str = "results",
+    cfg: HybridVAEConfig = HybridVAEConfig(),
+    ccfg: ClusterConfig = ClusterConfig(),
+    logger: RunLogger | None = None,
+    make_plots: bool = False,
+    device: str = "cuda",
+) -> pd.DataFrame:
+    """The Hybrid VAE pipeline (``tpuvae/pipelines.py:822``) is not ported:
+    the model and its loss are (``models/hybrid_vae.py``), its
+    agglomerative and DBSCAN sweeps are not."""
+    raise NotImplementedError(
+        "run_hybrid_vae is not ported to tpuvae_torch yet (ROADMAP.md, "
+        "queue 1, item 6: agglomerative_k_sweep, dbscan_eps_sweep and "
+        "Davies-Bouldin per algorithm come first)")

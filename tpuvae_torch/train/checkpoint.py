@@ -15,7 +15,7 @@ from pathlib import Path
 import numpy as np
 from torch import nn
 
-from tpuvae_torch.convert import simple_vae_to_flax
+from tpuvae_torch.convert import to_flax
 
 
 def load_checkpoint(path: str | Path) -> tuple[dict[str, np.ndarray], dict]:
@@ -29,9 +29,9 @@ def load_checkpoint(path: str | Path) -> tuple[dict[str, np.ndarray], dict]:
 
 def save_checkpoint(path: str | Path, model: nn.Module,
                     metadata: dict | None = None) -> None:
-    """Write a SimpleVAE's weights and BatchNorm statistics in the flax
-    layout, and ``metadata``."""
+    """Write a model's weights and BatchNorm statistics in the flax layout,
+    and ``metadata``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    np.savez(path / "weights.npz", **simple_vae_to_flax(model.state_dict()))
+    np.savez(path / "weights.npz", **to_flax(model.state_dict()))
     (path / "metadata.json").write_text(json.dumps(metadata or {}, default=str))
