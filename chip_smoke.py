@@ -29,9 +29,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    after (kernel 5 must have run); the CSV's two rows finite, and
    ``ClipEncoder.load`` serving the trained bundle; then kernel 5 against
    its plain version at N = 1,336 and 10,240, D = 32;
-6. kernel 4 (dense-DFT STFT power) against its plain version at
-   32 x 661,500 and at two ragged shapes, within its stated tolerance
-   (rtol 1e-4 / atol 1e-6 x max power);
+6. kernel 4 (dense-DFT STFT power, three TF32 tensor-core products)
+   against its plain version at 32 x 661,500, at two ragged shapes and on a
+   clip whose power spans 80 dB, within its stated tolerance (rtol 1e-4 /
+   atol 1e-6 x max power); its max error as a share of the max power;
 7. the preprocess path at full width: ``generate_dataset`` writes a seeded
    corpus of 192 WAVs of 30 s plus one truncated file; ``preprocess_basic``
    (``stft_method=auto``: kernels 1 + 2) and ``preprocess_advanced``
@@ -101,10 +102,16 @@ MEL_HW = (128, 1024)  # the mel image of processed_data2
 CVAE_EPOCHS = 3       # of the reference's 600
 CVAE_LATENT = 64
 
-# NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s and fp32 FLOP/s
-# outside the tensor cores
+# NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s
+# outside the tensor cores, TF32 FLOP/s on them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+
+# the two STFT kernels' earlier designs (a radix-2 FFT in shared memory; an
+# fp32 GEMM on the CUDA cores) at 32 clips on an NVIDIA H100 80GB HBM3,
+# 700.00 W, as PERF.md records them: printed beside the new times
+EARLIER_DESIGN_MS = {"stft_features": 1.744, "stft_dense": 7.67}
 
 
 def log(msg: str) -> None:
@@ -170,9 +177,13 @@ def time_ms(torch, fn, flush, runs: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over ``peak_flops`` (the fp32 CUDA-core rate unless the
+    kernel's operations run on the tensor cores), whichever is larger."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -339,7 +350,8 @@ def check_pairwise(torch, x) -> dict:
 
 def check_stft_features(torch, y, exact: bool):
     """Kernel 1 against its plain version on ``y``.  It computes an fp32
-    radix-2 FFT where the plain version calls cuFFT: power, mel power and
+    radix-32 x 32 FFT in registers where the plain version calls cuFFT:
+    power, mel power and
     column maxima within rtol 1e-4 / atol 1e-6 x max power (bf16 power in
     fast mode within one bf16 step, rtol 2^-7); centroid, bandwidth, zcr
     and rms within rtol 1e-4 / atol 1e-6; rolloff within one bin (a prefix
@@ -373,15 +385,21 @@ def check_stft_features(torch, y, exact: bool):
 
 # -- phase 6: kernel 4 against its plain version -------------------------------
 
-def check_stft_dense(torch, y, n_fft: int, hop: int) -> float:
+def check_stft_dense(torch, y, n_fft: int,
+                     hop: int) -> tuple[float, float]:
     """Kernel 4 against its plain version on ``y``: rtol 1e-4 with an atol
-    of 1e-6 x max power.  The two sum 2,048 fp32 products per bin in
-    different orders, an absolute error near sqrt(K) x eps of the largest
-    terms; relative error is unbounded where ``re`` and ``im`` cancel, so
+    of 1e-6 x max power.  The kernel sums three TF32 tensor-core products of
+    split operands (dropping a term 2^-22 of the product) where the plain
+    version is cuBLAS's fp32 product: 2,048-term sums in different orders,
+    an absolute error near sqrt(K) x eps of the largest terms, plus what
+    the tensor cores' truncating accumulation leaves in a 32-sample partial
+    sum.  Relative error is unbounded where ``re`` and ``im`` cancel, so
     the atol scales with the maximum power (as tests/test_ops.py states
     the JAX kernel's).  The noise floor of the seeded clips has a mean
     power near 0.7 against a maximum near 1.7e4, so this atol is a few
-    percent of an off-peak bin."""
+    percent of an off-peak bin; a single TF32 product (error ~1e-3 of a
+    bin's amplitude) fails it.  Returns the max abs error and the max
+    power."""
     from tpuvae_torch.ops.stft import stft_power_dense, stft_power_dense_plain
 
     got = stft_power_dense(y, n_fft, hop)
@@ -394,9 +412,9 @@ def check_stft_dense(torch, y, n_fft: int, hop: int) -> float:
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * pmax)
     log(f"kernel 4 at {tuple(y.shape)}, n_fft {n_fft}, hop {hop}: max abs "
-        f"err {err:.4g} (max power {pmax:.4g}) — within rtol 1e-4 / atol "
-        f"1e-6 x max power")
-    return err
+        f"err {err:.4g} = {err / pmax:.3g} of the max power {pmax:.4g} — "
+        f"within rtol 1e-4 / atol 1e-6 x max power")
+    return err, pmax
 
 
 # -- phases 7 and 8: the preprocess path, then the paths joined ---------------
@@ -1089,10 +1107,17 @@ def run(torch, dev, work: Path, card: str) -> int:
         results["pairwise"] = check_pairwise(torch, x)
 
     # ---- 6. kernel 4 against its plain version -------------------------------
-    k4_err = check_stft_dense(torch, y, N_FFT, HOP)
+    k4_err, k4_pmax = check_stft_dense(torch, y, N_FFT, HOP)
+    k4_err_share = k4_err / k4_pmax
     ragged = torch.from_numpy(waves[:3, :2 * SR].copy()).to(dev)
     check_stft_dense(torch, ragged, N_FFT, HOP)
     check_stft_dense(torch, ragged[:, :30001].contiguous(), 1024, 256)
+    # a clip whose power spans 80 dB (a loud tone plus one 1e-4 of its
+    # amplitude): the lo halves of the split operands carry the faint one
+    t = np.arange(2 * SR, dtype=np.float64) / SR
+    loud = np.sin(2 * np.pi * 440.0 * t) + 1e-4 * np.sin(2 * np.pi * 3000.0 * t)
+    check_stft_dense(torch, torch.from_numpy(
+        np.stack([loud, loud[::-1]]).astype(np.float32)).to(dev), N_FFT, HOP)
     results["stft_dense"] = {"max_abs_err": k4_err}
 
     # ---- 7 + 8. the preprocess path, then the paths joined -------------------
@@ -1142,8 +1167,10 @@ def run(torch, dev, work: Path, card: str) -> int:
     n_sc = x_scale.shape[0]
     k5_bytes = 2 * n_sc * LATENT * 4 + n_sc * n_sc * 4
     k5_flops = 2 * n_sc * n_sc * LATENT + 3 * n_sc * n_sc
-    # kernel 4: two dense products of every frame against the 1,025 bins
+    # kernel 4: two dense products of every frame against the 1,025 bins,
+    # each run as three TF32 products on the tensor cores
     k4_flops = 4.0 * frames * N_FFT * nbins
+    k4_tensor_flops = 3.0 * k4_flops
     k4_bytes = (y.numel() * 4 + 2 * N_FFT * nbins * 4
                 + BATCH * nbins * n_frames * 4)
     basis_cat = torch.from_numpy(
@@ -1186,8 +1213,9 @@ def run(torch, dev, work: Path, card: str) -> int:
         "stft_dense": (
             lambda: stft_power_dense(y, N_FFT, HOP),
             lambda: stft_power_dense_plain(y, N_FFT, HOP),
-            library_k4_stft, k4_bytes, k4_flops),
+            library_k4_stft, k4_bytes, k4_tensor_flops),
     }
+    peaks = {"stft_dense": PEAK_TF32_FLOPS}
     static = {
         "stft_features": ("tpuvae_torch/csrc/stft_features.cu",
                           "tpuvae/ops/stft.py:418", "served /encode"),
@@ -1215,7 +1243,7 @@ def run(torch, dev, work: Path, card: str) -> int:
         ms = time_ms(torch, kern, flush)
         plain_ms = time_ms(torch, plain, flush)
         lib_ms = time_ms(torch, lib, flush) if lib is not None else None
-        b_ms, b_by = bound(nbytes, nflops)
+        b_ms, b_by = bound(nbytes, nflops, peaks.get(name, PEAK_FP32_FLOPS))
         src, replaces, path = static[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -1225,13 +1253,22 @@ def run(torch, dev, work: Path, card: str) -> int:
             "library_ms": lib_ms, "path": path,
             "bytes": int(nbytes), "flops": float(nflops),
         })
-        log(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+        earlier = EARLIER_DESIGN_MS.get(name)
+        log(f"time {name}: kernel {ms:.4f} ms"
+            + (f" (its earlier design: {earlier} ms)" if earlier else "")
+            + f", plain {plain_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
     k4_cublas_ms = time_ms(torch, library_k4_cublas, flush)
     log(f"time stft_dense, the cuBLAS form (unfold x [cos | sin], square, "
         f"add): {k4_cublas_ms:.4f} ms")
     kernels[-1]["cublas_form_ms"] = k4_cublas_ms
+    # kernel 4's bound is three TF32 products at the tensor cores' rate;
+    # the fp32 CUDA-core figure is what its earlier design was held to
+    kernels[-1]["bound_peak"] = "3 x TF32 products at 495 TFLOP/s (tensor cores)"
+    kernels[-1]["fp32_flops"] = float(k4_flops)
+    kernels[-1]["bound_fp32_cuda_cores_ms"] = bound(k4_bytes, k4_flops)[0]
+    kernels[-1]["max_err_share_of_max_power"] = k4_err_share
     del basis_cat
 
     # kernel 6: the pair through its wrapper, each half alone, the plain

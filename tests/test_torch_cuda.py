@@ -5,17 +5,17 @@ import) when no card is present.  Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: kernel 1 computes an fp32 radix-2 FFT where the plain version
-calls cuFFT — rtol 1e-4 / atol 1e-6 x max power, rolloff within one bin
+Tolerances: kernel 1 computes an fp32 radix-32 x 32 FFT in registers where
+the plain version calls cuFFT — rtol 1e-4 / atol 1e-6 x max power, rolloff within one bin
 (sr / n_fft); bf16 power within one bf16 step.  Kernels 2 and 3 equal.
 Kernel 5: squared distances within 1e-5 x (max|x|^2 + max|y|^2) of its
 plain version (fp32 FMAs against cuBLAS's fp32 product), self-distances
 within the square root of that bound, with an exactly-zero diagonal.
 Kernel 4 (dense-DFT STFT power): rtol 1e-4 with an atol of 1e-6 x max
-power against its plain version — fp32 FMAs in sample order against
-cuBLAS's fp32 product, 2,048-term sums in two orders; relative error is
-unbounded where ``re`` and ``im`` cancel, so the atol scales with the
-maximum power.  The preprocess pipelines run on the card through their
+power against its plain version — three TF32 tensor-core products of split
+operands, summed per 32 samples and then in fp32, against cuBLAS's fp32
+product, 2,048-term sums in two orders; relative error is unbounded where
+``re`` and ``im`` cancel, so the atol scales with the maximum power.  The preprocess pipelines run on the card through their
 entry points and must launch each kernel once per device batch.
 Kernel 6 (fused conv + BatchNorm statistics): y0 rtol 1e-5 / atol 1e-5 (9
 fp32 FMAs against cuDNN), y1 rtol 1e-4 / atol 1e-4 (288-term fp32 sums in
@@ -71,6 +71,36 @@ def test_stft_features_kernel_matches_plain(cuda, exact):
     want = stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=128,
                                      exact=exact)
     torch.cuda.synchronize()
+    pmax = want.power.float().max().item()
+    for name in ("power", "mel_power", "colmax"):
+        rtol = 2.0 ** -7 if (name == "power" and not exact) else 1e-4
+        torch.testing.assert_close(getattr(got, name).float(),
+                                   getattr(want, name).float(), rtol=rtol,
+                                   atol=1e-6 * pmax)
+    for name in ("centroid", "bandwidth", "rms", "zcr"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-4, atol=1e-6)
+    assert (got.rolloff - want.rolloff).abs().max().item() <= SR / N_FFT * 1.0001
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("n_samples", [32 * HOP, 32 * HOP + 7, 17 * HOP + 1],
+                         ids=["T33", "T33-odd-length", "T18-odd-length"])
+def test_stft_features_kernel_ragged_frame_tile(cuda, exact, n_samples):
+    """T is not a multiple of the kernel's frame tile (32 frames in fast
+    mode, 16 in exact mode): the last CTA of a clip holds one or two frames.
+    An odd clip length takes the 4-byte load path."""
+    from tpuvae_torch.ops.stft import (
+        stft_fused_features,
+        stft_fused_features_plain,
+    )
+
+    y = torch.from_numpy(_tones(2, n_samples, 9)).to(cuda)
+    got = stft_fused_features(y, N_FFT, HOP, sr=SR, n_mels=128, exact=exact)
+    want = stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=128,
+                                     exact=exact)
+    torch.cuda.synchronize()
+    assert got.power.shape == want.power.shape == (2, 1025, 1 + n_samples // HOP)
     pmax = want.power.float().max().item()
     for name in ("power", "mel_power", "colmax"):
         rtol = 2.0 ** -7 if (name == "power" and not exact) else 1e-4
@@ -219,6 +249,28 @@ def test_stft_dense_kernel_matches_plain(cuda, n_clips, n_samples, n_fft, hop):
                                        1 + n_samples // hop)
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-6 * want.max().item())
+
+
+def test_stft_dense_kernel_on_a_clip_spanning_80_db(cuda):
+    """A loud tone plus one 1e-4 of its amplitude (power 1e-8 of the
+    maximum), n_fft 2048 / hop 512: the faint tone lives in the lo halves of
+    the kernel's TF32 split, and its bins must come out as the plain
+    version's within a few percent."""
+    from tpuvae_torch.ops.stft import stft_power_dense, stft_power_dense_plain
+
+    t = np.arange(2 * SR) / SR
+    loud = np.sin(2 * np.pi * 440.0 * t) + 1e-4 * np.sin(2 * np.pi * 3000.0 * t)
+    y = torch.from_numpy(np.stack([loud, loud[::-1]]).astype(np.float32)).to(cuda)
+    got = stft_power_dense(y, 2048, 512)
+    want = stft_power_dense_plain(y, 2048, 512)
+    torch.cuda.synchronize()
+    pmax = want.max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * pmax)
+    # the faint tone's bin (3000 Hz -> bin 279), interior frames
+    k = round(3000.0 * 2048 / SR)
+    faint = want[:, k, 4:-4]
+    assert faint.max().item() < 1e-7 * pmax
+    torch.testing.assert_close(got[:, k, 4:-4], faint, rtol=0.05, atol=0)
 
 
 @pytest.mark.parametrize("pad_mode", ["edge", "reflect", "wrap"])

@@ -102,22 +102,27 @@ def test_dense_rejects_bad_hop_and_pad_mode():
 
 @pytest.mark.parametrize("n_fft", [2048, 512, 96])
 def test_packed_basis_layout_reproduces_the_plain_version(n_fft):
-    """The layout the CUDA kernel reads: ``n_fft // 2`` packed columns,
-    zero-padded to a multiple of 128, the Nyquist bin's cosine in the sin
-    column of bin 0.  Multiplying the frames by it and unpacking as the
-    kernel's epilogue does gives the plain version's power exactly."""
+    """The layout the CUDA kernel reads: K-major rows, cos and sin of packed
+    bin ``k`` in rows ``2 k`` and ``2 k + 1``, ``n_fft // 2`` packed bins
+    zero-padded to a multiple of 128 and the samples to a multiple of 32,
+    the Nyquist bin's cosine in the sin row of bin 0; split into TF32 halves
+    whose sum is the fp32 basis.  Multiplying the frames by it and unpacking
+    as the kernel's epilogue does gives the plain version's power."""
     from tpuvae_torch.dsp import primitives as prim
     from tpuvae_torch.ops.stft import _packed_basis, stft_power_dense_plain
 
     hop = n_fft // 4
     y = torch.from_numpy(_noise((2, 5 * n_fft + 3), seed=n_fft))
-    cos_p, sin_p, nb_pad = _packed_basis("cpu", n_fft)
+    b_hi, b_lo, nb_pad, k_pad = _packed_basis("cpu", n_fft)
     n_half = n_fft // 2
     assert nb_pad % 128 == 0 and nb_pad >= n_half
-    assert cos_p.shape == sin_p.shape == (n_fft, nb_pad)
-    assert not cos_p[:, n_half:].any() and not sin_p[:, n_half:].any()
+    assert k_pad % 32 == 0 and k_pad >= n_fft
+    assert b_hi.shape == b_lo.shape == (2 * nb_pad, k_pad)
+    basis = b_hi + b_lo
+    assert not basis[2 * n_half:].any() and not basis[:, n_fft:].any()
     frames = prim.frame_signal(y, n_fft, hop)
-    re, im = frames @ cos_p, frames @ sin_p
+    z = frames @ basis[:, :n_fft].T
+    re, im = z[..., 0::2], z[..., 1::2]
     power = torch.empty((2, n_half + 1, frames.shape[1]))
     power[:, :n_half] = (re * re + im * im)[..., :n_half].transpose(1, 2)
     power[:, 0] = re[..., 0] ** 2

@@ -37,7 +37,7 @@ _EXTRA_FLAGS = {
     "tuning": ["-fmad=false"],
     "select": ["-fmad=false"],
     "pairwise": [],
-    "stft_dense": [],
+    "stft_dense": ["-ldl"],      # looks cuTensorMapEncodeTiled up at run time
     "fusedconv": [],
 }
 

@@ -45,9 +45,9 @@ STFT_FEATURES = _build.Kernel(
     "stft_features", "stft_features", "tpuvae_stft_features",
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 
 class FusedFrontEnd(NamedTuple):
@@ -109,29 +109,57 @@ def stft_fused_features_plain(y: torch.Tensor, n_fft: int = 2048,
     )
 
 
+def _fft_tables(n_fft: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host tables of kernel 1's FFT, built in float64 and cast to fp32:
+    the periodic Hann window; the split twiddles ``exp(-2 pi i k / n_fft)``,
+    ``k = 0 .. n_fft/2``, as ``(n_fft/2 + 1, 2)``; and the exchange twiddles
+    of the radix-32 x 32 complex FFT of ``m = n_fft/2 = 1024`` points,
+    ``[k1, l] = exp(-2 pi i l k1 / m)``, as ``(32, 32, 2)``."""
+    m = n_fft // 2
+    if m != 32 * 32:
+        raise ValueError(f"the radix-32 x 32 FFT takes n_fft 2048, got {n_fft}")
+
+    def unit(ang):
+        tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+        tw[np.abs(tw) < 1e-12] = 0.0
+        return tw.astype(np.float32)
+
+    k = np.arange(m + 1, dtype=np.float64)
+    lk = np.outer(np.arange(32, dtype=np.float64), np.arange(32))
+    return (prim.hann_window(n_fft), unit(-2.0 * np.pi * k / n_fft),
+            unit(-2.0 * np.pi * lk / m))
+
+
 @functools.lru_cache(maxsize=8)
 def _fft_consts(device: str, n_fft: int):
-    """Periodic Hann window and float64-built twiddles exp(-2 pi i k/n_fft),
-    k = 0 .. n_fft/2, on ``device``."""
-    k = np.arange(n_fft // 2 + 1, dtype=np.float64)
-    ang = -2.0 * np.pi * k / n_fft
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
-    tw[np.abs(tw) < 1e-12] = 0.0
-    return (torch.from_numpy(prim.hann_window(n_fft)).to(device),
-            torch.from_numpy(tw.astype(np.float32)).to(device))
+    """:func:`_fft_tables` on ``device``."""
+    return tuple(torch.from_numpy(t).to(device) for t in _fft_tables(n_fft))
+
+
+def _mel_csr(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The mel filterbank in the kernel's compressed form: every filter's
+    run of non-zero weights, concatenated, and ``(n_mels, 3)`` int32 rows of
+    first bin, one past the last, and the run's offset (the triangles
+    overlap pairwise, ~2 non-zeros per bin)."""
+    nz = fb != 0
+    any_nz = nz.any(axis=1)
+    first = np.where(any_nz, nz.argmax(axis=1), 0)
+    last = np.where(any_nz, fb.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
+    offset = np.concatenate([[0], np.cumsum(last - first)[:-1]])
+    weights = np.concatenate([fb[i, a:b] for i, (a, b)
+                              in enumerate(zip(first, last))])
+    meta = np.stack([first, last, offset], axis=1).astype(np.int32)
+    return weights.astype(np.float32), meta
 
 
 @functools.lru_cache(maxsize=8)
 def _epilogue_consts(device: str, sr: float, n_fft: int, n_mels: int):
-    """Bin frequencies, mel filterbank and each filter's non-zero bin range
-    ``[first, last)``, on ``device``."""
-    fb = prim.mel_filterbank(sr, n_fft, n_mels)
-    nz = fb != 0
-    first = np.where(nz.any(axis=1), nz.argmax(axis=1), 0)
-    last = np.where(nz.any(axis=1), fb.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
-    rng = np.stack([first, last], axis=1).astype(np.int32)
+    """Bin frequencies and the compressed mel filterbank (:func:`_mel_csr`)
+    on ``device``."""
+    weights, meta = _mel_csr(prim.mel_filterbank(sr, n_fft, n_mels))
     return (torch.from_numpy(prim.fft_frequencies(sr, n_fft)).to(device),
-            torch.from_numpy(fb).to(device), torch.from_numpy(rng).to(device))
+            torch.from_numpy(weights).to(device),
+            torch.from_numpy(meta).to(device))
 
 
 def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
@@ -149,19 +177,21 @@ def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
     b, n_samples = y.shape
     t = prim.num_frames(n_samples, hop_length)
     dev = y.device
-    window, tw = _fft_consts(str(dev), n_fft)
+    window, tw, xtw = _fft_consts(str(dev), n_fft)
     power = torch.empty((b, n_fft // 2 + 1, t), dtype=power_dtype, device=dev)
     null = ctypes.c_void_p(None)
-    freqs = fb = rng = mel = stats = None
+    freqs = mel_w = mel_meta = mel = stats = None
     if sr is not None:
-        freqs, fb, rng = _epilogue_consts(str(dev), float(sr), n_fft, n_mels)
+        freqs, mel_w, mel_meta = _epilogue_consts(str(dev), float(sr), n_fft,
+                                                  n_mels)
         mel = torch.empty((b, n_mels, t), dtype=torch.float32, device=dev)
         # one contiguous (B, T) plane per statistic
         stats = torch.empty((6, b, t), dtype=torch.float32, device=dev)
     p = lambda x: null if x is None else _build.ptr(x)  # noqa: E731
     STFT_FEATURES(
         _build.ptr(y), b, n_samples, n_fft, hop_length, t, p(window), p(tw),
-        p(freqs), p(fb), p(rng), n_mels, p(power),
+        p(xtw), p(freqs), p(mel_w), p(mel_meta), n_mels,
+        0 if mel_w is None else mel_w.numel(), p(power),
         int(power_dtype == torch.bfloat16), p(mel), p(stats),
         _build.stream_ptr(dev))
     return power, mel, stats
@@ -213,9 +243,10 @@ STFT_DENSE = _build.Kernel(
     "stft_dense", "stft_dense", "tpuvae_stft_dense",
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
-_DENSE_K_CHUNK = 16      # samples the kernel stages per step
+_DENSE_N_FFT_STEP = 16   # n_fft must be a multiple of this
+_DENSE_K_STAGE = 32      # samples the kernel stages per step
 _DENSE_BIN_TILE = 128    # packed bins per CTA
 
 
@@ -235,22 +266,49 @@ def _folded_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     return cos_b * window, sin_b * window
 
 
+def _round_tf32(x: np.ndarray) -> np.ndarray:
+    """fp32 values rounded to TF32 (10 mantissa bits; nearest, ties away
+    from zero — ``cvt.rna.tf32.f32``) by integer arithmetic on the bit
+    pattern: the 13 low mantissa bits come out zero."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``x = hi + lo`` with both halves TF32 values: ``hi = tf32(x)``,
+    ``lo = tf32(x - hi)``; ``hi + lo`` is ``x`` to 2^-22 relative."""
+    hi = _round_tf32(x)
+    return hi, _round_tf32(np.asarray(x, np.float32) - hi)
+
+
 @functools.lru_cache(maxsize=4)
-def _packed_basis(device: str, n_fft: int):
-    """The folded bases in the kernel's layout, on ``device``: ``n_fft // 2``
-    packed columns padded with zeros to a multiple of the bin tile.  The sin
-    column of bin 0 (identically zero) carries the Nyquist bin's cosine,
-    whose own sine is zero as well."""
+def _interleaved_basis(n_fft: int) -> np.ndarray:
+    """The folded bases in the kernel's layout, K-major: ``(2 * nb_pad,
+    k_pad)`` fp32 with the cos and sin bases of packed bin ``k`` in rows
+    ``2 k`` and ``2 k + 1``.  ``n_fft // 2`` packed bins are padded with
+    zero rows to a multiple of the bin tile, the ``n_fft`` samples with zero
+    columns to a multiple of the K stage.  The sin row of bin 0 (identically
+    zero) carries the Nyquist bin's cosine, whose own sine is zero as
+    well."""
     cos_w, sin_w = _folded_basis(n_fft)
     n_half = n_fft // 2
     nb_pad = -(-n_half // _DENSE_BIN_TILE) * _DENSE_BIN_TILE
-    cos_p = np.zeros((n_fft, nb_pad), np.float32)
-    sin_p = np.zeros((n_fft, nb_pad), np.float32)
-    cos_p[:, :n_half] = cos_w[:, :n_half]
-    sin_p[:, :n_half] = sin_w[:, :n_half]
-    sin_p[:, 0] = cos_w[:, n_half]
-    return (torch.from_numpy(cos_p).to(device),
-            torch.from_numpy(sin_p).to(device), nb_pad)
+    k_pad = -(-n_fft // _DENSE_K_STAGE) * _DENSE_K_STAGE
+    basis = np.zeros((2 * nb_pad, k_pad), np.float32)
+    basis[0:2 * n_half:2, :n_fft] = cos_w[:, :n_half].T
+    basis[1:2 * n_half:2, :n_fft] = sin_w[:, :n_half].T
+    basis[1, :n_fft] = cos_w[:, n_half]
+    return basis
+
+
+@functools.lru_cache(maxsize=4)
+def _packed_basis(device: str, n_fft: int):
+    """The TF32 split (:func:`_split_tf32`) of :func:`_interleaved_basis`
+    on ``device``: ``(hi, lo, nb_pad, k_pad)``."""
+    basis = _interleaved_basis(n_fft)
+    hi, lo = _split_tf32(basis)
+    return (torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device),
+            basis.shape[0] // 2, basis.shape[1])
 
 
 def stft_power_dense_plain(y: torch.Tensor, n_fft: int = 2048,
@@ -275,8 +333,9 @@ def stft_power_dense(y: torch.Tensor, n_fft: int = 2048,
 
     A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
     through :func:`stft_power_dense_plain`.  The kernel replaces
-    ``tpuvae/ops/stft.py:73`` (``_make_kernel``); it is bound by its fp32
-    operations, and ``csrc/stft_dense.cu`` says how its design gathers the
+    ``tpuvae/ops/stft.py:73`` (``_make_kernel``); it is bound by its
+    operations, and ``csrc/stft_dense.cu`` says how its design runs them on
+    the tensor cores as three TF32 products of split operands, gathers the
     frames from the waveform and keeps ``re`` and ``im`` in registers.
     Padding stays out here, as in the JAX wrapper: the kernel reads the
     padded signal.
@@ -287,17 +346,22 @@ def stft_power_dense(y: torch.Tensor, n_fft: int = 2048,
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
     _check_waveform(y)
-    if n_fft % _DENSE_K_CHUNK:
+    if n_fft % _DENSE_N_FFT_STEP:
         raise ValueError(f"the CUDA dense-DFT kernel needs n_fft to be a "
-                         f"multiple of {_DENSE_K_CHUNK}, got {n_fft}")
+                         f"multiple of {_DENSE_N_FFT_STEP}, got {n_fft}")
     b, n_samples = y.shape
     t = prim.num_frames(n_samples, hop_length)
-    y_pad = prim.center_pad(y, n_fft, pad_mode).contiguous()
-    cos_p, sin_p, nb_pad = _packed_basis(str(y.device), n_fft)
+    y_pad = prim.center_pad(y, n_fft, pad_mode)
+    if y_pad.shape[1] % 4:
+        # a row stride that is a multiple of 4 samples keeps every frame's
+        # 16-byte loads aligned (when hop_length is one too)
+        y_pad = torch.nn.functional.pad(y_pad, (0, -y_pad.shape[1] % 4))
+    y_pad = y_pad.contiguous()
+    b_hi, b_lo, nb_pad, k_pad = _packed_basis(str(y.device), n_fft)
     out = torch.empty((b, n_fft // 2 + 1, t), dtype=torch.float32,
                       device=y.device)
     if b:
         STFT_DENSE(_build.ptr(y_pad), b, y_pad.shape[1], n_fft, hop_length, t,
-                   _build.ptr(cos_p), _build.ptr(sin_p), nb_pad,
+                   _build.ptr(b_hi), _build.ptr(b_lo), nb_pad, k_pad,
                    _build.ptr(out), _build.stream_ptr(y.device))
     return out
