@@ -15,13 +15,23 @@ Kernel 4 (dense-DFT STFT power): rtol 1e-4 with an atol of 1e-6 x max
 power against its plain version — three TF32 tensor-core products of split
 operands, summed per 32 samples and then in fp32, against cuBLAS's fp32
 product, 2,048-term sums in two orders; relative error is unbounded where
-``re`` and ``im`` cancel, so the atol scales with the maximum power.  The preprocess pipelines run on the card through their
-entry points and must launch each kernel once per device batch.
+``re`` and ``im`` cancel, so the atol scales with the maximum power.  Its
+error is also bounded outright: the largest within 1e-5 of the max power,
+and the signed mean over the bins above 1e-3 of the max power within 1e-6
+of it (a sum kept whole in the tensor cores' truncating accumulator comes
+out more than 1e-6 of it low at n_fft 2048 and fails; see
+``tests/test_torch_stft_redesign.py``).  The preprocess pipelines run on the
+card through their entry points and must launch each kernel once per
+device batch.  Kernel 2 is also held equal at the main path's 1,292
+frames for 32 and 128 clips, on a spectrum whose every other band row is a
+candidate (its worst case), and at a length whose candidate lists do not
+fit shared memory.
 Kernel 6 (fused conv + BatchNorm statistics): y0 rtol 1e-5 / atol 1e-5 (9
 fp32 FMAs against cuDNN), y1 rtol 1e-4 / atol 1e-4 (288-term fp32 sums in
 two orders), means atol 1e-5, variances rtol 1e-4 / atol 1e-6 (per-CTA
 partial sums in a fixed tree order against ``torch.sum``, then
-``ss / n - mean^2``); two runs bit-equal.  The trunk's gradient on the card
+``ss / n - mean^2``); and y1 within 1e-5 of its largest magnitude (three
+TF32 products per term); two runs bit-equal.  The trunk's gradient on the card
 against the CPU: within 1e-2 of each tensor's largest entry and 5e-3 in
 relative L2 (a LeakyReLU pre-activation within rounding of zero may take
 the other slope on one device; otherwise ~1e-5).
@@ -140,6 +150,109 @@ def test_tuning_kernel_equals_plain(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _tuning_inputs(power, dtype):
+    power = power.to(dtype).contiguous()
+    return power, power.float().amax(dim=1).contiguous()
+
+
+@pytest.fixture(scope="module")
+def power_30s(cuda):
+    """fp32 power of 32 seeded 30 s clips, (32, 1025, 1292), on the card."""
+    from tpuvae_torch.ops.stft import stft_fused_features_plain
+
+    y = torch.from_numpy(_tones(32, 30 * SR, 13)).to(cuda)
+    return stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=128,
+                                     exact=True).power
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_clips", [32, 128])
+def test_tuning_kernel_equals_plain_at_the_main_shape(cuda, power_30s, dtype,
+                                                      n_clips):
+    """1,292 frames a clip: eight CTAs of 162 frames, lists in shared
+    memory.  128 clips: the 32 spectra with gains and noise floors."""
+    from tpuvae_torch.ops.tuning import estimate_tuning, estimate_tuning_plain
+
+    g = torch.Generator(device=cuda).manual_seed(n_clips)
+    parts = [power_30s]
+    for k in range(1, n_clips // 32):
+        noise = torch.empty_like(power_30s).exponential_(generator=g)
+        parts.append(power_30s * (1.0 + 0.25 * k) + 1e-3 * k * noise)
+    power, colmax = _tuning_inputs(torch.cat(parts), dtype)
+    got = estimate_tuning(power, colmax, SR, N_FFT)
+    want = estimate_tuning_plain(power, colmax, SR, N_FFT)
+    assert got.shape == (n_clips,)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _alternating_power(n_clips, t, dev, seed):
+    """Every odd row above every even one, and above 0.1 of the column's
+    max: each odd band row inside 150-4000 Hz is a candidate, the most a
+    frame can hold.  Odd rows take one of two values, so the median lands
+    on a run of equal magnitudes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    odd = 2.0 + (torch.rand((n_clips, 513, t), generator=g, device=dev)
+                 < 0.5).float()
+    power = torch.ones((n_clips, 1025, t), device=dev)
+    power[:, 1::2] = odd[:, :512]
+    return power
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1292, 2600], ids=["smem-lists", "global-lists"])
+def test_tuning_kernel_equals_plain_on_the_worst_case_spectrum(cuda, dtype, t):
+    """At 2,600 frames a CTA's list (325 frames x 184) exceeds what shared
+    memory holds: the wrapper hands the kernel a global buffer."""
+    from tpuvae_torch.ops import tuning as tn
+
+    power, colmax = _tuning_inputs(_alternating_power(3, t, cuda, t), dtype)
+    power[1] = 0.0                                   # no candidate: tuning 0
+    colmax[1] = 0.0
+    _, r8, *_ = tn._tuning_consts(SR, N_FFT, 1025, 0.01)
+    frames, capacity = tn.list_geometry(t, r8)
+    assert (capacity > tn.SMEM_LIST_ENTRIES) == (t == 2600)
+    got = tn.estimate_tuning(power, colmax, SR, N_FFT)
+    want = tn.estimate_tuning_plain(power, colmax, SR, N_FFT)
+    assert want[1].item() == 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_tuning_kernel_refuses_global_lists_shorter_than_its_geometry(cuda):
+    """The wrapper sizes the global lists from its copy of the kernel's
+    cluster size; the kernel refuses a buffer shorter than what its own
+    geometry indexes instead of writing past it."""
+    from tpuvae_torch.dsp.chroma import PIPTRACK_THRESHOLD
+    from tpuvae_torch.ops import _build
+    from tpuvae_torch.ops import tuning as tn
+
+    t, n_clips = 2600, 2
+    power, colmax = _tuning_inputs(_alternating_power(n_clips, t, cuda, 5),
+                                   torch.float32)
+    lo8, r8, fmask, binsb, edges, n_bins, binw = tn._device_consts(
+        str(power.device), SR, N_FFT, 1025, 0.01)
+    frames, capacity = tn.list_geometry(t, r8)
+    entries = n_clips * tn.CLUSTER * capacity
+    keys = torch.empty(entries, dtype=torch.int32, device=cuda)
+    buckets = torch.empty(entries, dtype=torch.uint8, device=cuda)
+    out = torch.empty(n_clips, device=cuda)
+    ptr = _build.ptr
+
+    def launch(list_entries):
+        tn.TUNING(ptr(power), 0, ptr(colmax), n_clips, 1025, t, lo8, r8,
+                  ptr(fmask), ptr(binsb), ptr(edges), n_bins, binw,
+                  float(SR) / N_FFT, 12.0, PIPTRACK_THRESHOLD, frames,
+                  capacity, ptr(keys), ptr(buckets), list_entries, ptr(out),
+                  _build.stream_ptr(power.device))
+
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        launch(entries - 1)
+    launch(entries)
+    torch.testing.assert_close(
+        out, tn.estimate_tuning_plain(power, colmax, SR, N_FFT), rtol=0, atol=0)
+
+
 def test_select_kernel_equals_plain(cuda):
     from tpuvae_torch.ops.select import (
         masked_keys,
@@ -232,6 +345,17 @@ def test_run_simple_vae_on_the_card(cuda, tmp_path):
     assert np.isfinite(df[["Silhouette", "Calinski-Harabasz"]].to_numpy()).all()
 
 
+def _assert_dense_error_bounded(got, want):
+    """Kernel 4's error bound: max |err| <= 1e-5 x max power, and the signed
+    mean error over the bins above 1e-3 of the max power within 1e-6 x max
+    power (a truncating accumulator's error is one-signed: low)."""
+    pmax = want.max().item()
+    err = got - want
+    assert err.abs().max().item() <= 1e-5 * pmax
+    sel = want > 1e-3 * pmax
+    assert abs(err[sel].mean().item()) <= 1e-6 * pmax
+
+
 @pytest.mark.parametrize("n_clips,n_samples,n_fft,hop", [
     (3, 44100, 2048, 512),       # frame tiles straddle clips
     (1, 2 * SR + 101, 2048, 512),
@@ -249,6 +373,7 @@ def test_stft_dense_kernel_matches_plain(cuda, n_clips, n_samples, n_fft, hop):
                                        1 + n_samples // hop)
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-6 * want.max().item())
+    _assert_dense_error_bounded(got, want)
 
 
 def test_stft_dense_kernel_on_a_clip_spanning_80_db(cuda):
@@ -266,6 +391,7 @@ def test_stft_dense_kernel_on_a_clip_spanning_80_db(cuda):
     torch.cuda.synchronize()
     pmax = want.max().item()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * pmax)
+    _assert_dense_error_bounded(got, want)
     # the faint tone's bin (3000 Hz -> bin 279), interior frames
     k = round(3000.0 * 2048 / SR)
     faint = want[:, k, 4:-4]
@@ -363,6 +489,7 @@ def _pair_inputs(b, h, w, dev, seed=0):
     (7, 64, 128),                 # a ragged batch
     (5, 68, 196),                 # a non-reference input_hw: partial tiles
     (32, 128, 1024),              # the main path's batch
+    (70, 16, 32),                 # more images than the wrapper's tickets
 ])
 def test_fusedconv_kernels_match_plain(cuda, b, h, w):
     from tpuvae_torch.ops import fusedconv as fc
@@ -380,6 +507,8 @@ def test_fusedconv_kernels_match_plain(cuda, b, h, w):
     torch.cuda.synchronize()
     assert got[0].shape == (b, h // 4, w // 4, 64)
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    assert ((got[0] - want[0]).abs().max().item()
+            <= 1e-5 * want[0].abs().max().item())
     for (m, v), (pm, pv) in zip(got[1:], want[1:]):
         torch.testing.assert_close(m, pm, rtol=0, atol=1e-5)
         torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-6)
@@ -411,6 +540,33 @@ def test_fusedconv_counts_launches_and_raises(cuda):
         fc.conv0_stats(x[:, :7, :, 0], w0[:, :, 0], b0)
     with pytest.raises(ValueError, match="do not pair"):
         fc.conv0_stats(x[..., 0], w0[:, :, 0].cpu().to(cuda), b0.cpu())
+
+
+def test_fusedconv_halves_run_the_main_paths_kernels(cuda):
+    """conv0_stats / conv1_norm_stats run the kernel bodies the trunk's
+    forward runs, the batch finalise included: y0, y1 and the per-image
+    sums are the forward's bits, and the finalised batch statistics (the
+    images added in order) agree with _finalize of those sums."""
+    from tpuvae_torch.ops import fusedconv as fc
+
+    x, w0, b0, g0, be0, w1, b1 = _pair_inputs(5, 68, 196, cuda)
+    x0, w00 = x[..., 0], w0[:, :, 0]
+    y0, s0, ss0 = fc.conv0_stats(x0, w00, b0)
+    y0_bn, s0_bn, ss0_bn, st0 = fc._conv0(x0, w00, b0, g0, be0, 1e-5)
+    for a, c in ((y0, y0_bn), (s0, s0_bn), (ss0, ss0_bn)):
+        assert torch.equal(a, c)
+    n0 = y0.shape[0] * y0.shape[1] * y0.shape[2]
+    mean0, var0 = fc._finalize(s0, ss0, n0)
+    torch.testing.assert_close(st0[0], mean0, rtol=0, atol=1e-5)
+    torch.testing.assert_close(st0[1], var0, rtol=1e-4, atol=1e-6)
+    scale0, shift0 = st0[2], st0[3]
+    y1, s1, ss1 = fc.conv1_norm_stats(y0, scale0, shift0, w1, b1)
+    y1_bn, s1_bn, ss1_bn, st1 = fc._conv1(y0, scale0, shift0, w1, b1)
+    for a, c in ((y1, y1_bn), (s1, s1_bn), (ss1, ss1_bn)):
+        assert torch.equal(a, c)
+    mean1, var1 = fc._finalize(s1, ss1, n0 // 4)
+    torch.testing.assert_close(st1[0], mean1, rtol=0, atol=1e-5)
+    torch.testing.assert_close(st1[1], var1, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("mode", ["train", "eval"])

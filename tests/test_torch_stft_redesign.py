@@ -8,7 +8,10 @@ scheme — is tested here:
   3xTF32: the TF32 split of the bases, their K-major interleaved layout,
   and an emulation of the three-product sum against the plain version at
   the kernel's tolerance (rtol 1e-4 / atol 1e-6 x max power), which a
-  one-product emulation must miss;
+  one-product emulation must miss; and, with the tensor cores' truncating
+  accumulator modelled, its error bound (max within 1e-5 of the max power,
+  signed mean over the bins above 1e-3 of it within 1e-6), which the
+  promoted 32-sample partial sums meet and one long sum misses;
 * kernel 1 (``csrc/stft_features.cu``) runs a radix-32 x 32 FFT in
   registers: an emulation of its decomposition, lane by lane and register
   by register, with the kernel's twiddle tables and bit-reversed register
@@ -129,6 +132,98 @@ def test_three_tf32_products_hold_the_kernel_tolerance_and_one_does_not():
     with pytest.raises(AssertionError):
         torch.testing.assert_close(got1, want, rtol=1e-4, atol=1e-6 * pmax)
     assert (got1 - want).abs().max().item() > 1e-5 * pmax
+
+
+# -- kernel 4: the tensor cores' truncating accumulator ------------------------
+
+# chip_smoke.py's bounds on kernel 4's error, as shares of the max power: the
+# largest error, and the signed mean over the bins above 1e-3 of the max power
+K4_MAX_ERR_SHARE = 1e-5
+K4_MEAN_ERR_SHARE = 1e-6
+
+
+def _round_toward_zero_f32(x64: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero."""
+    f = x64.to(torch.float32)
+    over = f.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _truncating_dense_power(y, n_fft, hop, promote):
+    """Kernel 4's three TF32 products with the tensor cores' accumulation
+    modelled: each ``wgmma`` m64n64k8 adds its 8 exact products of TF32
+    values to the fp32 accumulator, truncating.  ``promote`` (the kernel's
+    scheme): the 12 products of each 32-sample stage (small terms first)
+    build a partial sum whose first product overwrites it, and the partial
+    is added into fp32 running sums, rounded to nearest.  Otherwise (the
+    kernel's first design): all 3 x n_fft / 8 products of a frame in one
+    accumulator."""
+    frames = prim.frame_signal(y, n_fft, hop)
+    b_hi, b_lo, _, _ = ops_stft._packed_basis("cpu", n_fft)
+    n_half = n_fft // 2
+    b_hi = b_hi[:2 * n_half, :n_fft].T.double()
+    b_lo = b_lo[:2 * n_half, :n_fft].T.double()
+    a_hi = _round_tf32_torch(frames)
+    a_lo = _round_tf32_torch(frames - a_hi).double()
+    a_hi = a_hi.double()
+    acc = torch.zeros((*frames.shape[:-1], 2 * n_half))
+    run = torch.zeros_like(acc)
+    for stage in range(n_fft // 32):
+        for i, (a, b) in enumerate(((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))):
+            for kk in range(4):
+                k0 = stage * 32 + kk * 8
+                s = a[..., k0:k0 + 8] @ b[k0:k0 + 8]
+                first = promote and i == 0 and kk == 0
+                acc = _round_toward_zero_f32(s if first else acc.double() + s)
+        if promote:
+            run = run + acc
+    z = run if promote else acc
+    re, im = z[..., 0::2], z[..., 1::2]
+    power = torch.empty((y.shape[0], n_half + 1, frames.shape[1]))
+    power[:, :n_half] = (re * re + im * im).transpose(1, 2)
+    power[:, 0] = re[..., 0] ** 2
+    power[:, n_half] = im[..., 0] ** 2
+    return power
+
+
+def _error_shares(got, want):
+    pmax = want.max().item()
+    err = got - want
+    sel = want > 1e-3 * pmax
+    return err.abs().max().item() / pmax, err[sel].mean().item() / pmax
+
+
+def _harmonic_clips(n_samples, sr=22050):
+    rng = np.random.default_rng(21)
+    t = np.arange(n_samples) / sr
+    clips = []
+    for i in range(2):
+        f0 = 110 * 2 ** rng.uniform(0, 3)
+        sig = sum(np.sin(2 * np.pi * f0 * (k + 1) * t + rng.uniform(0, 6))
+                  / (k + 1) for k in range(1 + 2 * i))
+        clips.append(0.25 * sig + 0.03 * rng.normal(size=n_samples))
+    return torch.from_numpy(np.stack(clips).astype(np.float32))
+
+
+@pytest.mark.parametrize("clips", ["harmonic", "80dB"])
+def test_one_truncating_sum_fails_the_error_bound_and_promoted_partials_pass(
+        clips):
+    """At n_fft 2048 one truncating accumulator per frame leaves the power
+    biased low by more than ``K4_MEAN_ERR_SHARE`` of the max power (the
+    kernel's first design measured 4.1e-5 at the max on the card) and fails; the
+    kernel's promoted 32-sample partial sums pass both bounds."""
+    y = (_harmonic_clips(2 * 22050) if clips == "harmonic"
+         else _loud_and_faint_clips(2 * 22050))
+    want = ops_stft.stft_power_dense_plain(y, 2048, 512)
+    long_max, long_mean = _error_shares(
+        _truncating_dense_power(y, 2048, 512, promote=False), want)
+    assert long_max > K4_MAX_ERR_SHARE
+    assert long_mean < -K4_MEAN_ERR_SHARE
+    prom_max, prom_mean = _error_shares(
+        _truncating_dense_power(y, 2048, 512, promote=True), want)
+    assert prom_max <= K4_MAX_ERR_SHARE
+    assert abs(prom_mean) <= K4_MEAN_ERR_SHARE
+    assert abs(prom_mean) < abs(long_mean) / 20
 
 
 # -- kernel 1: the radix-32 x 32 FFT in registers -----------------------------

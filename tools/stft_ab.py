@@ -13,8 +13,9 @@ design (the radix-2 shared-memory FFT and the fp32 CUDA-core GEMM), e.g.
     git show <commit>:tpuvae_torch/csrc/stft_features.cu > build/old_csrc/stft_features.cu
     git show <commit>:tpuvae_torch/csrc/stft_dense.cu > build/old_csrc/stft_dense.cu
 
-They are compiled here with the flags of ``tpuvae_torch/ops/_build.py`` and
-called through their own C interface.  Each round times old, new, new, old
+They are compiled here with the flags of ``tpuvae_torch/ops/_build.py``
+(the common ones plus each kernel's own) and called through their own C
+interface.  Each round times old, new, new, old
 (median of ``--runs`` CUDA-event timings each, L2 flushed before every
 launch); the card's name and power limit are printed beside the numbers.
 Shapes: ``--clips`` clips of 30 s at 22,050 Hz, n_fft 2048, hop 512, 128
@@ -47,8 +48,8 @@ def build_old(old_dir: Path) -> dict:
     procs = {}
     for name in ("stft_features", "stft_dense"):
         lib = out_dir / f"lib{name}_old.so"
-        cmd = [_build._nvcc(), *_build._NVCC_FLAGS, "-o", str(lib),
-               str(old_dir / f"{name}.cu")]
+        cmd = [_build._nvcc(), *_build._NVCC_FLAGS, *_build._EXTRA_FLAGS[name],
+               "-o", str(lib), str(old_dir / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        lib)

@@ -29,10 +29,12 @@ FFT / dense matmuls with the staged route.
 ``results/clustering_metrics.csv``, ``results/Simple_VAE/best_vae_model/``
 and the serving bundle ``results/Simple_VAE/serving/``.  ``--key=value``
 overrides map onto ``SimpleVAEConfig`` (values parsed as JSON first, so
-``--epochs=5`` is an int); extra flags: ``--data_dir`` (default
-``processed_data1``), ``--results_dir`` (default ``results``), ``--device``
-(default cuda).  Plots are off: the t-SNE figure of the JAX command is not
-ported yet.
+``--epochs=5`` is an int).  Extra flags, as in the JAX CLI: ``--data1_dir``,
+else ``--data_dir`` (default ``processed_data1``), ``--results_dir``
+(default ``results``), ``--data2_dir`` (read by ``train-cvae``) and the
+JAX CLI's other shared flags (accepted, unused); a bare extra flag reads as
+``1``.  And ``--device`` (default cuda).  Plots are off: the t-SNE figure
+of the JAX command is not ported yet.
 
 ``train-cvae`` trains the Conditional VAE on a ``processed_data2`` and
 writes ``results/clustering_metrics.csv`` (four rows: CVAE, PCA + K-Means,
@@ -41,8 +43,8 @@ Autoencoder + K-Means, Direct Spectral), a copy under
 ``results/Conditional_VAE/serving/``.  ``--key=value`` overrides map onto
 ``ConditionalVAEConfig`` (``--epochs=5``, ``--batch_size=8``,
 ``--host_stream=true`` to keep the mel images on the host); extra flags as
-``train-simple`` with ``--data_dir`` defaulting to ``processed_data2``
-(``--data2_dir`` is read too).  ``train-hybrid`` is not ported yet.
+``train-simple``, the data read from ``--data2_dir``, else ``--data_dir``
+(default ``processed_data2``).  ``train-hybrid`` is not ported yet.
 
 ``encode`` maps NEW audio clips through a trained model to latents +
 nearest-training-centroid cluster ids (serving bundle from a prior
@@ -86,6 +88,27 @@ def _parse_flags(cmd: str, args, opts: set[str]):
         else:
             positional.append(a)
     return flags, positional
+
+
+# flags every train command of the JAX CLI takes besides its config's
+# fields (tpuvae/cli.py:102-104), and the port's own --device
+_TRAIN_EXTRAS = {"data_dir", "data1_dir", "data2_dir", "results_dir", "root",
+                 "clips_per_genre_lang", "seed_data", "out_dir", "tol", "fast",
+                 "container", "separation", "device"}
+
+
+def _split_train_args(args):
+    """The JAX CLI's split (``tpuvae/cli.py:56-64``): a flag named in
+    ``_TRAIN_EXTRAS`` is an extra, and a bare one reads as ``"1"``; every
+    other argument is a config override, passed on as written."""
+    cfg_args, extras = [], {}
+    for a in args:
+        key, sep, value = a.lstrip("-").partition("=")
+        if key in _TRAIN_EXTRAS:
+            extras[key] = value if sep else "1"
+        else:
+            cfg_args.append(a)
+    return cfg_args, extras
 
 
 def main(argv=None) -> int:
@@ -152,18 +175,12 @@ def _dispatch(argv) -> int:
         from tpuvae_torch.config import SimpleVAEConfig
         from tpuvae_torch.pipelines import run_simple_vae
 
-        extra = {"data_dir", "results_dir", "device"}
-        topts, positional = _parse_flags(
-            cmd, rest, extra | set(SimpleVAEConfig().to_dict()))
-        if positional:
-            raise ValueError(f"train-simple takes no positional arguments: "
-                             f"{positional}")
-        cfg = SimpleVAEConfig().override(
-            [f"{k}={v}" for k, v in topts.items() if k not in extra])
-        df = run_simple_vae(topts.get("data_dir", "processed_data1"),
-                            topts.get("results_dir", "results"), cfg,
-                            make_plots=False,
-                            device=topts.get("device", "cuda"))
+        cfg_args, extras = _split_train_args(rest)
+        cfg = SimpleVAEConfig().override(cfg_args)
+        df = run_simple_vae(
+            extras.get("data1_dir") or extras.get("data_dir", "processed_data1"),
+            extras.get("results_dir", "results"), cfg, make_plots=False,
+            device=extras.get("device", "cuda"))
         print(df.to_string(index=False))
         return 0
 
@@ -171,18 +188,12 @@ def _dispatch(argv) -> int:
         from tpuvae_torch.config import ConditionalVAEConfig
         from tpuvae_torch.pipelines import run_conditional_vae
 
-        extra = {"data_dir", "data2_dir", "results_dir", "device"}
-        topts, positional = _parse_flags(
-            cmd, rest, extra | set(ConditionalVAEConfig().to_dict()))
-        if positional:
-            raise ValueError(f"train-cvae takes no positional arguments: "
-                             f"{positional}")
-        cfg = ConditionalVAEConfig().override(
-            [f"{k}={v}" for k, v in topts.items() if k not in extra])
+        cfg_args, extras = _split_train_args(rest)
+        cfg = ConditionalVAEConfig().override(cfg_args)
         df = run_conditional_vae(
-            topts.get("data2_dir") or topts.get("data_dir", "processed_data2"),
-            topts.get("results_dir", "results"), cfg, make_plots=False,
-            device=topts.get("device", "cuda"))
+            extras.get("data2_dir") or extras.get("data_dir", "processed_data2"),
+            extras.get("results_dir", "results"), cfg, make_plots=False,
+            device=extras.get("device", "cuda"))
         print(df.to_string(index=False))
         return 0
 

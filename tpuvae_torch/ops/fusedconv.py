@@ -21,10 +21,14 @@ it is written; layer 1 normalises layer 0's output on load:
 
 On a CUDA tensor the two kernels of ``csrc/fusedconv.cu`` run, fp32, at the
 trunk's widths (F0 = C = 32, F1 = 64), or the call raises; on a CPU tensor
-the plain PyTorch versions (``*_plain``) run.  The JAX package has no
-backward kernel for the pair, so the gradient goes through PyTorch's
-convolution gradients, from the saved input, the raw ``y0`` and the
-statistics.
+the plain PyTorch versions (``*_plain``) run.  The kernels add each image's
+partial statistics themselves (the last CTA or warpgroup to finish an
+image, found by an integer ticket) and finalise the batch statistics, so a
+wrapper makes one launch and no reduction; :func:`conv0_stats` and
+:func:`conv1_norm_stats` run the same kernels and drop the batch
+statistics.  The JAX package has no backward kernel for the pair, so the
+gradient goes through PyTorch's convolution gradients, from the saved
+input, the raw ``y0`` and the statistics.
 """
 
 from __future__ import annotations
@@ -40,17 +44,25 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 CONV0 = _build.Kernel(
     "fusedconv_conv0", "fusedconv", "tpuvae_fusedconv_conv0",
-    [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR])
+    [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+     _PTR, _PTR, ctypes.c_float, _PTR, _PTR])
 CONV1 = _build.Kernel(
     "fusedconv_conv1", "fusedconv", "tpuvae_fusedconv_conv1",
     [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
-     _PTR, _PTR, _PTR])
+     _PTR, _PTR, _PTR, _PTR, _PTR])
 
 LEAKY_SLOPE = 0.01
-# output pixels per CTA (rows, columns) of the two kernels in csrc/fusedconv.cu
+# output pixels per tile (rows, columns) of the two kernels in
+# csrc/fusedconv.cu: conv0 one CTA a tile, conv1 one wgmma tile (64 rows);
+# the statistics scratch holds one partial row per tile
 _TILE0 = (8, 32)
-_TILE1 = (8, 16)
+_TILE1 = (8, 8)
 _KERNEL_WIDTHS = (32, 32, 64)       # F0, C, F1 the CUDA kernels are built for
+# per (device, stream): the kernels' tickets, one per image and one for the
+# batch, int32 zeros that the kernels set back to 0
+_TICKETS: dict = {}
+# per device: gamma = 1, beta = 0 for conv0_stats, whose fold is dropped
+_IDENTITY_BN: dict = {}
 
 
 # -- plain versions -----------------------------------------------------------
@@ -97,10 +109,21 @@ def _fold(mean, var, gamma, beta, eps: float):
     return scale, beta - mean * scale
 
 
+def _conv0_bn_plain(x, w0, b0, gamma0, beta0, eps):
+    y0, s0, ss0 = conv0_stats_plain(x, w0, b0)
+    mean0, var0 = _finalize(s0, ss0, y0.shape[0] * y0.shape[1] * y0.shape[2])
+    return y0, (mean0, var0), _fold(mean0, var0, gamma0, beta0, eps)
+
+
+def _conv1_bn_plain(y0, scale, shift, w1, b1):
+    y1, s1, ss1 = conv1_norm_stats_plain(y0, scale, shift, w1, b1)
+    return y1, _finalize(s1, ss1, y1.shape[0] * y1.shape[1] * y1.shape[2])
+
+
 def fused_trunk2_forward_plain(x, w0, b0, gamma0, beta0, w1, b1,
                                eps: float = 1e-5):
     """Plain version of :func:`fused_trunk2_forward`."""
-    return _pair_forward(conv0_stats_plain, conv1_norm_stats_plain,
+    return _pair_forward(_conv0_bn_plain, _conv1_bn_plain,
                          x, w0, b0, gamma0, beta0, w1, b1, eps, None)[:3]
 
 
@@ -123,8 +146,38 @@ def _check_even(h: int, w: int) -> None:
                          f"(SAME pads (0, 1) only on even dims)")
 
 
+def _check_conv0(x, w0, b0) -> None:
+    _check(x, "x", (None, None, None))
+    f0 = w0.shape[-1]
+    _check(w0, "w0", (3, 3, f0))
+    _check(b0, "b0", (f0,))
+    _check_even(x.shape[1], x.shape[2])
+
+
+def _check_conv1(y0, scale, shift, w1, b1) -> None:
+    _check(y0, "y0", (None, None, None, None))
+    c, f1 = y0.shape[-1], w1.shape[-1]
+    _check(scale, "scale", (c,))
+    _check(shift, "shift", (c,))
+    _check(w1, "w1", (3, 3, c, f1))
+    _check(b1, "b1", (f1,))
+    _check_even(y0.shape[1], y0.shape[2])
+
+
 def _tiles(h2: int, w2: int, tile) -> int:
     return -(-h2 // tile[0]) * -(-w2 // tile[1])
+
+
+def _tickets_and_stream(device: torch.device, batch: int):
+    """``(tickets, stream)`` as kernel arguments: the current stream's
+    ticket buffer of at least ``batch + 1`` zeros, and that stream."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < batch + 1:
+        t = torch.zeros(max(batch + 1, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return _build.ptr(t), ctypes.c_void_p(stream)
 
 
 def _launch_args(*tensors):
@@ -137,6 +190,34 @@ def _launch_args(*tensors):
     return [_build.ptr(t) for t in tensors], dev
 
 
+def _conv0(x, w0, b0, gamma, beta, eps):
+    """Kernel 6's first half on the card: ``(y0, s, ss, stats)``, its last
+    reducer finalising the batch ``stats = (mean, var, scale, shift)``."""
+    f0 = w0.shape[-1]
+    if f0 != _KERNEL_WIDTHS[0]:
+        raise ValueError(f"the conv0 kernel is built for F0 = "
+                         f"{_KERNEL_WIDTHS[0]}, got {f0}")
+    x, w0, b0 = x.contiguous(), w0.contiguous(), b0.contiguous()
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    _check(gamma, "gamma0", (f0,))
+    _check(beta, "beta0", (f0,))
+    b, h, w = x.shape
+    h2, w2 = h // 2, w // 2
+    tiles = _tiles(h2, w2, _TILE0)
+    y0 = torch.empty((b, h2, w2, f0), dtype=torch.float32, device=x.device)
+    part = torch.empty((b * tiles, 2, f0), dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((2, b, 1, f0), dtype=torch.float32, device=x.device)
+    stats = torch.empty((4, f0), dtype=torch.float32, device=x.device)
+    if b:
+        (px, pw, pb, py, pp, ps, pg, pbe, pst), dev = _launch_args(
+            x, w0, b0, y0, part, sums, gamma, beta, stats)
+        tickets, stream = _tickets_and_stream(dev, b)
+        CONV0(px, pw, pb, b, h, w, f0, tiles, py, pp, ps, tickets, pg, pbe,
+              float(eps), pst, stream)
+    return y0, sums[0], sums[1], stats
+
+
 def conv0_stats(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor):
     """``x (B, H, W)``, ``w0 (3, 3, F0)``, ``b0 (F0,)`` ->
     ``(y0 (B, H/2, W/2, F0) raw, s (B, 1, F0), ss (B, 1, F0))``.
@@ -146,29 +227,43 @@ def conv0_stats(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor):
     ``tpuvae/ops/fusedconv.py:67`` (``_conv0_kernel``); it is bound by the
     bytes of ``y0``.
     """
-    _check(x, "x", (None, None, None))
-    f0 = w0.shape[-1]
-    _check(w0, "w0", (3, 3, f0))
-    _check(b0, "b0", (f0,))
-    b, h, w = x.shape
-    _check_even(h, w)
+    _check_conv0(x, w0, b0)
     if x.device.type == "cpu":
         return conv0_stats_plain(x, w0, b0)
-    if f0 != _KERNEL_WIDTHS[0]:
-        raise ValueError(f"the conv0 kernel is built for F0 = "
-                         f"{_KERNEL_WIDTHS[0]}, got {f0}")
-    x, w0, b0 = x.contiguous(), w0.contiguous(), b0.contiguous()
+    key = (x.device.index, w0.shape[-1])
+    if key not in _IDENTITY_BN:
+        _IDENTITY_BN[key] = (torch.ones(key[1], device=x.device),
+                             torch.zeros(key[1], device=x.device))
+    return _conv0(x, w0, b0, *_IDENTITY_BN[key], 1e-5)[:3]
+
+
+def _conv1(y0, scale, shift, w1, b1):
+    """Kernel 6's second half on the card: ``(y1, s, ss, stats)``, its last
+    reducer finalising the batch ``stats = (mean, var)``, (2, F1)."""
+    b, h, w, c = y0.shape
+    f1 = w1.shape[-1]
+    if (c, f1) != _KERNEL_WIDTHS[1:]:
+        raise ValueError(f"the conv1 kernel is built for C, F1 = "
+                         f"{_KERNEL_WIDTHS[1:]}, got {(c, f1)}")
+    y0, scale, shift, w1, b1 = (t.contiguous()
+                                for t in (y0, scale, shift, w1, b1))
+    if y0.data_ptr() % 16:
+        raise ValueError("y0 must start on a 16-byte boundary (the kernel "
+                         "copies it in 16-byte chunks)")
     h2, w2 = h // 2, w // 2
-    tiles = _tiles(h2, w2, _TILE0)
-    y0 = torch.empty((b, h2, w2, f0), dtype=torch.float32, device=x.device)
-    part = torch.empty((2, b, tiles, f0), dtype=torch.float32, device=x.device)
+    tiles = _tiles(h2, w2, _TILE1)
+    y1 = torch.empty((b, h2, w2, f1), dtype=torch.float32, device=y0.device)
+    part = torch.empty((b * tiles, 2, f1), dtype=torch.float32,
+                       device=y0.device)
+    sums = torch.empty((2, b, 1, f1), dtype=torch.float32, device=y0.device)
+    stats = torch.empty((2, f1), dtype=torch.float32, device=y0.device)
     if b:
-        (px, pw, pb, py, ps, pss), dev = _launch_args(
-            x, w0, b0, y0, part[0], part[1])
-        CONV0(px, pw, pb, b, h, w, f0, tiles, py, ps, pss,
-              _build.stream_ptr(dev))
-    sums = part.sum(dim=2, keepdim=True)
-    return y0, sums[0], sums[1]
+        (py0, psc, psh, pw, pb, py1, pp, ps, pst), dev = _launch_args(
+            y0, scale, shift, w1, b1, y1, part, sums, stats)
+        tickets, stream = _tickets_and_stream(dev, b)
+        CONV1(py0, psc, psh, pw, pb, b, h, w, c, f1, tiles, py1, pp, ps,
+              tickets, pst, stream)
+    return y1, sums[0], sums[1], stats
 
 
 def conv1_norm_stats(y0: torch.Tensor, scale: torch.Tensor,
@@ -179,52 +274,51 @@ def conv1_norm_stats(y0: torch.Tensor, scale: torch.Tensor,
 
     A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
     through :func:`conv1_norm_stats_plain`.  The kernel replaces
-    ``tpuvae/ops/fusedconv.py:88`` (``_conv1_kernel``); it is bound by its
-    fp32 operations.
+    ``tpuvae/ops/fusedconv.py:88`` (``_conv1_kernel``); it multiplies on the
+    tensor cores in three TF32 products, where it is bound by bytes and
+    operations alike.
     """
-    _check(y0, "y0", (None, None, None, None))
-    b, h, w, c = y0.shape
-    f1 = w1.shape[-1]
-    _check(scale, "scale", (c,))
-    _check(shift, "shift", (c,))
-    _check(w1, "w1", (3, 3, c, f1))
-    _check(b1, "b1", (f1,))
-    _check_even(h, w)
+    _check_conv1(y0, scale, shift, w1, b1)
     if y0.device.type == "cpu":
         return conv1_norm_stats_plain(y0, scale, shift, w1, b1)
-    if (c, f1) != _KERNEL_WIDTHS[1:]:
-        raise ValueError(f"the conv1 kernel is built for C, F1 = "
-                         f"{_KERNEL_WIDTHS[1:]}, got {(c, f1)}")
-    y0, scale, shift, w1, b1 = (t.contiguous()
-                                for t in (y0, scale, shift, w1, b1))
-    h2, w2 = h // 2, w // 2
-    tiles = _tiles(h2, w2, _TILE1)
-    y1 = torch.empty((b, h2, w2, f1), dtype=torch.float32, device=y0.device)
-    part = torch.empty((2, b, tiles, f1), dtype=torch.float32,
-                       device=y0.device)
-    if b:
-        (py0, psc, psh, pw, pb, py1, ps, pss), dev = _launch_args(
-            y0, scale, shift, w1, b1, y1, part[0], part[1])
-        CONV1(py0, psc, psh, pw, pb, b, h, w, c, f1, tiles, py1, ps, pss,
-              _build.stream_ptr(dev))
-    sums = part.sum(dim=2, keepdim=True)
-    return y1, sums[0], sums[1]
+    return _conv1(y0, scale, shift, w1, b1)[:3]
 
 
-def _pair_forward(conv0, conv1, x, w0, b0, gamma0, beta0, w1, b1, eps,
+def _conv0_bn(x, w0, b0, gamma0, beta0, eps):
+    """conv0 with layer 0's batch statistics and their BatchNorm fold:
+    ``(y0, (mean0, var0), (scale0, shift0))``.  On the card one launch,
+    the kernel finalising; on a CPU tensor the plain version."""
+    _check_conv0(x, w0, b0)
+    if x.device.type == "cpu":
+        return _conv0_bn_plain(x, w0, b0, gamma0, beta0, eps)
+    y0, _, _, st = _conv0(x, w0, b0, gamma0, beta0, eps)
+    return y0, (st[0], st[1]), (st[2], st[3])
+
+
+def _conv1_bn(y0, scale, shift, w1, b1):
+    """conv1 with layer 1's batch statistics: ``(y1, (mean1, var1))``; on
+    the card one launch, on a CPU tensor the plain version."""
+    _check_conv1(y0, scale, shift, w1, b1)
+    if y0.device.type == "cpu":
+        return _conv1_bn_plain(y0, scale, shift, w1, b1)
+    y1, _, _, st = _conv1(y0, scale, shift, w1, b1)
+    return y1, (st[0], st[1])
+
+
+def _pair_forward(conv0_bn, conv1_bn, x, w0, b0, gamma0, beta0, w1, b1, eps,
                   running0):
-    """The pair through ``conv0`` / ``conv1``; layer 0 is normalised with
+    """The pair through ``conv0_bn`` / ``conv1_bn`` (:func:`_conv0_bn`,
+    :func:`_conv1_bn` or their plain versions); layer 0 is normalised with
     its batch statistics, or with ``running0 = (mean, var)`` when given.
     Returns ``(y1, (mean0, var0), (mean1, var1), y0)`` with the batch
     statistics of both raw outputs."""
     if x.dim() != 4 or x.shape[-1] != 1:
         raise ValueError(f"x must be (B, H, W, 1), got {tuple(x.shape)}")
-    y0, s0, ss0 = conv0(x[..., 0], w0[:, :, 0, :], b0)
-    mean0, var0 = _finalize(s0, ss0, y0.shape[0] * y0.shape[1] * y0.shape[2])
-    m, v = (mean0, var0) if running0 is None else running0
-    scale0, shift0 = _fold(m, v, gamma0, beta0, eps)
-    y1, s1, ss1 = conv1(y0, scale0, shift0, w1, b1)
-    mean1, var1 = _finalize(s1, ss1, y1.shape[0] * y1.shape[1] * y1.shape[2])
+    y0, (mean0, var0), (scale0, shift0) = conv0_bn(
+        x[..., 0], w0[:, :, 0, :], b0, gamma0, beta0, eps)
+    if running0 is not None:
+        scale0, shift0 = _fold(*running0, gamma0, beta0, eps)
+    y1, (mean1, var1) = conv1_bn(y0, scale0, shift0, w1, b1)
     return y1, (mean0, var0), (mean1, var1), y0
 
 
@@ -236,7 +330,7 @@ def fused_trunk2_forward(x, w0, b0, gamma0, beta0, w1, b1, eps: float = 1e-5):
     output and the BatchNorm batch statistics of each conv output.  Not
     differentiable: models call :func:`fused_trunk2`."""
     with torch.no_grad():
-        return _pair_forward(conv0_stats, conv1_norm_stats, x, w0, b0,
+        return _pair_forward(_conv0_bn, _conv1_bn, x, w0, b0,
                              gamma0, beta0, w1, b1, eps, None)[:3]
 
 
@@ -258,7 +352,7 @@ class _FusedTrunk2(torch.autograd.Function):
     def forward(ctx, x, w0, b0, gamma0, beta0, w1, b1, eps, run_mean, run_var):
         running0 = None if run_mean is None else (run_mean, run_var)
         y1, (mean0, var0), (mean1, var1), y0 = _pair_forward(
-            conv0_stats, conv1_norm_stats, x, w0, b0, gamma0, beta0, w1, b1,
+            _conv0_bn, _conv1_bn, x, w0, b0, gamma0, beta0, w1, b1,
             eps, running0)
         ctx.eps = eps
         ctx.batch_stats = running0 is None

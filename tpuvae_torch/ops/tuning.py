@@ -6,9 +6,10 @@ candidate magnitudes, and the 100-bin residual vote — from the fused STFT
 kernel's power spectrogram ``(B, n_fft//2+1, T)`` (bf16 or fp32) and its
 per-frame max ``colmax (B, T)``.
 
-On a CUDA tensor the CUDA kernel ``csrc/tuning.cu`` runs (one CTA per
-clip); on a CPU tensor the plain PyTorch version does, built from the
-staged pieces of :mod:`tpuvae_torch.dsp.chroma`.  The two are bit-equal.
+On a CUDA tensor the CUDA kernel ``csrc/tuning.cu`` runs (a cluster of
+``CLUSTER`` CTAs per clip, each over a slice of the frames); on a CPU
+tensor the plain PyTorch version does, built from the staged pieces of
+:mod:`tpuvae_torch.dsp.chroma`.  The two are bit-equal.
 The port's power layout has exactly ``T`` frames and ``n_fft//2+1`` rows,
 so the TPU layout's pad frames and mirror bins do not arise here.
 """
@@ -30,7 +31,23 @@ TUNING = _build.Kernel(
      ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-     ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+# CTAs per clip of csrc/tuning.cu, and the most candidate-list entries one of
+# them keeps in shared memory (kCluster, kSmemListEntries there; the kernel
+# refuses a launch whose global lists are shorter than its own geometry
+# needs, or whose lists would not fit its shared memory)
+CLUSTER = 8
+SMEM_LIST_ENTRIES = 44000
+
+
+def list_geometry(t: int, r8: int) -> tuple[int, int]:
+    """``(frames per CTA, list capacity per CTA)`` of the kernel for ``t``
+    frames and an ``r8``-row band: a frame holds at most ``ceil(r8 / 2)``
+    candidates, since rows ``r`` and ``r + 1`` are never both local maxima
+    (``st[r] > st[r-1]`` and ``st[r] >= st[r+1]``) and row 0 never is."""
+    frames = max(1, -(-t // CLUSTER))
+    return frames, frames * -(-r8 // 2)
 
 
 @functools.lru_cache(maxsize=8)
@@ -118,8 +135,9 @@ def estimate_tuning(power: torch.Tensor, colmax: torch.Tensor, sr: int,
     per-frame max power ``colmax``.  A CUDA tensor goes through the CUDA
     kernel (or raises); a CPU tensor through :func:`estimate_tuning_plain`.
     The kernel replaces ``tpuvae/ops/tuning.py:352`` / ``:367``; it is
-    bound by the bytes of the band it must read, and ``csrc/tuning.cu``
-    says how its passes keep that band in L2.
+    bound by the bytes of the band it must read.  Each CTA compacts its
+    candidates into shared memory, or, when a clip's frames need more than
+    ``SMEM_LIST_ENTRIES`` a CTA, into a global buffer allocated here.
     """
     _check(power, colmax, n_fft)
     if power.device.type == "cpu":
@@ -135,9 +153,21 @@ def estimate_tuning(power: torch.Tensor, colmax: torch.Tensor, sr: int,
     lo8, r8, fmask, binsb, edges, n_bins, binw = _device_consts(
         str(power.device), sr, n_fft, n_rows, resolution)
     out = torch.empty((b,), dtype=torch.float32, device=power.device)
+    frames, capacity = list_geometry(t, r8)
+    keys_g = buckets_g = None
+    list_entries = 0
+    if capacity > SMEM_LIST_ENTRIES and b:
+        list_entries = b * CLUSTER * capacity
+        keys_g = torch.empty((list_entries,), dtype=torch.int32,
+                             device=power.device)
+        buckets_g = torch.empty((list_entries,), dtype=torch.uint8,
+                                device=power.device)
     TUNING(_build.ptr(power), int(power.dtype == torch.bfloat16),
            _build.ptr(colmax), b, n_rows, t, lo8, r8, _build.ptr(fmask),
            _build.ptr(binsb), _build.ptr(edges), n_bins, binw,
            float(sr) / n_fft, float(bins_per_octave), PIPTRACK_THRESHOLD,
-           _build.ptr(out), _build.stream_ptr(power.device))
+           frames, capacity,
+           None if keys_g is None else _build.ptr(keys_g),
+           None if buckets_g is None else _build.ptr(buckets_g),
+           list_entries, _build.ptr(out), _build.stream_ptr(power.device))
     return out
