@@ -16,7 +16,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    tolerance; kernels 2 (tuning) and 3 (masked-median select) bit-equal,
    kernel 2 also on a spectrum whose every other band row is a candidate
    (its worst case) at 1,292 frames and at 2,600, where its candidate
-   lists leave shared memory for a global buffer;
+   lists leave shared memory for a global buffer, kernel 3 also on rows
+   whose every key is valid, where its lists spill to a global buffer;
 4. serve the Simple VAE: a seeded corpus of 30 s WAVs, features on the
    card, fitted normalizers, a full-width SimpleVAE from a seeded
    ``torch.Generator``, k = 4 centres, a serving bundle, ``make_server``
@@ -31,7 +32,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    n_init 10), launch counters set to 0 just before it and read just
    after (kernel 5 must have run); the CSV's two rows finite, and
    ``ClipEncoder.load`` serving the trained bundle; then kernel 5 against
-   its plain version at N = 1,336 and 10,240, D = 32;
+   its plain version at N = 186, 1,336 and 10,240, D = 32, its
+   self-distances exactly symmetric;
 6. kernel 4 (dense-DFT STFT power, three TF32 tensor-core products)
    against its plain version at 32 x 661,500, at two ragged shapes and on a
    clip whose power spans 80 dB, within its stated tolerance (rtol 1e-4 /
@@ -66,8 +68,9 @@ Phases (any failure exits non-zero, and no result line is printed):
     CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
     also at the pipelines' 128 clips and partial batches, each held
     against its plain version there too; the extract stage's parts,
-    ``/encode`` latency, the training and preprocess paths' stages, and the
-    Conditional VAE's training step split into forward, backward and
+    ``/encode`` latency, the training and preprocess paths' stages, kernel
+    5 also at the main path's N = 1,336 and kernel 3 on all-valid rows, and
+    the Conditional VAE's training step split into forward, backward and
     optimizer, with the cost of the fused pair's backward; one more step
     under ``torch.profiler``: the pair's kernel time, launches and span
     inside it;
@@ -108,6 +111,7 @@ EXTRACT_BATCH = 128   # device batch of the preprocess pipelines
 CLIPS_PER_GENRE_LANG = 32   # x 3 genres x 2 languages = 192 clips
 MEL_HW = (128, 1024)  # the mel image of processed_data2
 CVAE_EPOCHS = 3       # of the reference's 600
+N_CVAE_CLIPS = 186    # rows the Conditional VAE's metric rows cluster
 CVAE_LATENT = 64
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s
@@ -123,10 +127,13 @@ PEAK_TF32_FLOPS = 495e12
 # earlier designs in one process with the new.  The STFT kernels: a
 # radix-2 FFT in shared memory, an fp32 GEMM on the CUDA cores.  Kernel 2:
 # one CTA per clip, six passes over the band.  Kernel 6: a CUDA-core conv1
-# whose wrapper summed the per-CTA partials.
+# whose wrapper summed the per-CTA partials.  Kernel 3: one CTA per row,
+# five passes over the keys.  Kernel 5: 64 x 64 tiles of 4 x 4 register
+# micro-tiles, both triangles.
 EARLIER_DESIGN_MS = {"stft_features": 1.744, "stft_dense": 7.67,
                      "tuning": 2.6936, "fusedconv": 0.5962,
-                     "fusedconv_conv0": 0.0720, "fusedconv_conv1": 0.4278}
+                     "fusedconv_conv0": 0.0720, "fusedconv_conv1": 0.4278,
+                     "masked_median_select": 1.0596, "pairwise": 0.4952}
 # kernel 4's error bound: the largest error and the signed mean error over
 # the bins above 1e-3 of the max power, both as shares of the max power
 K4_MAX_ERR_SHARE = 1e-5
@@ -355,14 +362,31 @@ def check_pairwise(torch, x) -> dict:
     check(err2 <= tol, f"kernel 5 squared distances off by {err2} > {tol}")
     check(float(d2k.min()) >= 0.0, "negative squared distance")
     check(bool((dk.diagonal() == 0).all()), "self-distance diagonal not 0")
+    check(torch.equal(dk, dk.T), "self-distances not exactly symmetric")
     check(err <= tol ** 0.5, f"kernel 5 distances off by {err} > {tol ** 0.5}")
     fused = torch.sqrt(d2k).fill_diagonal_(0.0)
     torch.testing.assert_close(dk, fused, rtol=1e-6, atol=0)
     log(f"kernel 5 at N = {x.shape[0]}, D = {x.shape[1]}: squared max abs "
         f"err {err2:.4g} (bound {tol:.4g}), distances {err:.4g}; diagonal 0; "
-        f"fused sqrt equal to sqrt of squared mode: "
+        f"exactly symmetric; fused sqrt equal to sqrt of squared mode: "
         f"{bool(torch.equal(dk, fused))}")
     return {"max_abs_err": err, "squared_max_abs_err": err2}
+
+
+def all_valid_keys(torch, dev, n_cols: int):
+    """``(8, n_cols)`` keys that are all valid (no sentinel): values on a
+    grid of 1/8 (runs of ties), every fifth a signed zero, one row one key
+    short (odd and even counts).  Kernel 3's lists spill there."""
+    from tpuvae_torch.ops.select import I32_MAX, float_order_key
+
+    g = torch.Generator(device=dev).manual_seed(SEED + n_cols)
+    vals = torch.randint(-4000, 4000, (8, n_cols), generator=g,
+                         device=dev).float() * 0.125
+    vals[:, ::5] = -0.0
+    vals[7] = torch.randn((n_cols,), generator=g, device=dev)
+    keys = float_order_key(vals).contiguous()
+    keys[3, -1] = I32_MAX
+    return keys
 
 
 # -- phase 3 (and again at 128 clips): kernel 1 against its plain version ------
@@ -838,29 +862,40 @@ def profile_pair_in_step(torch, step) -> dict:
         with record_function("tpuvae_fused_pair"):
             return inner(*args, **kwargs)
 
+    # the profiler's device records of a step are not always complete (a
+    # run on the H100 once held no conv0_kernel record for a step that
+    # launched it): profile the step again, up to three times, until its
+    # trace holds the pair's range and its conv0 kernel once each
     fc._pair_forward = traced
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
+        for attempt in range(1, 4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            events = prof.events()
+            pair = [e for e in events if e.name == "tpuvae_fused_pair"
+                    and e.device_type == DeviceType.CPU]
+            # one stream: the device runs the kernels in launch order, so
+            # the pair's are the kernels from its conv0 on
+            device = sorted(
+                (e for e in events if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))),
+                key=lambda e: e.time_range.start)
+            first = [i for i, e in enumerate(device)
+                     if "conv0_kernel" in e.name]
+            if len(pair) == 1 and len(first) == 1:
+                break
+            log(f"profiled step {attempt}: {len(pair)} fused-pair ranges, "
+                f"{len(first)} conv0 kernels in the trace; profiling again")
     finally:
         fc._pair_forward = inner
-    events = prof.events()
-    pair = [e for e in events if e.name == "tpuvae_fused_pair"
-            and e.device_type == DeviceType.CPU]
     check(len(pair) == 1, f"{len(pair)} fused-pair ranges in one step")
+    check(len(first) == 1, f"{len(first)} conv0 kernels in one step")
     lo, hi = pair[0].time_range.start, pair[0].time_range.end
     launches = [e for e in events if e.device_type == DeviceType.CPU
                 and e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
                 and lo <= e.time_range.start <= hi]
-    # one stream: the device runs the kernels in launch order, so the pair's
-    # are the len(launches) kernels from its conv0 on
-    device = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith(("Memcpy", "Memset"))),
-                    key=lambda e: e.time_range.start)
-    first = [i for i, e in enumerate(device) if "conv0_kernel" in e.name]
-    check(len(first) == 1, f"{len(first)} conv0 kernels in one step")
     pair_kernels = device[first[0]:first[0] + len(launches)]
     check(any("conv1_kernel" in e.name for e in pair_kernels),
           "conv1 is not among the kernels the pair launched")
@@ -873,7 +908,7 @@ def profile_pair_in_step(torch, step) -> dict:
            "conv1_kernel_us": device_us("conv1_kernel"),
            "pair_launches": len(launches),
            "pair_kernels": [e.name.split("(")[0][-48:] for e in pair_kernels],
-           "step_device_kernels": len(device)}
+           "step_device_kernels": len(device), "profile_attempts": attempt}
     out["pair_first_to_last_us"] = (
         max(e.time_range.end for e in pair_kernels)
         - min(e.time_range.start for e in pair_kernels))
@@ -1031,6 +1066,7 @@ def run(torch, dev, work: Path, card: str) -> int:
         masked_keys,
         select_stats,
         select_stats_plain,
+        slice_geometry,
     )
     from tpuvae_torch.ops.stft import (
         _folded_basis,
@@ -1107,6 +1143,13 @@ def run(torch, dev, work: Path, card: str) -> int:
     check(torch.equal(s_k, s_p), "select kernel != plain")
     log(f"kernel 3: equal to plain on keys {tuple(keys.shape)} (rows 0/1: "
         f"empty / single element; n of row 2 = {s_k[2, 0].item()})")
+    keys_valid = all_valid_keys(torch, dev, keys.shape[1])
+    check(torch.equal(select_stats(keys_valid), select_stats_plain(keys_valid)),
+          "select kernel != plain on all-valid rows")
+    slice_, capacity, spill = slice_geometry(keys.shape[1])
+    log(f"kernel 3: equal to plain on {tuple(keys_valid.shape)} all-valid "
+        f"rows (odd and even n, ties, signed zeros): slices of {slice_} keys, "
+        f"{capacity} in shared memory, {spill} spilled a CTA")
     results["masked_median_select"] = {"max_abs_err": 0.0}
     del mags, mask, fe_x
 
@@ -1254,7 +1297,7 @@ def run(torch, dev, work: Path, card: str) -> int:
     train = train_simple_vae(torch, dev, work, waves[:4])
     x1336 = seeded_latents(torch, dev, N_TRAIN)
     x_scale = seeded_latents(torch, dev, N_SCALE)
-    for x in (x1336, x_scale):
+    for x in (seeded_latents(torch, dev, N_CVAE_CLIPS), x1336, x_scale):
         results["pairwise"] = check_pairwise(torch, x)
 
     # ---- 6. kernel 4 against its plain version -------------------------------
@@ -1411,6 +1454,29 @@ def run(torch, dev, work: Path, card: str) -> int:
             + f", plain {plain_ms:.4f} ms, library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
+    # kernel 5 also at the main path's N = 1,336 (64 x 64 tiles there) and
+    # kernel 3 on the all-valid rows of phase 3 (its lists spill)
+    k5 = next(k for k in kernels if k["name"] == "pairwise")
+    n_main = x1336.shape[0]
+    k5_main_bytes = 2 * n_main * LATENT * 4 + n_main * n_main * 4
+    k5_main_flops = 2 * n_main * n_main * LATENT + 3 * n_main * n_main
+    k5_main_bound, k5_main_by = bound(k5_main_bytes, k5_main_flops)
+    k5["at_main_path"] = {
+        "n": n_main, "ms": time_ms(torch, lambda: self_distances(x1336), flush),
+        "plain_ms": time_ms(torch, lambda: self_distances_plain(x1336), flush),
+        "library_ms": time_ms(torch, lambda: torch.cdist(
+            x1336, x1336, compute_mode="use_mm_for_euclid_dist"), flush),
+        "bound_ms": k5_main_bound, "bound_by": k5_main_by}
+    log(f"time pairwise at N = {n_main}: " + json.dumps(k5["at_main_path"]))
+    k3 = next(k for k in kernels if k["name"] == "masked_median_select")
+    k3["all_valid_rows"] = {
+        "rows": keys_valid.shape[0],
+        "ms": time_ms(torch, lambda: select_stats(keys_valid), flush),
+        "bound_ms": bound(keys_valid.numel() * 4 + keys_valid.shape[0] * 16,
+                          keys_valid.numel() * 2)[0]}
+    log(f"time masked_median_select on all-valid rows: "
+        + json.dumps(k3["all_valid_rows"]))
+    del keys_valid
     k4_cublas_ms = time_ms(torch, library_k4_cublas, flush)
     log(f"time stft_dense, the cuBLAS form (unfold x [cos | sin], square, "
         f"add): {k4_cublas_ms:.4f} ms")

@@ -7,10 +7,15 @@ import) when no card is present.  Run on a machine with an H100:
 
 Tolerances: kernel 1 computes an fp32 radix-32 x 32 FFT in registers where
 the plain version calls cuFFT — rtol 1e-4 / atol 1e-6 x max power, rolloff within one bin
-(sr / n_fft); bf16 power within one bf16 step.  Kernels 2 and 3 equal.
+(sr / n_fft); bf16 power within one bf16 step.  Kernels 2 and 3 equal;
+kernel 3 also at the main path's 32 and 128 rows of piptrack keys, on
+all-valid rows (its lists spill to global memory), on rows shorter than
+its cluster and on rows that start off a 16-byte boundary.
 Kernel 5: squared distances within 1e-5 x (max|x|^2 + max|y|^2) of its
 plain version (fp32 FMAs against cuBLAS's fp32 product), self-distances
-within the square root of that bound, with an exactly-zero diagonal.
+within the square root of that bound, with an exactly-zero diagonal and
+exactly symmetric (one triangle computed, the other mirrored), also at
+more than 65,535 x 64 rows.
 Kernel 4 (dense-DFT STFT power): rtol 1e-4 with an atol of 1e-6 x max
 power against its plain version — three TF32 tensor-core products of split
 operands, summed per 32 samples and then in fp32, against cuBLAS's fp32
@@ -271,6 +276,123 @@ def test_select_kernel_equals_plain(cuda):
                                rtol=0, atol=0)
 
 
+@pytest.fixture(scope="module")
+def piptrack_keys_30s(cuda, power_30s):
+    """Order keys of the piptrack candidates of the 32 seeded 30 s clips,
+    (32, 368 x 1292): the main path's input to kernel 3."""
+    from tpuvae_torch.dsp.chroma import _tuning_candidates
+    from tpuvae_torch.ops.select import masked_keys
+
+    colmax = power_30s.amax(dim=1)
+    _, mags, mask = _tuning_candidates(power_30s, SR, N_FFT, colmax)
+    return masked_keys(mags.reshape(32, -1), mask.reshape(32, -1)).contiguous()
+
+
+@pytest.mark.parametrize("n_rows", [32, 128])
+def test_select_kernel_equals_plain_at_the_main_shape(cuda, piptrack_keys_30s,
+                                                      n_rows):
+    """Real piptrack keys, 475,456 a row: eight CTAs of 59,432 keys, their
+    lists in shared memory.  128 rows: the 32 with keys shifted and masks
+    thinned, plus an empty and a single-element row."""
+    from tpuvae_torch.ops.select import (
+        I32_MAX,
+        select_stats,
+        select_stats_plain,
+    )
+
+    keys = piptrack_keys_30s
+    g = torch.Generator(device=cuda).manual_seed(n_rows)
+    parts = [keys]
+    for k in range(1, n_rows // 32):
+        drop = torch.rand(keys.shape, generator=g, device=cuda) < 0.1 * k
+        shifted = torch.where(keys < I32_MAX - 64, keys + 7 * k, keys)
+        parts.append(torch.where(drop, torch.full_like(keys, I32_MAX), shifted))
+    keys = torch.cat(parts).contiguous()
+    keys[0] = I32_MAX                             # empty row: cnt_le == N
+    keys[1] = I32_MAX
+    keys[1, 1000] = 5                             # a single element
+    got = select_stats(keys)
+    want = select_stats_plain(keys)
+    assert got[0].tolist() == [0, I32_MAX, keys.shape[1], I32_MAX]
+    assert got[1].tolist() == [1, 5, 1, I32_MAX]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_cols", [475_456, 216_003])
+def test_select_kernel_equals_plain_on_all_valid_rows(cuda, n_cols):
+    """Every key valid: a slice's list outgrows shared memory and the rest
+    goes to the global spill.  Ties (a few hundred distinct values), signed
+    zeros, odd and even counts."""
+    from tpuvae_torch.ops import select as sel
+
+    slice_, capacity, spill = sel.slice_geometry(n_cols)
+    assert spill > 0 and capacity == sel.SMEM_LIST_ENTRIES
+    g = torch.Generator(device=cuda).manual_seed(n_cols)
+    vals = torch.randint(-300, 300, (4, n_cols), generator=g,
+                         device=cuda).float() * 0.25
+    vals[1, ::3] = -0.0
+    vals[2] = torch.randn((n_cols,), generator=g, device=cuda)
+    keys = sel.float_order_key(vals).contiguous()
+    keys[3, -1] = sel.I32_MAX                     # n odd / even across rows
+    got = sel.select_stats(keys)
+    want = sel.select_stats_plain(keys)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_cols", [1, 3, 5, 7, 9, 33])
+def test_select_kernel_on_rows_shorter_than_the_cluster(cuda, n_cols):
+    from tpuvae_torch.ops.select import (
+        I32_MAX,
+        select_stats,
+        select_stats_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(n_cols)
+    keys = torch.randint(-5, 5, (6, n_cols), generator=g, dtype=torch.int32,
+                         device=cuda)
+    keys[0] = I32_MAX
+    keys[1, 1:] = I32_MAX
+    torch.testing.assert_close(select_stats(keys), select_stats_plain(keys),
+                               rtol=0, atol=0)
+
+
+def test_select_kernel_on_an_unaligned_view(cuda):
+    """Rows that start off a 16-byte boundary: a slice's first and last
+    keys go through the scalar head and tail."""
+    from tpuvae_torch.ops.select import select_stats, select_stats_plain
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randint(-1000, 1000, (3 * 4101 + 1,), generator=g,
+                         dtype=torch.int32, device=cuda)
+    keys = flat[1:].view(3, 4101)
+    assert keys.is_contiguous() and keys.data_ptr() % 16 == 4
+    torch.testing.assert_close(select_stats(keys), select_stats_plain(keys),
+                               rtol=0, atol=0)
+
+
+def test_select_kernel_refuses_a_spill_shorter_than_its_geometry(cuda):
+    from tpuvae_torch.ops import _build
+    from tpuvae_torch.ops import select as sel
+
+    n_rows, n_cols = 2, 475_456
+    keys = torch.zeros((n_rows, n_cols), dtype=torch.int32, device=cuda)
+    slice_, capacity, spill_per_cta = sel.slice_geometry(n_cols)
+    entries = n_rows * sel.CLUSTER * spill_per_cta
+    spill = torch.empty(entries, dtype=torch.int32, device=cuda)
+    out = torch.empty((n_rows, 4), dtype=torch.int32, device=cuda)
+
+    def launch(spill_entries):
+        sel.SELECT(_build.ptr(keys), n_rows, n_cols, slice_, capacity,
+                   spill_per_cta, _build.ptr(spill), spill_entries,
+                   _build.ptr(out), _build.stream_ptr(keys.device))
+
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        launch(entries - 1)
+    launch(entries)
+    torch.testing.assert_close(out, sel.select_stats_plain(keys), rtol=0,
+                               atol=0)
+
+
 @pytest.mark.parametrize("n,m,d", [(100, 77, 37), (130, 130, 8),
                                    (1336, 1336, 32), (65, 4097, 3)])
 def test_pairwise_kernel_matches_plain(cuda, n, m, d):
@@ -299,6 +421,50 @@ def test_pairwise_kernel_matches_plain(cuda, n, m, d):
         assert (dk - self_distances_plain(xt)).abs().max().item() <= tol ** 0.5
         torch.testing.assert_close(dk, torch.sqrt(got).fill_diagonal_(0.0),
                                    rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n", [186, 1336, 10240])
+def test_self_distances_are_exactly_symmetric(cuda, n):
+    """One triangle of tiles computed, each off-diagonal tile mirrored:
+    d == d.T bit for bit, a zero diagonal, within tolerance of plain."""
+    from tpuvae_torch.ops.pairwise import (
+        self_distances,
+        self_distances_plain,
+        squared_distances,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n, 32), generator=g, device=cuda)
+    x[1] = x[0] + 1e-4
+    d = self_distances(x)
+    assert torch.equal(d, d.T)
+    assert (d.diagonal() == 0).all()
+    sq = float((x * x).sum(dim=1).max())
+    assert (d - self_distances_plain(x)).abs().max().item() <= (2e-5 * sq) ** 0.5
+    # the squared mode computes both triangles the same way
+    d2 = squared_distances(x, x)
+    assert torch.equal(d2, d2.T)
+    torch.testing.assert_close(d, torch.sqrt(d2).fill_diagonal_(0.0),
+                               rtol=1e-6, atol=0)
+
+
+def test_pairwise_kernel_has_no_grid_limit(cuda):
+    """More than 65,535 x 64 rows: the persistent grid walks any number of
+    tiles."""
+    from tpuvae_torch.ops.pairwise import (
+        squared_distances,
+        squared_distances_plain,
+    )
+
+    n = 65535 * 64 + 65
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((n, 3), generator=g, device=cuda)
+    y = torch.randn((5, 3), generator=g, device=cuda)
+    got = squared_distances(x, y)
+    want = squared_distances_plain(x, y)
+    tol = 1e-5 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+    assert got.shape == (n, 5)
+    assert (got - want).abs().max().item() <= tol
 
 
 def test_pairwise_kernel_counts_launches_and_raises(cuda):

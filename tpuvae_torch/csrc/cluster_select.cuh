@@ -1,10 +1,12 @@
 // Exact median rank of int32 order keys spread over the CTAs of a thread
 // block cluster (Hopper), each CTA holding a compacted list of its own keys.
 //
-// Used by the tuning kernel (tuning.cu).  The keys and their helpers are
-// those of radix_select.cuh: a float's biased int32 key, whose signed order
-// is the float's total order.  Every key in a list is counted: there are no
-// sentinels to skip.
+// Used by the tuning kernel (tuning.cu) and the masked-median select kernel
+// (select.cu).  The keys and their helpers are those of radix_select.cuh: a
+// float's biased int32 key, whose signed order is the float's total order.
+// Every key in a list is counted: there are no sentinels to skip.  A list
+// may lie in two pieces (shared memory, then a global spill past its
+// capacity): KeyList reads them as one.
 //
 // An MSB-first radix select in four 8-bit digit passes.  In each pass every
 // CTA builds a 256-counter histogram of its keys that match the prefix
@@ -36,6 +38,18 @@ struct ClusterSelectScratch {
   int32_t minimum;                // smallest key above the median rank's
 };
 
+// A CTA's list of keys: head[0 .. n_head) then tail[0 .. n_tail).
+struct KeyList {
+  const int32_t* head;
+  int n_head;
+  const int32_t* tail;
+  int n_tail;
+  __device__ __forceinline__ int size() const { return n_head + n_tail; }
+  __device__ __forceinline__ int32_t operator[](int i) const {
+    return i < n_head ? head[i] : tail[i - n_head];
+  }
+};
+
 // What the median of the cluster's keys needs (numpy's convention: the mean
 // of the two middle values for an even count).
 struct MedianRank {
@@ -45,15 +59,24 @@ struct MedianRank {
   int32_t min_above;  // smallest key > key_lo (kKeySentinel if none)
 };
 
-// merged[i] = sum over the cluster's CTAs of their hist[buf][i]
+// merged[i] = sum over the cluster's CTAs of their hist[buf][i]; the
+// remote reads of up to 8 CTAs (the portable cluster size) in flight at once
 __device__ __forceinline__ void cluster_merge_hist(ClusterSelectScratch* sc,
                                                    int buf) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
+  const unsigned nb = cluster.num_blocks();
   if (tid < kRadixBins) {
+    uint32_t part[8];
+#pragma unroll
+    for (unsigned r = 0; r < 8; ++r) {
+      part[r] = r < nb ? cluster.map_shared_rank(sc, r)->hist[buf][tid] : 0u;
+    }
     uint32_t s = 0;
-    for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) s += part[r];
+    for (unsigned r = 8; r < nb; ++r) {
       s += cluster.map_shared_rank(sc, r)->hist[buf][tid];
     }
     sc->merged[tid] = s;
@@ -90,13 +113,18 @@ __device__ __forceinline__ void find_rank_digit(ClusterSelectScratch* sc,
   __syncthreads();
 }
 
-// The median rank of the keys keys[0 .. n_local) of every CTA of the
-// cluster.  Every thread of every CTA of the cluster must call it.  It
-// ends with a cluster barrier: once it returns, no CTA reads another's
-// scratch any more.
-__device__ MedianRank cluster_median_rank(const int32_t* keys, int n_local,
-                                          ClusterSelectScratch* sc) {
+// The median rank of the keys of every CTA's list `keys` in the cluster.
+// min_above is computed when an even count needs it (its upper middle key
+// lies above key_lo) or, with `always_min_above`, whenever a key lies above
+// key_lo; otherwise it is kKeySentinel.  For an empty cluster key_lo and
+// min_above are kKeySentinel and cnt_le is 0.  Every thread of every CTA
+// of the cluster must call it.  It ends with a cluster barrier: once it
+// returns, no CTA reads another's scratch any more.
+__device__ MedianRank cluster_median_rank(const KeyList& keys,
+                                          ClusterSelectScratch* sc,
+                                          bool always_min_above) {
   namespace cg = cooperative_groups;
+  const int n_local = keys.size();
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -128,12 +156,12 @@ __device__ MedianRank cluster_median_rank(const int32_t* keys, int n_local,
     __syncthreads();
     cluster.sync();               // every CTA's histogram of this pass
     if (pass == 0) {
-      if (tid == 0) {
-        int n = 0;
-        for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
-          n += cluster.map_shared_rank(sc, r)->count;
-        }
-        sc->total = n;
+      if (tid < 32) {             // a lane per CTA (clusters of <= 32 CTAs)
+        int n = tid < static_cast<int>(cluster.num_blocks())
+                    ? cluster.map_shared_rank(sc, tid)->count
+                    : 0;
+        for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xFFFFFFFFu, n, o);
+        if (tid == 0) sc->total = n;
       }
       __syncthreads();
       res.n = sc->total;
@@ -159,12 +187,13 @@ __device__ MedianRank cluster_median_rank(const int32_t* keys, int n_local,
     return res;
   }
   res.key_lo = u_to_key(prefix);
-  // the smallest key above: needed only for an even count whose lower
-  // middle key ends its run of equal keys
+  // the smallest key above: the median needs it only for an even count
+  // whose lower middle key ends its run of equal keys
   const int k_lo = (res.n - 1) / 2;
   const int k_hi = res.n / 2;
   res.min_above = kKeySentinel;
-  if (k_hi != k_lo && res.cnt_le < k_hi + 1) {
+  if ((always_min_above && res.cnt_le < res.n) ||
+      (k_hi != k_lo && res.cnt_le < k_hi + 1)) {
     int32_t mn = kKeySentinel;
     for (int i = tid; i < n_local; i += nthreads) {
       const int32_t key = keys[i];
@@ -174,18 +203,25 @@ __device__ MedianRank cluster_median_rank(const int32_t* keys, int n_local,
     if ((tid & 31) == 0) atomicMin(&sc->minimum, mn);
     __syncthreads();
     cluster.sync();
-    if (tid == 0) {
-      int32_t m = kKeySentinel;
-      for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
-        m = min(m, cluster.map_shared_rank(sc, r)->minimum);
-      }
-      sc->bcast[0] = static_cast<uint32_t>(m);
+    if (tid < 32) {               // a lane per CTA
+      int32_t m = tid < static_cast<int>(cluster.num_blocks())
+                      ? cluster.map_shared_rank(sc, tid)->minimum
+                      : kKeySentinel;
+      m = warp_min(m);
+      if (tid == 0) sc->bcast[0] = static_cast<uint32_t>(m);
     }
     __syncthreads();
     res.min_above = static_cast<int32_t>(sc->bcast[0]);
   }
   cluster.sync();
   return res;
+}
+
+// The median rank of the keys keys[0 .. n_local) of every CTA of the
+// cluster, min_above only where the median needs it.
+__device__ __forceinline__ MedianRank cluster_median_rank(
+    const int32_t* keys, int n_local, ClusterSelectScratch* sc) {
+  return cluster_median_rank(KeyList{keys, n_local, nullptr, 0}, sc, false);
 }
 
 }  // namespace tpuvae

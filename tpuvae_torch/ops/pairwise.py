@@ -3,14 +3,16 @@
 Counterpart of ``tpuvae/ops/pairwise.py``: the O(N^2 D) core of the
 silhouette k-sweep and of the VAE and PCA rows of the Simple VAE pipeline
 (and, in later slices, DBSCAN and Ward).  On a CUDA tensor the CUDA kernel
-``csrc/pairwise.cu`` runs (64 x 64 output tiles, fp32 FMAs, fused
-clamp, and for self-distances a fused square root and zero diagonal); on a
-CPU tensor the plain PyTorch version does.
+``csrc/pairwise.cu`` runs (a persistent grid over 128 x 128 or 64 x 64
+output tiles, fp32 FMAs, fused clamp; for self-distances only the tiles
+on or above the diagonal, each written twice, with a fused square root and
+zero diagonal); on a CPU tensor the plain PyTorch version does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,10 +21,24 @@ from tpuvae_torch.ops import _build
 PAIRWISE = _build.Kernel(
     "pairwise", "pairwise", "tpuvae_pairwise_distances",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p])
 
-_TILE = 64
-_MAX_GRID_Y = 65535
+TILES = (64, 128)
+
+
+def tile_size(n: int, m: int, self_mode: bool, n_sms: int) -> int:
+    """The kernel's output tile side: 128, unless 128-wide tiles would
+    give fewer than two tiles an SM (``n_sms`` SMs; one triangle of tiles
+    in ``self_mode``), where 64-wide ones spread the work wider."""
+    nb_r, nb_c = -(-n // TILES[1]), -(-m // TILES[1])
+    tiles = nb_r * (nb_r + 1) // 2 if self_mode else nb_r * nb_c
+    return TILES[1] if tiles >= 2 * n_sms else TILES[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def squared_distances_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -54,13 +70,11 @@ def _launch(x: torch.Tensor, y: torch.Tensor, self_mode: bool) -> torch.Tensor:
         raise ValueError("x and y must be contiguous")
     n, d = x.shape
     m = y.shape[0]
-    if -(-n // _TILE) > _MAX_GRID_Y:
-        raise ValueError(f"N = {n} rows exceed the kernel's grid "
-                         f"({_MAX_GRID_Y} tiles of {_TILE})")
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n and m:
+        tile = tile_size(n, m, self_mode, _sm_count(x.device))
         PAIRWISE(_build.ptr(x), _build.ptr(y), n, m, d, _build.ptr(out),
-                 int(self_mode), _build.stream_ptr(x.device))
+                 int(self_mode), tile, _build.stream_ptr(x.device))
     return out
 
 
@@ -86,7 +100,8 @@ def squared_distances(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def self_distances(x: torch.Tensor) -> torch.Tensor:
     """``(N, N)`` Euclidean distances of the rows of ``x`` with an
     exactly-zero diagonal: one launch of kernel 5 on a CUDA tensor (square
-    root and diagonal fused), :func:`self_distances_plain` on a CPU one."""
+    root and diagonal fused; one triangle computed, the result exactly
+    symmetric), :func:`self_distances_plain` on a CPU one."""
     _check(x, "x")
     if x.device.type == "cpu":
         return self_distances_plain(x)

@@ -8,8 +8,10 @@ biased int32 keys, ``(n, key_lo, cnt_le, min_above)``; the numpy-convention
 median (mean of the two middles for even n, 0 for an empty mask) follows
 from those four numbers in :func:`masked_median_batch`.
 
-On a CUDA tensor the CUDA kernel ``csrc/select.cu`` runs (one CTA per row,
-radix select); on a CPU tensor the plain PyTorch version does (a sort).
+On a CUDA tensor the CUDA kernel ``csrc/select.cu`` runs (a cluster of
+``CLUSTER`` CTAs per row, each reading its slice of the row once and
+compacting the masked keys into a list, then a radix select over the
+lists); on a CPU tensor the plain PyTorch version does (a sort).
 """
 
 from __future__ import annotations
@@ -24,8 +26,26 @@ I32_MAX = 2**31 - 1
 
 SELECT = _build.Kernel(
     "masked_median_select", "select", "tpuvae_masked_median_select",
-    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-     ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_void_p, ctypes.c_void_p])
+
+# the kernel's cluster size and the longest list a CTA keeps in shared
+# memory (csrc/select.cu holds the same numbers)
+CLUSTER = 8
+SMEM_LIST_ENTRIES = 27000
+
+
+def slice_geometry(n_cols: int) -> tuple[int, int, int]:
+    """``(slice, capacity, spill per CTA)`` of the kernel for rows of
+    ``n_cols`` keys: CTA ``r`` of a row's cluster reads the keys
+    ``[r slice, (r + 1) slice)`` (``slice`` a multiple of 4, so that the
+    slices of an aligned row start on 16-byte boundaries); the first
+    ``capacity`` keys of its list lie in shared memory and the rest, up to
+    the whole slice (every key valid), in a global spill."""
+    slice_ = max(4, -(-max(n_cols, 1) // (4 * CLUSTER)) * 4)
+    capacity = min(slice_, SMEM_LIST_ENTRIES)
+    return slice_, capacity, slice_ - capacity
 
 
 def float_order_key(x: torch.Tensor) -> torch.Tensor:
@@ -60,8 +80,11 @@ def select_stats(keys: torch.Tensor) -> torch.Tensor:
     A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
     through :func:`select_stats_plain`.  The kernel replaces
     ``tpuvae/ops/select.py:32`` (``_select_kernel``); it is bound by the
-    bytes of the keys, and ``csrc/select.cu`` says how its radix passes
-    replace the 32-round binary search.
+    bytes of the keys, and ``csrc/select.cu`` says how one pass over the
+    keys and a radix select over the compacted lists replace the 32-round
+    binary search.  Rows longer than ``CLUSTER * SMEM_LIST_ENTRIES`` keys
+    get a global spill for the lists (allocated here), so the result is
+    exact whatever the mask.
     """
     if keys.dim() != 2 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be (B, N) int32, got {tuple(keys.shape)} "
@@ -74,8 +97,13 @@ def select_stats(keys: torch.Tensor) -> torch.Tensor:
         raise ValueError("keys must be contiguous")
     b, n = keys.shape
     out = torch.empty((b, 4), dtype=torch.int32, device=keys.device)
-    SELECT(_build.ptr(keys), b, n, _build.ptr(out),
-           _build.stream_ptr(keys.device))
+    slice_, capacity, spill_per_cta = slice_geometry(n)
+    spill_entries = b * CLUSTER * spill_per_cta
+    spill = (torch.empty((spill_entries,), dtype=torch.int32,
+                         device=keys.device) if spill_per_cta and b else None)
+    SELECT(_build.ptr(keys), b, n, slice_, capacity, spill_per_cta,
+           None if spill is None else _build.ptr(spill), spill_entries,
+           _build.ptr(out), _build.stream_ptr(keys.device))
     return out
 
 
