@@ -64,7 +64,29 @@ Phases (any failure exits non-zero, and no result line is printed):
     forward, kernel 5 once per metric row); the four rows finite; the saved
     bundle's ``weights.npz`` reloaded and its latents on the card held to
     the CPU's plain path on 4 clips (rtol 1e-3 / atol 1e-4);
-11. time each kernel, its plain version and the library yardstick with
+11. train the Hybrid VAE and cluster its latents four ways:
+    ``run_hybrid_vae`` through the entry point at full width (mel 128 x
+    1024, text 768, latent 128, batch 32, beta 1, text weight 350, lr 1e-4)
+    on the ``processed_data2`` of phase 7, twice in the process.  Cuts: 186
+    of the reference's 1,336 clips, 3 of 500 epochs.  Launch counters set to
+    0 just before the first run and read just after (kernel 6 on every
+    trunk forward; kernel 5 once per sweep, once for the rows and once per
+    Davies-Bouldin); the CSV's four rows, the latents file and the bundle
+    checked; one training step split into forward, backward and Adam;
+12. the three sweeps at the reference's N: seeded 1,336 x 128 latents
+    with 6 planted groups, each sweep timed on the card and held to the
+    same function on the CPU (plain distances; k-means by ARI, its seeds
+    differ by device); kernel 5 at D = 128 against its plain version and
+    timed at N = 1,336 and 10,240 with its bound;
+13. serve the cvae and hybrid bundles the two training phases wrote:
+    ``ClipEncoder.load`` on the card encodes 32 clips of 30 s with lyrics
+    (and genres for cvae), launch counters set to 0 just before and read
+    just after (kernel 4 for the mel image, kernel 6 in the trunk), held to
+    the same encoder on the CPU (latents within 1e-3 x max(1, max |latent|),
+    cluster ids equal); ``/encode`` latency of one clip with lyrics through
+    ``make_server``, median of 8 sequential requests, with and without the
+    20 ms micro-batch window;
+14. time each kernel, its plain version and the library yardstick with
     CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
     also at the pipelines' 128 clips and partial batches, each held
     against its plain version there too; the extract stage's parts,
@@ -74,7 +96,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     optimizer, with the cost of the fused pair's backward; one more step
     under ``torch.profiler``: the pair's kernel time, launches and span
     inside it;
-12. print the ``kernels`` JSON line, then the ``ok`` line last.
+15. print the ``kernels`` JSON line, then the ``ok`` line last.
 """
 
 from __future__ import annotations
@@ -113,6 +135,11 @@ MEL_HW = (128, 1024)  # the mel image of processed_data2
 CVAE_EPOCHS = 3       # of the reference's 600
 N_CVAE_CLIPS = 186    # rows the Conditional VAE's metric rows cluster
 CVAE_LATENT = 64
+HYBRID_EPOCHS = 3     # of the reference's 500
+HYBRID_LATENT = 128
+HYBRID_ROWS = ("K-Means-Main (k=", "K-Means-Language (k=2)", "Agglomerative (k=",
+               "DBSCAN (eps=")
+N_SERVE = 32          # clips each conv bundle encodes on the card and the CPU
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores, TF32 FLOP/s on them
@@ -1001,6 +1028,379 @@ def time_cvae_step(torch, dev, flush) -> dict:
     return out
 
 
+# -- phases 11-13: the Hybrid VAE, the sweeps at the reference's N, serving ----
+
+def hybrid_stages(log_path: Path) -> dict:
+    """Stage seconds of one ``run_hybrid_vae`` from its event log."""
+    ev = {rec["event"]: rec for rec in
+          (json.loads(line) for line in log_path.read_text().splitlines())}
+    return {"setup_before_first_epoch_s": ev["fit_start"]["setup_seconds"],
+            "n_train": ev["fit_start"]["n_train"],
+            "n_val": ev["fit_start"]["n_val"],
+            "fit_s": ev["fit"]["seconds"], "epoch_s": ev["fit"]["epoch_seconds"],
+            "train_loss": ev["fit"]["train_loss"],
+            "val_loss": ev["fit"]["val_loss"],
+            "latents_s": ev["latents"]["seconds"],
+            "sweeps_s": ev["sweeps"]["seconds"], "rows_s": ev["rows"]["seconds"],
+            "best": {k: ev["sweeps"][k] for k in ("kmeans_k", "agg_k",
+                                                  "dbscan_eps")}}
+
+
+def time_hybrid_step(torch, dev) -> dict:
+    """One training step of the full-width Hybrid VAE at batch 32 (mel 128
+    x 1024, text 768, latent 128, beta 1, text weight 350, Adam 1e-4), split
+    with CUDA events into forward (loss included), backward and Adam
+    (median of 7 steps after 3), and kernel 6's launches in one step."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.models import HybridVAE, hybrid_loss
+    from tpuvae_torch.train.state import create_state
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    model = HybridVAE(input_hw=MEL_HW,
+                      generator=torch.Generator().manual_seed(SEED)).to(dev)
+    opt = create_state(model, 1e-4).optimizer
+    audio = torch.randn((BATCH, *MEL_HW, 1), generator=g, device=dev)
+    text = torch.randn((BATCH, 768), generator=g, device=dev)
+    model.train()
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for step in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        if step == 9:
+            ops.reset_launch_counts()
+        ev[0].record()
+        ra, rt, mu, lv = model(audio, text, generator=g)
+        loss = hybrid_loss(ra, audio, rt, text, mu, lv)[0]
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        ev[3].synchronize()
+        if step >= 3:
+            for k, a, b in zip(parts, ev[:-1], ev[1:]):
+                parts[k].append(a.elapsed_time(b))
+    counts = ops.launch_counts()
+    out = {f"{k}_ms": statistics.median(v) for k, v in parts.items()}
+    out["step_ms"] = sum(out.values())
+    out["kernel6_launches_per_step"] = {
+        k: counts[k] for k in ("fusedconv_conv0", "fusedconv_conv1")}
+    check(all(v == 1 for v in out["kernel6_launches_per_step"].values()),
+          f"kernel 6 launches in one hybrid step {counts}")
+    return out
+
+
+def train_hybrid_vae(torch, dev, work: Path, data2: Path) -> dict:
+    """``run_hybrid_vae`` on the card at full width on ``data2`` (the
+    ``processed_data2`` of the preprocess phase), twice in this process:
+    launch counts of the first run, the CSV's four rows, the latents file
+    and the serving bundle checked; both runs' stage times; one training
+    step timed."""
+    import pandas as pd
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import ClusterConfig, HybridVAEConfig
+    from tpuvae_torch.pipelines import run_hybrid_vae
+    from tpuvae_torch.train.checkpoint import load_checkpoint
+    from tpuvae_torch.utils.logging import RunLogger
+
+    cfg = HybridVAEConfig(epochs=HYBRID_EPOCHS, batch_size=BATCH)
+    check((cfg.latent_dim, cfg.beta, cfg.text_loss_weight, cfg.learning_rate)
+          == (HYBRID_LATENT, 1.0, 350.0, 1e-4), f"hybrid config {cfg}")
+
+    def one_run(tag: str):
+        log_path = work / f"hybrid_{tag}.jsonl"
+        logger = RunLogger(log_path, echo=False)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            df = run_hybrid_vae(str(data2), str(work / f"hybrid_{tag}"), cfg,
+                                ClusterConfig(), logger, make_plots=False,
+                                device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            logger.close()
+        stages = hybrid_stages(log_path)
+        stages["run_hybrid_vae_s"] = wall_s
+        stages["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        stages["metrics"] = df.to_dict("records")
+        return df, stages
+
+    ops.reset_launch_counts()
+    df, stages = one_run("first")
+    counts = ops.launch_counts()
+    n = stages["n_train"] + stages["n_val"]
+    forwards = HYBRID_EPOCHS * (-(-stages["n_train"] // BATCH)
+                                + -(-stages["n_val"] // BATCH)) + -(-n // BATCH)
+    log(f"hybrid path: run_hybrid_vae {n} clips x {MEL_HW} in "
+        f"{stages['run_hybrid_vae_s']:.2f} s; launch counts {counts}; rows "
+        f"{df.to_dict('records')}")
+    for name in ("fusedconv_conv0", "fusedconv_conv1"):
+        check(counts[name] == forwards, f"{name} launched {counts[name]} times "
+              f"for {forwards} trunk forwards")
+    n_rows_db = int((df["n_clusters"] > 1).sum())
+    check(counts["pairwise"] == 4 + n_rows_db,
+          f"kernel 5 launched {counts['pairwise']} times: one per sweep, one "
+          f"for the rows and {n_rows_db} Davies-Bouldin centroid matrices")
+    names = df["Algorithm"].tolist()
+    check(len(names) == 4 and all(a.startswith(b)
+                                  for a, b in zip(names, HYBRID_ROWS)),
+          f"hybrid rows {names}")
+    csv = pd.read_csv(work / "hybrid_first" / "clustering_metrics.csv")
+    check(csv["Algorithm"].tolist() == names
+          and (csv["Architecture"] == "Convolutional VAE").all(), "hybrid csv")
+    vals = df[["Silhouette", "Davies-Bouldin", "ARI"]].to_numpy()
+    check(np.isfinite(vals).all(), "hybrid metrics not finite")
+    for row in df.to_dict("records"):
+        if row["n_clusters"] < 2:
+            check((row["Silhouette"], row["Davies-Bouldin"], row["ARI"])
+                  == (-1, -1, -1), f"the -1 row {row}")
+    check(all(np.isfinite(stages["train_loss"] + stages["val_loss"])),
+          "hybrid losses not finite")
+    out = work / "hybrid_first" / "Convolutional_VAE"
+    lat = np.load(out / "hybrid_latent_features.npy")
+    check(lat.shape == (n, HYBRID_LATENT) and np.isfinite(lat).all(),
+          f"hybrid latents {lat.shape}")
+    flat, meta = load_checkpoint(out / "serving" / "model")
+    check(meta["arch"] == "hybrid" and tuple(meta["input_hw"]) == MEL_HW
+          and meta["latent_dim"] == HYBRID_LATENT
+          and meta["data_dir"] == str(data2), f"hybrid bundle meta {meta}")
+    centers = np.load(out / "serving" / "kmeans_centers.npy")
+    check(centers.shape == (meta["best_k"], HYBRID_LATENT)
+          and np.isfinite(centers).all(), f"hybrid centres {centers.shape}")
+    df_again, again = one_run("again")
+    log(f"hybrid path, second run in the process: "
+        f"{again['run_hybrid_vae_s']:.2f} s")
+    step = time_hybrid_step(torch, dev)
+    log("hybrid training step at full width, ms: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in step.items()}))
+    return {"counts": counts, "step": step,
+            "stages": {"first": stages, "again": again}}
+
+
+def near_eps_pairs(dist: np.ndarray, eps_values) -> int:
+    """Pairs whose distance lies within 1e-6 relative of an eps of the
+    sweep: where two devices' roundings may put a pair on either side."""
+    iu = np.triu_indices(dist.shape[0], 1)
+    d = dist[iu]
+    return int(sum(int((np.abs(d - e) <= 1e-6 * e).sum()) for e in eps_values))
+
+
+def sweeps_at_reference_n(torch, dev, flush) -> dict:
+    """The three sweeps of ``run_hybrid_vae`` on seeded 1,336 x 128 latents
+    with planted groups, timed on the card and held to the same functions
+    on the CPU (plain distances); kernel 5 at D = 128 against its plain
+    version, timed at N = 1,336 and 10,240 with its bound."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.cluster import (
+        agglomerative_k_sweep,
+        dbscan_eps_sweep,
+        kmeans_k_sweep,
+    )
+    from tpuvae_torch.metrics.external import adjusted_rand_score
+    from tpuvae_torch.ops.pairwise import self_distances, self_distances_plain
+
+    rng = np.random.default_rng(SEED + 128)
+    groups = 6
+    centres = rng.normal(0.0, 1.5, (groups, HYBRID_LATENT))
+    y = np.arange(N_TRAIN) % groups
+    x = (centres[y] + rng.normal(0.0, 0.5, (N_TRAIN, HYBRID_LATENT))
+         ).astype(np.float32)
+    xc = torch.from_numpy(x).to(dev)
+    k_range = range(2, 15)
+    eps = np.arange(3.0, 19.0 + 1e-9, 1.0)
+    sweeps = {
+        "kmeans": lambda z: kmeans_k_sweep(z, k_range, n_init=10, seed=42),
+        "agglomerative": lambda z: agglomerative_k_sweep(z, k_range),
+        "dbscan": lambda z: dbscan_eps_sweep(z, eps, min_samples=5,
+                                             fallback_eps=10.0),
+    }
+    out = {"n": N_TRAIN, "d": HYBRID_LATENT, "groups": groups}
+    for name, fn in sweeps.items():
+        fn(xc)                                   # first calls: set-up
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = fn(xc)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = ops.launch_counts()["pairwise"]
+        check(launches == 1, f"{name} sweep launched kernel 5 {launches} times")
+        t0 = time.perf_counter()
+        cpu = fn(x)
+        cpu_s = time.perf_counter() - t0
+        check(card.best_param == cpu.best_param,
+              f"{name} sweep: card {card.best_param} != CPU {cpu.best_param}")
+        if name == "kmeans":
+            # the two devices' generators draw other seeds: held by ARI
+            k = int(card.best_param)
+            ari = adjusted_rand_score(card.best_labels, cpu.best_labels, k, k)
+            check(ari == 1.0, f"k-means sweep labels ARI {ari}")
+        elif not np.array_equal(card.best_labels, cpu.best_labels):
+            near = near_eps_pairs(self_distances_plain(torch.from_numpy(x))
+                                  .numpy(), eps if name == "dbscan" else [])
+            log(f"{name} sweep labels differ between card and CPU in "
+                f"{int((card.best_labels != cpu.best_labels).sum())} points; "
+                f"{near} pairs lie within 1e-6 relative of an eps")
+            check(name == "dbscan" and near > 0,
+                  f"{name} sweep labels differ with no pair near an eps")
+        # k-means away from its best k: other seeds, other local optima
+        pairs = ([(card.best_score, cpu.best_score)] if name == "kmeans"
+                 else zip(card.scores.values(), cpu.scores.values()))
+        score_err = max((abs(a - b) for a, b in pairs
+                         if a is not None and b is not None), default=0.0)
+        check(score_err <= 1e-5, f"{name} sweep scores off by {score_err}")
+        out[name] = {"best": float(card.best_param),
+                     "best_score": card.best_score, "card_s": card_s,
+                     "cpu_s": cpu_s, "kernel5_launches": launches,
+                     "max_score_err": score_err}
+        log(f"sweep {name} at {N_TRAIN} x {HYBRID_LATENT}: best "
+            f"{card.best_param} (score {card.best_score:.4f}) on the card in "
+            f"{card_s * 1e3:.1f} ms, equal on the CPU ({cpu_s * 1e3:.1f} ms); "
+            f"scores within {score_err:.3g}")
+    check(out["kmeans"]["best"] == out["agglomerative"]["best"] == groups,
+          f"planted groups not found: {out}")
+
+    # kernel 5 at D = 128: one input read, the output written once, the
+    # products of one triangle (N (N + 1) / 2 pairs x (2D + 3) operations)
+    timed = {}
+    for n in (N_TRAIN, N_SCALE):
+        g = torch.Generator(device=dev).manual_seed(SEED + n)
+        z = torch.randn((n, HYBRID_LATENT), generator=g, device=dev)
+        z[1] = z[0] + 1e-4
+        err = check_pairwise(torch, z)
+        nbytes = n * HYBRID_LATENT * 4 + n * n * 4
+        nflops = n * (n + 1) / 2 * (2 * HYBRID_LATENT + 3)
+        b_ms, b_by = bound(nbytes, nflops)
+        timed[n] = {
+            "ms": time_ms(torch, lambda: self_distances(z), flush),
+            "plain_ms": time_ms(torch, lambda: self_distances_plain(z), flush),
+            "library_ms": time_ms(torch, lambda: torch.cdist(
+                z, z, compute_mode="use_mm_for_euclid_dist"), flush),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": int(nbytes),
+            "flops": float(nflops), "max_abs_err": err["max_abs_err"]}
+        log(f"time pairwise at N = {n}, D = {HYBRID_LATENT}: "
+            + json.dumps(timed[n]))
+        del z
+    out["kernel5_d128"] = timed
+    return out
+
+
+def serve_conv_bundles(torch, dev, work: Path, dataset_root: Path) -> dict:
+    """``ClipEncoder.load("hybrid")`` and ``("cvae")`` on the bundles the
+    two training phases wrote: 32 clips of 30 s with lyrics (and genres
+    for cvae) on the card, held to the same encoder with ``device="cpu"``;
+    then ``/encode`` of one clip with lyrics through ``make_server``."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.infer import ClipEncoder
+    from tpuvae_torch.serve import make_server
+
+    wavs = sorted(p for p in dataset_root.rglob("*.wav")
+                  if "truncated" not in p.name)[:N_SERVE]
+    lyrics = [f"{p.stem.replace('_', ' ')} la la la" for p in wavs]
+    genres = [p.parent.name for p in wavs]
+    out = {}
+    for arch, results in (("hybrid", work / "hybrid_first"),
+                          ("cvae", work / "cvae_first")):
+        enc = ClipEncoder.load(arch, results_dir=str(results))
+        check(enc.device == dev and enc.pre_cfg.stft_method == "pallas",
+              f"{arch} encoder on {enc.device}, {enc.pre_cfg.stft_method}")
+        kw = {"lyrics": lyrics}
+        if arch == "cvae":
+            kw["genres"] = genres
+        t0 = time.perf_counter()
+        waves = enc.load_waveforms(wavs)
+        load_s = time.perf_counter() - t0
+        enc.encode_waveforms(waves[:1], lyrics=lyrics[:1],
+                             **({"genres": genres[:1]} if arch == "cvae"
+                                else {}))            # warm-up
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = enc.encode_waveforms(waves, **kw)
+        encode_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        batches = -(-N_SERVE // BATCH)
+        for name in ("stft_dense", "fusedconv_conv0", "fusedconv_conv1"):
+            check(counts[name] == batches,
+                  f"{arch} encode: {name} launched {counts[name]} times for "
+                  f"{batches} batches")
+        cpu = ClipEncoder.load(arch, results_dir=str(results), device="cpu")
+        t0 = time.perf_counter()
+        want = cpu.encode_waveforms(waves, **kw)
+        cpu_s = time.perf_counter() - t0
+        # the mel-dB images of kernel 4 and of its plain version (4 clips)
+        mel_err = float((enc.extract(waves[:4]).cpu()
+                         - cpu.extract(waves[:4])).abs().max())
+        err = float(np.abs(got.latents - want.latents).max())
+        scale = float(np.abs(want.latents).max())
+        check(np.isfinite(got.latents).all() and got.latents.shape == (
+            N_SERVE, enc.meta["latent_dim"]), f"{arch} latents")
+        check(err <= 1e-3 * max(scale, 1.0),
+              f"{arch} latents on the card off the CPU's by {err} "
+              f"(max |latent| {scale})")
+        same = int((got.clusters == want.clusters).sum())
+        check(same == N_SERVE, f"{arch}: {N_SERVE - same} cluster ids differ")
+        out[arch] = {"launches_per_encode": counts, "load_s": load_s,
+                     "encode_s": encode_s, "cpu_encode_s": cpu_s,
+                     "max_abs_err_vs_cpu": err, "max_abs_latent": scale,
+                     "mel_db_max_abs_err_vs_cpu": mel_err}
+        log(f"{arch} serving: {N_SERVE} clips encoded on the card in "
+            f"{encode_s * 1e3:.1f} ms (decode {load_s * 1e3:.1f} ms), launch "
+            f"counts {counts}; latents within {err:.3g} of the CPU's (max "
+            f"|latent| {scale:.3g}; mel-dB images within {mel_err:.3g} dB), "
+            f"cluster ids equal")
+
+    enc = ClipEncoder.load("hybrid", results_dir=str(work / "hybrid_first"))
+    # where a hybrid encode's time goes: host decode, the mel image on the
+    # card (kernel 4 and the staged mel-dB ops), the host mel scaler, the
+    # host lyrics embedder, the encoder on the card; host clock around
+    # synchronised stages, median of 3
+    for n_clips in (1, len(wavs)):
+        stages = {"load": [], "extract": [], "normalize": [], "embed": [],
+                  "latent": []}
+        for _ in range(3):
+            t = [time.perf_counter()]
+            w = enc.load_waveforms(wavs[:n_clips])
+            t.append(time.perf_counter())
+            raw = enc.extract(w).cpu().numpy()
+            t.append(time.perf_counter())
+            x = enc.normalize(raw)
+            t.append(time.perf_counter())
+            emb = enc._embed_texts(lyrics[:n_clips], n_clips)
+            t.append(time.perf_counter())
+            enc.apply_latent(x, emb).cpu()
+            t.append(time.perf_counter())
+            for k, a, b in zip(stages, t[:-1], t[1:]):
+                stages[k].append((b - a) * 1e3)
+        out[f"hybrid_stages_ms_{n_clips}_clips"] = {
+            k: round(statistics.median(v), 3) for k, v in stages.items()}
+    log("hybrid encode stages, ms: " + json.dumps(
+        {k: v for k, v in out.items() if k.startswith("hybrid_stages")}))
+    body = {"paths": [str(wavs[0])], "lyrics": [lyrics[0]]}
+    for window in (20.0, 0.0):
+        srv = make_server(enc, port=0, quiet=True, batch_wait_ms=window,
+                          max_batch=BATCH)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}/encode"
+        try:
+            first, _ = post_json(url, body)
+            check(first["warnings"] == [] and len(first["latents"][0])
+                  == HYBRID_LATENT, f"hybrid /encode reply {first}")
+            seq = [post_json(url, body)[1] for _ in range(8)]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.app.close()
+            thread.join(timeout=30)
+        out[f"hybrid_encode_request_ms_window_{window:g}"] = {
+            "median": statistics.median(seq), "all": [round(v, 3) for v in seq]}
+    log("hybrid /encode of one 30 s clip with lyrics, ms: " + json.dumps(
+        {k: v for k, v in out.items() if k.startswith("hybrid_encode")}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1323,9 +1723,15 @@ def run(torch, dev, work: Path, card: str) -> int:
     results["fusedconv"] = {"max_abs_err": k6_errs["y1"]}
 
     # ---- 10. train the Conditional VAE, cluster its latents ------------------
-    cvae = train_conditional_vae(torch, dev, work, Path(pre.pop("data2_dir")))
+    data2 = Path(pre.pop("data2_dir"))
+    cvae = train_conditional_vae(torch, dev, work, data2)
 
-    # ---- 11. timing ---------------------------------------------------------
+    # ---- 11-13. the Hybrid VAE, the sweeps at the reference's N, serving -----
+    hybrid = train_hybrid_vae(torch, dev, work, data2)
+    sweeps = sweeps_at_reference_n(torch, dev, flush)
+    conv_serving = serve_conv_bundles(torch, dev, work, work / "Datasets")
+
+    # ---- 14. timing ---------------------------------------------------------
     nbins = N_FFT // 2 + 1
     fb = mel_filterbank(SR, N_FFT, N_MELS)
     frames = BATCH * n_frames
@@ -1468,6 +1874,10 @@ def run(torch, dev, work: Path, card: str) -> int:
             x1336, x1336, compute_mode="use_mm_for_euclid_dist"), flush),
         "bound_ms": k5_main_bound, "bound_by": k5_main_by}
     log(f"time pairwise at N = {n_main}: " + json.dumps(k5["at_main_path"]))
+    # the Hybrid path's launches and its width, D = 128 (timed in phase 12)
+    k5["launches_run_hybrid_vae"] = hybrid["counts"]["pairwise"]
+    k5["at_hybrid_width_d128"] = {str(n): v for n, v in
+                                  sweeps["kernel5_d128"].items()}
     k3 = next(k for k in kernels if k["name"] == "masked_median_select")
     k3["all_valid_rows"] = {
         "rows": keys_valid.shape[0],
@@ -1489,6 +1899,9 @@ def run(torch, dev, work: Path, card: str) -> int:
     kernels[-1]["max_err_share_of_max_power"] = k4_err_share
     kernels[-1]["signed_mean_err_share_of_max_power"] = k4_mean_share
     kernels[-1]["signed_mean_err_share_80db_clip"] = k4_mean_80db
+    kernels[-1]["launches_per_conv_encode"] = {
+        arch: conv_serving[arch]["launches_per_encode"]["stft_dense"]
+        for arch in ("hybrid", "cvae")}
     del basis_cat
 
     # kernel 6: the pair through its wrapper, each half alone, the plain
@@ -1575,7 +1988,11 @@ def run(torch, dev, work: Path, card: str) -> int:
         "flops": float(k6a_flops + k6b_flops), "halves": halves,
         "bound_fp32_cuda_cores_ms": (halves[0]["bound_ms"]
                                      + halves[1]["bound_fp32_cuda_cores_ms"]),
-        "errors": k6_errs})
+        "errors": k6_errs,
+        "launches_run_hybrid_vae": hybrid["counts"]["fusedconv_conv1"],
+        "launches_per_conv_encode": {
+            arch: conv_serving[arch]["launches_per_encode"]["fusedconv_conv1"]
+            for arch in ("hybrid", "cvae")}})
     log(f"time fusedconv: pair {k6_ms:.4f} ms (conv0 {halves[0]['ms']:.4f}, "
         f"conv1 {halves[1]['ms']:.4f}; the earlier design as PERF.md records "
         f"it, not timed here: {EARLIER_DESIGN_MS['fusedconv']} = "
@@ -1656,6 +2073,9 @@ def run(torch, dev, work: Path, card: str) -> int:
     log("encode latency: " + json.dumps(encode_ms))
     log("training path: " + json.dumps(train["stages"]))
     log("cvae path: " + json.dumps(cvae["stages"]))
+    log("hybrid path: " + json.dumps(hybrid["stages"]))
+    log("sweeps at the reference's N: " + json.dumps(sweeps))
+    log("conv serving: " + json.dumps(conv_serving))
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

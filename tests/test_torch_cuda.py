@@ -810,3 +810,197 @@ def test_run_conditional_vae_on_the_card(cuda, tmp_path, host_stream):
         tmp_path / "results" / "Conditional_VAE" / "serving" / "model")
     assert meta["arch"] == "cvae" and meta["input_hw"] == list(hw)
     assert all(np.isfinite(v).all() for v in flat.values())
+
+
+# -- the Hybrid VAE slice: kernel 5 at D = 128, the sweeps, conv serving ------
+
+@pytest.mark.parametrize("n", [1336, 10240])
+def test_pairwise_kernel_at_the_hybrid_latent_width(cuda, n):
+    """Kernel 5 at D = 128 (the Hybrid's latents): within tolerance of
+    plain, exactly symmetric, zero diagonal."""
+    from tpuvae_torch.ops.pairwise import (
+        self_distances,
+        self_distances_plain,
+        squared_distances,
+        squared_distances_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(n + 128)
+    x = torch.randn((n, 128), generator=g, device=cuda)
+    x[1] = x[0] + 1e-4
+    sq = float((x * x).sum(dim=1).max())
+    d2 = squared_distances(x, x)
+    assert (d2 - squared_distances_plain(x, x)).abs().max().item() <= 2e-5 * sq
+    d = self_distances(x)
+    assert torch.equal(d, d.T) and (d.diagonal() == 0).all()
+    assert (d - self_distances_plain(x)).abs().max().item() <= (2e-5 * sq) ** 0.5
+
+
+def _planted_latents(n=1336, dim=128, groups=6, seed=3):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0.0, 1.5, (groups, dim))
+    y = np.arange(n) % groups
+    return (centres[y] + rng.normal(0.0, 0.5, (n, dim))).astype(np.float32), y
+
+
+def test_sweeps_and_dbscan_on_the_card_match_the_cpu(cuda):
+    """The Ward and DBSCAN sweeps at the reference's N: the card's
+    (kernel 5 once per sweep) equal to the CPU's (plain distances)."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.cluster import (
+        agglomerative_k_sweep,
+        dbscan,
+        dbscan_eps_sweep,
+        kmeans_k_sweep,
+    )
+
+    x, y = _planted_latents()
+    xc = torch.from_numpy(x).to(cuda)
+    eps = np.arange(3.0, 19.0 + 1e-9, 1.0)
+    ops.reset_launch_counts()
+    agg = agglomerative_k_sweep(xc, range(2, 15))
+    db = dbscan_eps_sweep(xc, eps, min_samples=5)
+    assert ops.launch_counts()["pairwise"] == 2
+    agg_cpu = agglomerative_k_sweep(x, range(2, 15))
+    db_cpu = dbscan_eps_sweep(x, eps, min_samples=5)
+    for got, want in ((agg, agg_cpu), (db, db_cpu)):
+        assert got.best_param == want.best_param
+        np.testing.assert_array_equal(got.best_labels, want.best_labels)
+        for p, s in want.scores.items():
+            assert (s is None) == (got.scores[p] is None)
+            if s is not None:
+                assert abs(got.scores[p] - s) <= 1e-5
+    assert agg.best_param == 6
+    np.testing.assert_array_equal(dbscan(xc, 12.0), dbscan(x, 12.0))
+    km = kmeans_k_sweep(xc, range(2, 15), n_init=10, seed=42)
+    assert km.best_param == 6
+
+
+def test_run_hybrid_vae_on_the_card(cuda, tmp_path):
+    import pandas as pd
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import ClusterConfig, HybridVAEConfig
+    from tpuvae_torch.io.artifacts import save_advanced
+    from tpuvae_torch.io.normalize import impute_and_scale, normalize_mel_images
+    from tpuvae_torch.pipelines import run_hybrid_vae
+    from tpuvae_torch.train.checkpoint import load_checkpoint
+
+    rng = np.random.default_rng(0)
+    n, hw = 40, (128, 256)
+    g = np.arange(n) % 3
+    mel = (rng.normal(size=(n, *hw)) + 0.5 * g[:, None, None]).astype(np.float32)
+    feats = rng.normal(size=(n, 290)).astype(np.float32)
+    mel_norm, mel_scaler = normalize_mel_images(mel)
+    feats_norm, imputer, flat_scaler = impute_and_scale(feats)
+    labels = np.array(["classical", "pop", "rock"])[g]
+    save_advanced(
+        tmp_path / "d2", mel_raw=mel, mel_normalized=mel_norm,
+        features_raw=feats, features_normalized=feats_norm,
+        lyrics_embeddings=rng.normal(size=(n, 768)).astype(np.float32),
+        labels=labels, mel_scaler=mel_scaler, flat_scaler=flat_scaler,
+        imputer=imputer, config={},
+        metadata=pd.DataFrame({"file_id": [f"c{i}" for i in range(n)],
+                               "genre": labels, "language": "english"}))
+    ops.reset_launch_counts()
+    df = run_hybrid_vae(str(tmp_path / "d2"), str(tmp_path / "results"),
+                        HybridVAEConfig(epochs=2, batch_size=16),
+                        ClusterConfig(), make_plots=False)
+    counts = ops.launch_counts()
+    # 34 train rows = 3 steps, 6 val rows = 1 batch, 2 epochs; 3 latent batches
+    assert counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == 2 * 4 + 3
+    # one per sweep and one for the rows, one more per Davies-Bouldin
+    assert counts["pairwise"] == 4 + int((df["n_clusters"] > 1).sum())
+    assert len(df) == 4 and np.isfinite(df["Silhouette"].to_numpy()).all()
+    lat = np.load(tmp_path / "results" / "Convolutional_VAE"
+                  / "hybrid_latent_features.npy")
+    assert lat.shape == (n, 128) and np.isfinite(lat).all()
+    flat, meta = load_checkpoint(
+        tmp_path / "results" / "Convolutional_VAE" / "serving" / "model")
+    assert meta["arch"] == "hybrid" and meta["input_hw"] == list(hw)
+    assert all(np.isfinite(v).all() for v in flat.values())
+
+
+@pytest.fixture(scope="module")
+def conv_bundles(tmp_path_factory):
+    """Seeded conv models saved as cvae and hybrid serving bundles over a
+    ``processed_data2`` whose mel scaler was fitted on the mel images of 2 s
+    WAVs through kernel 4's plain version (``stft_method="pallas"``)."""
+    import pickle
+    import wave
+
+    from tpuvae_torch.config import AdvancedPreprocessConfig
+    from tpuvae_torch.dsp.features import extract_mel_image
+    from tpuvae_torch.infer import save_serving_model
+    from tpuvae_torch.io.normalize import normalize_mel_images
+    from tpuvae_torch.io.wav import load_audio
+    from tpuvae_torch.models import ConditionalVAE, HybridVAE
+
+    root = tmp_path_factory.mktemp("conv_bundles")
+    waves = _tones(8, 2 * SR, seed=5)
+    paths = []
+    for i, y in enumerate(waves):
+        p = root / f"clip_{i}.wav"
+        pcm = np.clip(np.round(y * 0.3 * 32767), -32768, 32767).astype("<i2")
+        with wave.open(str(p), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(SR)
+            w.writeframes(pcm.tobytes())
+        paths.append(p)
+    cfg = AdvancedPreprocessConfig(duration=2.0, fixed_time_steps=64,
+                                   stft_method="pallas")
+    wav = np.stack([load_audio(p, SR, 2.0) for p in paths])
+    mel = extract_mel_image(torch.from_numpy(wav), cfg).numpy()
+    _, mel_scaler = normalize_mel_images(mel)
+    data = root / "processed_data2"
+    data.mkdir()
+    for name, obj in (("config", {**cfg.to_dict(),
+                                  "lyrics_embedder_backend": "hashed-ngram"}),
+                      ("mel_scaler", mel_scaler)):
+        with open(data / f"{name}.pkl", "wb") as f:
+            pickle.dump(obj, f)
+    gen = torch.Generator().manual_seed(7)
+    hw = [128, 64]
+    common = {"text_dim": 768, "input_hw": hw, "compute_dtype": "float32",
+              "data_dir": str(data)}
+    for arch, model, extra in (
+            ("hybrid", HybridVAE(input_hw=tuple(hw), generator=gen),
+             {"latent_dim": 128, "best_k": 3}),
+            ("cvae", ConditionalVAE(num_classes=3, input_hw=tuple(hw),
+                                    generator=gen),
+             {"latent_dim": 64, "num_classes": 3,
+              "genre_names": ["classical", "pop", "rock"]})):
+        centres = np.random.default_rng(1).normal(
+            size=(3, extra["latent_dim"])).astype(np.float32)
+        save_serving_model(root / "results", model, centres,
+                           {"arch": arch, **common, **extra})
+    return root, paths
+
+
+@pytest.mark.parametrize("arch", ["hybrid", "cvae"])
+def test_conv_serving_on_the_card_matches_the_cpu(cuda, conv_bundles, arch):
+    """``ClipEncoder`` of a cvae / hybrid bundle on the card (kernel 4 for
+    the mel image, kernel 6 in the trunk) against ``device="cpu"``: the
+    mel-dB images within 1e-2 dB (kernel 4's power within 1e-5 of the max
+    power, in dB where it is far below the max), latents within 1e-3."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.infer import ClipEncoder
+
+    root, paths = conv_bundles
+    kw = {"lyrics": [f"la la {i}" for i in range(len(paths))]}
+    if arch == "cvae":
+        kw["genres"] = ["pop", "rock", "classical", "pop"] * 2
+    card = ClipEncoder.load(arch, results_dir=str(root / "results"))
+    cpu = ClipEncoder.load(arch, results_dir=str(root / "results"),
+                           device="cpu")
+    waves = card.load_waveforms(paths)
+    torch.testing.assert_close(card.extract(waves).cpu(), cpu.extract(waves),
+                               rtol=0, atol=1e-2)
+    ops.reset_launch_counts()
+    got = card.encode_waveforms(waves, batch_size=4, **kw)
+    counts = ops.launch_counts()
+    assert counts["stft_dense"] == 2 and counts["fusedconv_conv0"] == 2
+    want = cpu.encode_waveforms(waves, batch_size=4, **kw)
+    np.testing.assert_allclose(got.latents, want.latents, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(got.clusters, want.clusters)

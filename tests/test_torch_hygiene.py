@@ -71,6 +71,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
         preprocess_advanced,
         preprocess_basic,
         run_conditional_vae,
+        run_hybrid_vae,
         run_simple_vae,
     )
     from tpuvae_torch.serve import serve
@@ -86,6 +87,12 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         run_conditional_vae(str(tmp_path), str(tmp_path / "results"))
     with pytest.raises(RuntimeError, match="cuda"):
+        run_hybrid_vae(str(tmp_path), str(tmp_path / "results"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClipEncoder.load("hybrid", results_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve(results_dir=str(tmp_path), warmup=False)
+    with pytest.raises(RuntimeError, match="cuda"):
         preprocess_basic(PreprocessConfig(output_dir=str(tmp_path / "d1")))
     with pytest.raises(RuntimeError, match="cuda"):
         preprocess_advanced(
@@ -96,6 +103,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
                      f"--results_dir={tmp_path / 'results'}",
                      "--epochs=1"]) == 2
     assert cli.main(["train-cvae", f"--data_dir={tmp_path}",
+                     f"--results_dir={tmp_path / 'results'}",
+                     "--epochs=1"]) == 2
+    assert cli.main(["train-hybrid", f"--data_dir={tmp_path}",
                      f"--results_dir={tmp_path / 'results'}",
                      "--epochs=1"]) == 2
     assert not (tmp_path / "results").exists()

@@ -6,8 +6,9 @@ commands in ``tpuvae/cli.py``):
   python -m tpuvae_torch.cli preprocess-advanced  [--key=value ...]
   python -m tpuvae_torch.cli train-simple [--key=value ...]
   python -m tpuvae_torch.cli train-cvae   [--key=value ...]
-  python -m tpuvae_torch.cli encode --arch=simple song.wav [song2.wav ...]
-  python -m tpuvae_torch.cli serve  --arch=simple --port=8787   # HTTP daemon
+  python -m tpuvae_torch.cli train-hybrid [--key=value ...]
+  python -m tpuvae_torch.cli encode [--arch=hybrid] song.wav [song2.wav ...]
+  python -m tpuvae_torch.cli serve  [--arch=hybrid] --port=8787   # HTTP daemon
 
 ``synth-data`` writes a seeded reference-layout corpus of WAVs with its
 ``updated_metadata.csv``.  Flags: ``--root`` (default ``Datasets``),
@@ -44,17 +45,29 @@ Autoencoder + K-Means, Direct Spectral), a copy under
 ``ConditionalVAEConfig`` (``--epochs=5``, ``--batch_size=8``,
 ``--host_stream=true`` to keep the mel images on the host); extra flags as
 ``train-simple``, the data read from ``--data2_dir``, else ``--data_dir``
-(default ``processed_data2``).  ``train-hybrid`` is not ported yet.
+(default ``processed_data2``).
+
+``train-hybrid`` trains the Hybrid VAE on a ``processed_data2`` and writes
+``results/Convolutional_VAE/hybrid_latent_features.npy``,
+``results/clustering_metrics.csv`` (four rows: K-Means-Main at the
+silhouette-best k in 2..14, K-Means-Language at k = 2, Agglomerative (Ward)
+and DBSCAN at their silhouette-best k / eps), a copy under
+``results/Convolutional_VAE/`` and the serving bundle
+``results/Convolutional_VAE/serving/``.  Overrides map onto
+``HybridVAEConfig``; extra flags and data as ``train-cvae``.
 
 ``encode`` maps NEW audio clips through a trained model to latents +
-nearest-training-centroid cluster ids (serving bundle from a prior
-``train-simple`` run).  Flags: ``--arch=simple``, ``--results_dir``,
-``--data_dir`` (preprocessing dir with the scalers), ``--batch_size``,
+nearest-training-centroid cluster ids (the serving bundle of a prior
+``train-*`` run).  Flags: ``--arch`` (``hybrid``, the default, ``cvae`` or
+``simple``), ``--results_dir``, ``--data_dir`` (preprocessing dir with the
+scalers), ``--lyrics=<text>`` (the same lyrics for every clip) or
+``--lyrics_file=<file>`` (one line per clip; ``cvae`` / ``hybrid``),
+``--genres=a,b,...`` (one per clip; ``cvae``), ``--batch_size``,
 ``--out=<file.npz>`` to save latents/clusters, ``--device`` (default cuda).
 
 ``serve`` keeps a trained model resident behind a JSON HTTP API
 (``GET /healthz``, ``GET /info``, ``POST /encode`` — see
-:mod:`tpuvae_torch.serve`).  Flags: ``--arch``, ``--results_dir``,
+:mod:`tpuvae_torch.serve`).  Flags: ``--arch`` (default ``hybrid``), ``--results_dir``,
 ``--data_dir``, ``--host`` (default 127.0.0.1), ``--port`` (default 8787),
 ``--warmup=0|1`` (one silent clip first, default 1), ``--batch_wait_ms``
 (>0 micro-batches concurrent requests, default 0 = serialized),
@@ -184,41 +197,48 @@ def _dispatch(argv) -> int:
         print(df.to_string(index=False))
         return 0
 
-    if cmd == "train-cvae":
-        from tpuvae_torch.config import ConditionalVAEConfig
-        from tpuvae_torch.pipelines import run_conditional_vae
+    if cmd in ("train-cvae", "train-hybrid"):
+        from tpuvae_torch import config, pipelines
 
+        cfg_cls, run = (
+            (config.ConditionalVAEConfig, pipelines.run_conditional_vae)
+            if cmd == "train-cvae"
+            else (config.HybridVAEConfig, pipelines.run_hybrid_vae))
         cfg_args, extras = _split_train_args(rest)
-        cfg = ConditionalVAEConfig().override(cfg_args)
-        df = run_conditional_vae(
+        cfg = cfg_cls().override(cfg_args)
+        df = run(
             extras.get("data2_dir") or extras.get("data_dir", "processed_data2"),
             extras.get("results_dir", "results"), cfg, make_plots=False,
             device=extras.get("device", "cuda"))
         print(df.to_string(index=False))
         return 0
 
-    if cmd == "train-hybrid":
-        raise NotImplementedError(
-            "train-hybrid is not ported to tpuvae_torch yet (ROADMAP.md, "
-            "queue 1, item 6: the agglomerative and DBSCAN sweeps come first)")
-
     if cmd == "encode":
+        from pathlib import Path
+
         import numpy as np
 
         from tpuvae_torch.infer import ClipEncoder
 
         eopts, paths = _parse_flags(
-            cmd, rest, {"arch", "results_dir", "data_dir", "out",
-                        "batch_size", "device"})
+            cmd, rest, {"arch", "results_dir", "data_dir", "lyrics",
+                        "lyrics_file", "genres", "out", "batch_size",
+                        "device"})
         if not paths:
             raise ValueError("encode needs at least one audio file")
         enc = ClipEncoder.load(
-            eopts.get("arch", "simple"),
+            eopts.get("arch", "hybrid"),
             results_dir=eopts.get("results_dir", "results"),
             data_dir=eopts.get("data_dir"),
             device=eopts.get("device", "cuda"),
         )
-        res = enc.encode_paths(paths,
+        lyrics = None
+        if "lyrics_file" in eopts:
+            lyrics = Path(eopts["lyrics_file"]).read_text().splitlines()
+        elif "lyrics" in eopts:
+            lyrics = [eopts["lyrics"]] * len(paths)
+        genres = eopts["genres"].split(",") if "genres" in eopts else None
+        res = enc.encode_paths(paths, lyrics=lyrics, genres=genres,
                                batch_size=int(eopts.get("batch_size", 32)))
         for p, c in zip(res.paths, res.clusters):
             print(f"{p}\tcluster={int(c)}")
@@ -237,7 +257,7 @@ def _dispatch(argv) -> int:
         if extra:
             raise ValueError(f"serve takes no positional arguments: {extra}")
         serve(
-            arch=sopts.get("arch", "simple"),
+            arch=sopts.get("arch", "hybrid"),
             results_dir=sopts.get("results_dir", "results"),
             data_dir=sopts.get("data_dir"),
             host=sopts.get("host", "127.0.0.1"),
@@ -251,7 +271,8 @@ def _dispatch(argv) -> int:
 
     raise KeyError(f"unknown command {cmd!r} (the PyTorch port has "
                    f"'synth-data', 'preprocess', 'preprocess-advanced', "
-                   f"'train-simple', 'train-cvae', 'encode' and 'serve')")
+                   f"'train-simple', 'train-cvae', 'train-hybrid', 'encode' "
+                   f"and 'serve')")
 
 
 if __name__ == "__main__":

@@ -1,26 +1,24 @@
 """Serving: encode NEW clips with a trained model and assign clusters
 (counterpart of ``tpuvae/infer.py``).
 
-Loads the serving bundle the training pipeline persisted
+Loads the serving bundle a training pipeline persisted
 (``results/<Arch>/serving/`` — final weights, K-Means centroids,
 model-rebuild metadata) together with the preprocessing normalizers
-(``processed_data1/{scaler,imputer,config}.pkl``), and maps raw audio to
-latent vectors and nearest-centroid cluster ids, batched on the card.  The
-bundle layout is the JAX pipeline's, so a bundle written by either package
-loads here.
+(``processed_data1/{scaler,imputer,config}.pkl`` for ``simple``,
+``processed_data2/{mel_scaler,config}.pkl`` for ``cvae`` / ``hybrid``), and
+maps raw audio (+ lyrics, + genres for ``cvae``) to latent vectors and
+nearest-centroid cluster ids, batched on the card.  The bundle layout is
+the JAX pipeline's, so a bundle written by either package loads here.
 
 Usage::
 
-    enc = ClipEncoder.load("simple", results_dir="results",
-                           data_dir="processed_data1")     # device="cuda"
-    out = enc.encode_paths(["new_song.wav"])
-    out.latents   # (1, 32)
+    enc = ClipEncoder.load("hybrid", results_dir="results",
+                           data_dir="processed_data2")     # device="cuda"
+    out = enc.encode_paths(["new_song.wav"], lyrics=["la la la"])
+    out.latents   # (1, 128)
     out.clusters  # (1,) int — nearest training centroid
 
-or ``python -m tpuvae_torch.cli encode --arch=simple song.wav``.  Only the
-``simple`` architecture is served; ``cvae`` / ``hybrid`` serving is queued
-in ROADMAP.md (queue 1, item 8), though ``run_conditional_vae`` already
-writes its bundle through :func:`save_serving_model`.
+or ``python -m tpuvae_torch.cli encode --lyrics="la la la" song.wav``.
 """
 
 from __future__ import annotations
@@ -32,13 +30,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpuvae_torch.config import PreprocessConfig
-from tpuvae_torch.convert import simple_vae_from_flax
+from tpuvae_torch.config import AdvancedPreprocessConfig, PreprocessConfig
+from tpuvae_torch.convert import from_flax
 from tpuvae_torch.device import resolve_device
-from tpuvae_torch.dsp.features import extract_basic_features, make_extractor
+from tpuvae_torch.dsp.features import (
+    extract_basic_features,
+    extract_mel_image,
+    make_extractor,
+)
 from tpuvae_torch.io.normalize import load_normalizer
 from tpuvae_torch.io.wav import load_audio
-from tpuvae_torch.models import SimpleVAE
+from tpuvae_torch.models import ConditionalVAE, HybridVAE, SimpleVAE
+from tpuvae_torch.text.embedder import embed_lyrics
 from tpuvae_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tpuvae_torch.utils.batching import batched_apply
 
@@ -47,6 +50,9 @@ _ARCH_DIRS = {
     "cvae": ("Conditional_VAE", "processed_data2"),
     "hybrid": ("Convolutional_VAE", "processed_data2"),
 }
+# the normalizer pickles of each architecture's preprocessing dir
+_NORMALIZERS = {"simple": ("imputer", "scaler"), "cvae": ("mel_scaler",),
+                "hybrid": ("mel_scaler",)}
 
 
 @dataclasses.dataclass
@@ -66,19 +72,40 @@ def _nearest_center(latents: np.ndarray, centers: np.ndarray | None):
     return np.argmin(d2, axis=1).astype(np.int32)
 
 
+def _build_model(arch: str, meta: dict) -> torch.nn.Module:
+    if arch == "simple":
+        return SimpleVAE(
+            input_dim=meta["input_dim"], hidden_dims=tuple(meta["hidden_dims"]),
+            latent_dim=meta["latent_dim"], dropout=meta["dropout"])
+    dtype = meta.get("compute_dtype", "float32")
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"a bundle trained with compute_dtype={dtype!r} is not served by "
+            f"tpuvae_torch: the conv trunk's fused kernel computes in float32 "
+            f"only (ROADMAP.md, queue 1, item 5: bfloat16)")
+    if arch == "hybrid":
+        return HybridVAE(latent_dim=meta["latent_dim"],
+                         text_dim=meta["text_dim"],
+                         input_hw=tuple(meta["input_hw"]))
+    return ConditionalVAE(latent_dim=meta["latent_dim"],
+                          text_dim=meta["text_dim"],
+                          num_classes=meta["num_classes"],
+                          input_hw=tuple(meta["input_hw"]))
+
+
 @dataclasses.dataclass
 class ClipEncoder:
     """A trained model + its preprocessing state, ready to encode new clips."""
 
     arch: str
     meta: dict
-    model: SimpleVAE
-    pre_cfg: PreprocessConfig
+    model: torch.nn.Module          # in eval mode on ``device``
+    pre_cfg: object                 # Preprocess(Advanced)Config of training
     centers: np.ndarray | None
-    imputer: object
-    scaler: object
+    normalizers: dict               # name -> fitted normalizer (_NORMALIZERS)
     device: torch.device
     tuning_route: str = "fused"
+    embed_backend: str | None = None
 
     # -- construction ------------------------------------------------------
 
@@ -89,17 +116,14 @@ class ClipEncoder:
         """Load the serving bundle written by a training pipeline.
 
         ``data_dir`` defaults to the preprocessing dir recorded in the
-        bundle's metadata, then to ``processed_data1``.  ``device`` defaults
+        bundle's metadata, then to the architecture's conventional one
+        (``processed_data1`` / ``processed_data2``).  ``device`` defaults
         to CUDA and raises without a card; pass ``device='cpu'`` to run the
         kernels' plain versions.
         """
         if arch not in _ARCH_DIRS:
             raise ValueError(f"arch must be one of {sorted(_ARCH_DIRS)}, "
                              f"got {arch!r}")
-        if arch != "simple":
-            raise NotImplementedError(
-                f"arch {arch!r} is not ported to tpuvae_torch yet "
-                f"(ROADMAP.md, queue 1, item 8: cvae/hybrid serving)")
         dev = resolve_device(device)
         subdir, default_data = _ARCH_DIRS[arch]
         serving = Path(results_dir) / subdir / "serving"
@@ -126,51 +150,113 @@ class ClipEncoder:
         centers = np.load(centers_path) if centers_path.exists() else None
 
         cfg_dict = dict(load_normalizer(data / "config.pkl"))
-        cfg_dict.pop("lyrics_embedder_backend", None)
-        model = SimpleVAE(
-            input_dim=meta["input_dim"], hidden_dims=tuple(meta["hidden_dims"]),
-            latent_dim=meta["latent_dim"], dropout=meta["dropout"])
-        model.load_state_dict(simple_vae_from_flax(flat))
+        embed_backend = cfg_dict.pop("lyrics_embedder_backend", None)
+        cfg_cls = PreprocessConfig if arch == "simple" else AdvancedPreprocessConfig
+        model = _build_model(arch, meta)
+        model.load_state_dict(from_flax(flat))
         model.to(dev).eval()
         return cls(arch=arch, meta=meta, model=model,
-                   pre_cfg=PreprocessConfig.from_dict(cfg_dict),
-                   centers=centers,
-                   imputer=load_normalizer(data / "imputer.pkl"),
-                   scaler=load_normalizer(data / "scaler.pkl"),
-                   device=dev, tuning_route=tuning_route)
+                   pre_cfg=cfg_cls.from_dict(cfg_dict), centers=centers,
+                   normalizers={name: load_normalizer(data / f"{name}.pkl")
+                                for name in _NORMALIZERS[arch]},
+                   device=dev, tuning_route=tuning_route,
+                   embed_backend=embed_backend)
 
     # -- encoding ----------------------------------------------------------
 
     def extract(self, waveforms: np.ndarray) -> torch.Tensor:
-        """Raw 370-d features of one device batch ``(B, num_samples)``."""
-        fn = make_extractor(extract_basic_features, self.pre_cfg, self.device,
-                            tuning_route=self.tuning_route)
+        """Raw features of one device batch ``(B, num_samples)``: the 370-d
+        vector (``simple``) or the mel-dB image (``cvae`` / ``hybrid``,
+        through the bundle's recorded ``stft_method``)."""
+        if self.arch == "simple":
+            fn = make_extractor(extract_basic_features, self.pre_cfg,
+                                self.device, tuning_route=self.tuning_route)
+        else:
+            fn = make_extractor(extract_mel_image, self.pre_cfg, self.device)
         return fn(waveforms)
 
-    def normalize(self, feats: np.ndarray) -> np.ndarray:
-        return self.scaler.transform(
-            self.imputer.transform(feats)).astype(np.float32)
+    def normalize(self, raw: np.ndarray) -> np.ndarray:
+        """Raw features -> model input: imputer + scaler (``simple``), or
+        the per-pixel mel scaler over the flattened image plus a channel
+        axis (NHWC)."""
+        if self.arch == "simple":
+            return self.normalizers["scaler"].transform(
+                self.normalizers["imputer"].transform(raw)).astype(np.float32)
+        n = raw.shape[0]
+        flat = self.normalizers["mel_scaler"].transform(raw.reshape(n, -1))
+        return flat.reshape(raw.shape).astype(np.float32)[..., None]
 
-    def apply_latent(self, x: np.ndarray) -> torch.Tensor:
-        """Encoder means of normalized model inputs ``(B, input_dim)``."""
+    def apply_latent(self, *inputs: np.ndarray) -> torch.Tensor:
+        """Encoder means of one batch of model inputs."""
         with torch.no_grad():
-            return self.model.latent(torch.as_tensor(x).to(self.device))
+            return self.model.latent(
+                *(torch.as_tensor(a).to(self.device) for a in inputs))
+
+    def _embed_texts(self, lyrics, n: int) -> np.ndarray:
+        if lyrics is None:
+            lyrics = [" "] * n          # ref coerces empty lyrics to ' '
+        if len(lyrics) != n:
+            raise ValueError(f"got {len(lyrics)} lyrics for {n} clips")
+        emb, backend = embed_lyrics(list(lyrics))
+        if self.embed_backend and backend != self.embed_backend:
+            warnings.warn(
+                f"lyrics embedder backend {backend!r} differs from the one "
+                f"used at training time ({self.embed_backend!r}) — latents "
+                f"will not be comparable", stacklevel=3)
+        return emb.astype(np.float32)
+
+    def _condition(self, genres, n: int) -> np.ndarray:
+        names = list(self.meta.get("genre_names", []))
+        cond = np.zeros((n, self.meta["num_classes"]), np.float32)
+        if genres is None:
+            return cond                 # marginal (all-zero) condition
+        for i, g in enumerate(genres):
+            if g is not None:
+                cond[i, names.index(g)] = 1.0
+        return cond
 
     def validate_args(self, n: int, lyrics=None, genres=None) -> None:
         """Raise the errors :meth:`encode_waveforms` would, without touching
-        the device."""
-        if lyrics is not None or genres is not None:
+        the device — lets batching layers reject one bad request up-front
+        instead of failing a whole merged batch."""
+        if self.arch == "simple" and (lyrics is not None or genres is not None):
             raise ValueError("the simple arch uses neither lyrics nor genres"
                              " — they would be silently dropped")
+        if self.arch == "hybrid" and genres is not None:
+            raise ValueError("the hybrid arch is unconditioned — genres "
+                             "would be silently dropped (use arch='cvae')")
+        if lyrics is not None and len(lyrics) != n:
+            raise ValueError(f"got {len(lyrics)} lyrics for {n} clips")
+        if genres is not None:
+            if len(genres) != n:
+                raise ValueError(f"got {len(genres)} genres for {n} clips")
+            names = list(self.meta.get("genre_names", []))
+            for g in genres:
+                if g is not None and g not in names:
+                    raise ValueError(f"unknown genre {g!r}; training genres: "
+                                     f"{names}")
 
     def encode_waveforms(self, waveforms: np.ndarray, lyrics=None,
                          genres=None, batch_size: int = 32) -> EncodeResult:
-        """Encode pre-loaded ``(N, num_samples)`` float32 waveforms."""
+        """Encode pre-loaded ``(N, num_samples)`` float32 waveforms: the
+        extraction and the encoder each in device batches of
+        ``batch_size``."""
         n = waveforms.shape[0]
         self.validate_args(n, lyrics=lyrics, genres=genres)
         waveforms = np.asarray(waveforms, np.float32)
         raw = batched_apply(self.extract, (waveforms,), batch_size)
-        mu = batched_apply(self.apply_latent, (self.normalize(raw),),
+        inputs = (self.normalize(raw),)
+        if self.arch != "simple":
+            inputs += (self._embed_texts(lyrics, n),)
+            if self.arch == "cvae":
+                if genres is None:
+                    warnings.warn(
+                        "cvae encoding without genres uses an all-zero "
+                        "condition the model never saw in training — "
+                        "cluster assignments may be unreliable; pass "
+                        "genres= for in-distribution latents", stacklevel=2)
+                inputs += (self._condition(genres, n),)
+        mu = batched_apply(self.apply_latent, inputs,
                            batch_size).astype(np.float32)
         return EncodeResult(latents=mu,
                             clusters=_nearest_center(mu, self.centers),

@@ -4,8 +4,8 @@ Audio trunk -> 16384 -> Linear 1024; text MLP 768 -> 256 -> 128
 (+BN+LeakyReLU); fusion Linear(1152 -> 512)+ReLU -> mu / logvar(128).
 Decoder: z -> 512(+ReLU) -> split-Linear 1024 + 128(+ReLU); audio
 1024 -> 16384(+ReLU) -> transposed convs; text 128 -> 256(+BN+LeakyReLU)
--> 768.  Model and loss only: its training pipeline waits for the
-agglomerative and DBSCAN sweeps (ROADMAP.md, queue 1, item 6).
+-> 768.  Trained by ``pipelines.run_hybrid_vae`` and served by
+``infer.ClipEncoder`` (``arch="hybrid"``).
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@
   preprocess_advanced   ≙ src/1_preprocessing_advanced.py -> processed_data2/
   run_simple_vae        ≙ src/Simple_VAE.py
   run_conditional_vae   ≙ src/Conditional_VAE.py
+  run_hybrid_vae        ≙ src/Convolutional_VAE.py
 
 The preprocess pipelines decode clips on a thread pool, extract features
 on the device in batches (:func:`_extract_batched`), persist each batch as
@@ -14,9 +15,12 @@ VAE row, the serving bundle, the PCA + KMeans row and the consolidated
 metrics CSV.  ``run_conditional_vae`` goes as ``tpuvae/pipelines.py:683-815``:
 one-hot genre condition, 85/15 split, fit on the validation loss, batched
 latents, k-means at k = number of genres, the serving bundle, and the four
-rows of ``evaluate_clustering`` (CVAE, PCA, autoencoder, raw features).  All
-run on one device; the artifact, shard and CSV contracts are the JAX
-pipeline's, so either package reads what the other writes.
+rows of ``evaluate_clustering`` (CVAE, PCA, autoencoder, raw features).
+``run_hybrid_vae`` goes as ``tpuvae/pipelines.py:822-958``: the latents
+file, the k-means, Ward and DBSCAN sweeps, the serving bundle and four rows
+(Silhouette, Davies-Bouldin, ARI per algorithm).  All run on one device;
+the artifact, shard and CSV contracts are the JAX pipeline's, so either
+package reads what the other writes.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from itertools import islice
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -33,7 +38,11 @@ import torch
 
 from tpuvae_torch.cluster.kmeans import centers_from_labels, kmeans
 from tpuvae_torch.cluster.pca import pca_transform
-from tpuvae_torch.cluster.sweeps import kmeans_k_sweep
+from tpuvae_torch.cluster.sweeps import (
+    agglomerative_k_sweep,
+    dbscan_eps_sweep,
+    kmeans_k_sweep,
+)
 from tpuvae_torch.config import (
     AdvancedPreprocessConfig,
     ClusterConfig,
@@ -63,6 +72,7 @@ from tpuvae_torch.io.resume import ExtractionManifest
 from tpuvae_torch.io.wav import load_audio
 from tpuvae_torch.metrics.internal import (
     calinski_harabasz_score,
+    davies_bouldin_score,
     silhouette_from_distances,
 )
 from tpuvae_torch.metrics.external import (
@@ -76,12 +86,18 @@ from tpuvae_torch.metrics.labels import (
     one_hot_np,
 )
 from tpuvae_torch.metrics.pairwise import self_distances
-from tpuvae_torch.models import ConditionalVAE, SimpleAutoencoder, SimpleVAE
+from tpuvae_torch.models import (
+    ConditionalVAE,
+    HybridVAE,
+    SimpleAutoencoder,
+    SimpleVAE,
+)
 from tpuvae_torch.train.checkpoint import save_checkpoint
 from tpuvae_torch.train.loop import FitConfig, fit, train_val_split
 from tpuvae_torch.train.objectives import (
     autoencoder_objective,
     cvae_objective,
+    hybrid_objective,
     simple_vae_objective,
 )
 from tpuvae_torch.train.state import create_state
@@ -647,6 +663,38 @@ def _batched_latents(fn, arrays, batch_size: int,
             arrays, batch_size)
 
 
+def _reject_unported_conv(cfg, make_plots: bool) -> None:
+    if make_plots:
+        raise NotImplementedError(
+            "t-SNE, the reconstruction pair and the plots are not ported to "
+            "tpuvae_torch yet (ROADMAP.md, queue 1, item 9: viz/); pass "
+            "make_plots=False")
+    if str(cfg.compute_dtype) != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is not ported to "
+            f"tpuvae_torch: the conv trunk's fused kernel computes in "
+            f"float32 only (ROADMAP.md, queue 1, item 5: bfloat16)")
+
+
+def _mel_nhwc(data, stream: bool):
+    """The mel images as NHWC: a lazy view of the memory map when
+    streaming (the big tensor stays on disk), else one float32 array."""
+    if stream:
+        return RowView(data["mel"], add_channel=True)
+    return np.asarray(data["mel"], np.float32)[..., None]
+
+
+def _fit_splits(data, mel, others, rows, stream: bool, dev):
+    """``(mel, *others)`` of each row set in ``rows``: host views that
+    ``fit(host_stream=True)`` moves one batch at a time, else device
+    tensors."""
+    if stream:
+        return [(RowView(data["mel"], r, add_channel=True),
+                 *(a[r] for a in others)) for r in rows]
+    return [tuple(torch.from_numpy(a[r]).to(dev) for a in (mel, *others))
+            for r in rows]
+
+
 # -----------------------------------------------------------------------------
 # Conditional VAE pipeline (≙ src/Conditional_VAE.py main())
 # -----------------------------------------------------------------------------
@@ -670,25 +718,13 @@ def run_conditional_vae(
     ``evaluate_clustering`` kernel 5.  Plots and ``compute_dtype=
     "bfloat16"`` are not ported and raise.
     """
-    if make_plots:
-        raise NotImplementedError(
-            "t-SNE, the reconstruction pair and the plots are not ported to "
-            "tpuvae_torch yet (ROADMAP.md, queue 1, item 9: viz/); pass "
-            "make_plots=False")
-    if str(cfg.compute_dtype) != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported to "
-            f"tpuvae_torch: the conv trunk's fused kernel computes in "
-            f"float32 only (ROADMAP.md, queue 1, item 5: bfloat16)")
+    _reject_unported_conv(cfg, make_plots)
     dev = resolve_device(device)
     logger = logger or RunLogger()
     t_start = time.perf_counter()
     stream = bool(cfg.host_stream)
     data = load_advanced(data_dir, mmap=stream)
-    if stream:
-        mel = RowView(data["mel"], add_channel=True)          # NHWC, lazy
-    else:
-        mel = np.asarray(data["mel"], np.float32)[..., None]  # NHWC
+    mel = _mel_nhwc(data, stream)
     text = np.asarray(data["text"], np.float32)
     handcrafted = np.asarray(data["handcrafted"], np.float32)
     y_genre, genre_names = encode_labels(data["metadata"]["genre"].values)
@@ -709,12 +745,7 @@ def run_conditional_vae(
         checkpoint_dir=(f"{results_dir}/Conditional_VAE/checkpoints"
                         if cfg.checkpoint_every > 0 else None),
     )
-    if stream:
-        splits = [(RowView(data["mel"], r, add_channel=True), text[r], cond[r])
-                  for r in (tr, va)]
-    else:
-        splits = [tuple(torch.from_numpy(a[r]).to(dev)
-                        for a in (mel, text, cond)) for r in (tr, va)]
+    splits = _fit_splits(data, mel, (text, cond), (tr, va), stream, dev)
     t0 = time.perf_counter()
     logger.log("fit_start", setup_seconds=t0 - t_start, n_train=len(tr),
                n_val=len(va), host_stream=stream)
@@ -791,6 +822,10 @@ def run_conditional_vae(
     return df
 
 
+# -----------------------------------------------------------------------------
+# Hybrid VAE pipeline (≙ src/Convolutional_VAE.py)
+# -----------------------------------------------------------------------------
+
 def run_hybrid_vae(
     data_dir: str = "processed_data2",
     results_dir: str = "results",
@@ -800,10 +835,131 @@ def run_hybrid_vae(
     make_plots: bool = False,
     device: str = "cuda",
 ) -> pd.DataFrame:
-    """The Hybrid VAE pipeline (``tpuvae/pipelines.py:822``) is not ported:
-    the model and its loss are (``models/hybrid_vae.py``), its
-    agglomerative and DBSCAN sweeps are not."""
-    raise NotImplementedError(
-        "run_hybrid_vae is not ported to tpuvae_torch yet (ROADMAP.md, "
-        "queue 1, item 6: agglomerative_k_sweep, dbscan_eps_sweep and "
-        "Davies-Bouldin per algorithm come first)")
+    """Train the Hybrid VAE on ``data_dir`` (a ``processed_data2``), write
+    its latents (``Convolutional_VAE/hybrid_latent_features.npy``, on every
+    run), cluster them four ways and write the serving bundle and the four
+    metric rows under ``results_dir``.  Returns the rows.
+
+    Step for step as ``tpuvae/pipelines.py:822-958``: 85/15 split, fit on
+    the validation loss with the per-dataset normaliser, batched latents,
+    the k-means, Ward and DBSCAN sweeps, the ``arch="hybrid"`` bundle, the
+    k = 2 "language" k-means, and Silhouette, Davies-Bouldin, ARI and the
+    cluster count of each algorithm's labels.  ``device`` defaults to CUDA
+    and raises without a card.  On the card every trunk forward launches
+    kernel 6; each sweep and the rows launch kernel 5 once, and each row's
+Davies-Bouldin once more (its centroid distances).  Plots and
+    ``compute_dtype="bfloat16"`` are not ported and raise.
+    """
+    _reject_unported_conv(cfg, make_plots)
+    dev = resolve_device(device)
+    logger = logger or RunLogger()
+    t_start = time.perf_counter()
+    stream = bool(cfg.host_stream)
+    data = load_advanced(data_dir, mmap=stream)
+    mel = _mel_nhwc(data, stream)
+    text = np.asarray(data["text"], np.float32)
+    y_genre, genre_names = encode_labels(data["metadata"]["genre"].values)
+    n_classes = len(genre_names)
+
+    model = HybridVAE(
+        latent_dim=cfg.latent_dim, text_dim=text.shape[1],
+        input_hw=(mel.shape[1], mel.shape[2]),
+        generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    state = create_state(model, cfg.learning_rate)
+    tr, va = train_val_split(len(mel), cfg.val_fraction, cfg.seed)
+    fit_cfg = FitConfig(
+        epochs=cfg.epochs, batch_size=cfg.batch_size, patience=cfg.patience,
+        monitor="val", restore_best=False, loss_normalizer="per_dataset",
+        seed=cfg.seed, log_every=1, scan_epochs=cfg.scan_epochs,
+        host_stream=stream,
+        # mid-train checkpoints (off by default): fit does not take them yet
+        checkpoint_dir=(f"{results_dir}/Convolutional_VAE/checkpoints"
+                        if cfg.checkpoint_every > 0 else None),
+    )
+    splits = _fit_splits(data, mel, (text,), (tr, va), stream, dev)
+    t0 = time.perf_counter()
+    logger.log("fit_start", setup_seconds=t0 - t_start, n_train=len(tr),
+               n_val=len(va), host_stream=stream)
+    res = fit(state, hybrid_objective(cfg.beta, cfg.text_loss_weight),
+              splits[0], fit_cfg, val_data=splits[1], logger=logger)
+    del splits
+    logger.log("fit", seconds=time.perf_counter() - t0,
+               epochs=len(res.history["train_loss"]),
+               best_epoch=res.best_epoch, steps_per_sec=res.steps_per_sec,
+               epoch_seconds=res.history["epoch_seconds"],
+               train_loss=res.history["train_loss"],
+               val_loss=res.history["val_loss"])
+
+    t0 = time.perf_counter()
+    model.eval()
+    latents = _batched_latents(model.latent, (mel, text), cfg.batch_size, dev)
+    # contract artifact: the reference saves it on EVERY run
+    # (Convolutional_VAE.py:303), so it is not gated on plotting
+    out = Path(results_dir) / "Convolutional_VAE"
+    out.mkdir(parents=True, exist_ok=True)
+    np.save(out / "hybrid_latent_features.npy", latents)
+    logger.log("latents", shape=list(latents.shape),
+               seconds=time.perf_counter() - t0)
+
+    zd = torch.from_numpy(latents).to(dev)
+    k_range = range(ccfg.hybrid_k_min, ccfg.hybrid_k_max + 1)
+    sweep_s = {}
+    t0 = time.perf_counter()
+    km_sweep = kmeans_k_sweep(zd, k_range, n_init=ccfg.kmeans_n_init,
+                              seed=ccfg.seed)
+    sweep_s["kmeans"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agg_sweep = agglomerative_k_sweep(zd, k_range)
+    sweep_s["agglomerative"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eps_values = np.arange(ccfg.dbscan_eps_min, ccfg.dbscan_eps_max + 1e-9,
+                           ccfg.dbscan_eps_step)
+    db_sweep = dbscan_eps_sweep(zd, eps_values,
+                                min_samples=ccfg.dbscan_min_samples,
+                                fallback_eps=ccfg.dbscan_fallback_eps)
+    sweep_s["dbscan"] = time.perf_counter() - t0
+    logger.log("sweeps", kmeans_k=km_sweep.best_param,
+               agg_k=agg_sweep.best_param, dbscan_eps=db_sweep.best_param,
+               seconds=sweep_s)
+
+    best_k = int(km_sweep.best_param)
+    serving = save_serving_model(
+        results_dir, model, centers_from_labels(latents, km_sweep.best_labels),
+        meta={"arch": "hybrid", "latent_dim": cfg.latent_dim,
+              "text_dim": int(text.shape[1]),
+              "input_hw": [int(mel.shape[1]), int(mel.shape[2])],
+              "compute_dtype": str(cfg.compute_dtype), "best_k": best_k,
+              "data_dir": str(data_dir)})
+    logger.log("serving_saved", dir=str(serving), best_k=best_k)
+
+    t0 = time.perf_counter()
+    lang_km = kmeans(zd, 2, n_init=ccfg.kmeans_n_init, seed=ccfg.seed)
+    algos = {
+        f"K-Means-Main (k={best_k})": km_sweep.best_labels,
+        "K-Means-Language (k=2)": lang_km.labels,
+        f"Agglomerative (k={int(agg_sweep.best_param)})": agg_sweep.best_labels,
+        f"DBSCAN (eps={float(db_sweep.best_param):.1f})": db_sweep.best_labels,
+    }
+    dist = self_distances(zd)
+    rows = []
+    for name, labels_pred in algos.items():
+        n_found = len(set(labels_pred.tolist()) - {-1})
+        if n_found > 1:
+            lab, k = compact_labels(labels_pred)
+            rows.append({
+                "Algorithm": name,
+                "Silhouette": float(silhouette_from_distances(dist, lab, k)),
+                "Davies-Bouldin": float(davies_bouldin_score(zd, lab, k)),
+                "ARI": adjusted_rand_score(y_genre, lab, n_classes, k),
+                "n_clusters": n_found})
+        else:  # ref :419-426
+            rows.append({"Algorithm": name, "Silhouette": -1,
+                         "Davies-Bouldin": -1, "ARI": -1,
+                         "n_clusters": n_found})
+    logger.log("rows", seconds=time.perf_counter() - t0, rows=len(rows))
+    df = pd.DataFrame(rows)
+    consolidate_metrics(results_dir, df, "Convolutional VAE",
+                        per_arch_subdir="Convolutional_VAE")
+    logger.log("metrics", architecture="Convolutional VAE",
+               rows=df.to_dict("records"))
+    return df

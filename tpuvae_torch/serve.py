@@ -3,20 +3,22 @@
 
 Keeps the bundle loaded and the kernels built, so requests pay neither::
 
-    python -m tpuvae_torch.cli serve --arch=simple --port=8787
+    python -m tpuvae_torch.cli serve --arch=hybrid --port=8787
 
     curl localhost:8787/healthz
-    curl -X POST localhost:8787/encode -d '{"paths": ["new_song.wav"]}'
+    curl -X POST localhost:8787/encode \
+         -d '{"paths": ["new_song.wav"], "lyrics": ["la la"]}'
 
 Endpoints (all JSON):
 
 - ``GET /healthz`` — liveness + bundle identity (arch, latent_dim, torch
   device).
-- ``GET /info`` — serving metadata (preprocess geometry, centroid count).
+- ``GET /info`` — serving metadata (preprocess geometry, genres, centroid
+  count, lyrics-embedder backend).
 - ``POST /encode`` — body ``{"paths": [...]}`` for server-local files or
   ``{"audio_b64": [...]}`` for base64 WAV container bytes; optional
-  ``"batch_size"``.  Returns ``{"latents": [[...]], "clusters": [...],
-  "warnings": [...]}``.
+  ``"lyrics"`` (cvae / hybrid), ``"genres"`` (cvae), ``"batch_size"``.
+  Returns ``{"latents": [[...]], "clusters": [...], "warnings": [...]}``.
 
 Requests are served from a thread pool (stdlib ``ThreadingHTTPServer``);
 health checks stay responsive while encodes run.  The device pass is
@@ -270,6 +272,8 @@ class ServingApp:
             "sample_rate": cfg.sample_rate,
             "duration": cfg.duration,
             "num_samples": int(cfg.sample_rate * cfg.duration),
+            "genre_names": list(enc.meta.get("genre_names", [])),
+            "lyrics_embedder_backend": enc.embed_backend,
             "model_meta": {k: v for k, v in enc.meta.items()
                            if isinstance(v, (str, int, float, bool))},
         }
@@ -414,7 +418,7 @@ def make_server(encoder: ClipEncoder, host: str = "127.0.0.1", port: int = 0,
     return server
 
 
-def serve(arch: str = "simple", results_dir: str = "results",
+def serve(arch: str = "hybrid", results_dir: str = "results",
           data_dir: str | None = None, host: str = "127.0.0.1",
           port: int = 8787, warmup: bool = True,
           batch_wait_ms: float = 0.0, max_batch: int = 32,
@@ -426,7 +430,10 @@ def serve(arch: str = "simple", results_dir: str = "results",
                                data_dir=data_dir, device=device)
     if warmup:
         n = int(encoder.pre_cfg.sample_rate * encoder.pre_cfg.duration)
-        encoder.encode_waveforms(np.zeros((1, n), np.float32))
+        kwargs = {} if arch == "simple" else {"lyrics": [" "]}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # cvae: the zero condition
+            encoder.encode_waveforms(np.zeros((1, n), np.float32), **kwargs)
         print("warmup done")
     server = make_server(encoder, host=host, port=port,
                          batch_wait_ms=batch_wait_ms, max_batch=max_batch)
