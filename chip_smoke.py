@@ -47,7 +47,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    the card with ``extract_batch`` 128, launch counters set to 0 just
    before each and read just after (each kernel once per device batch);
    artifact shapes, zero-mean / unit-variance features, exactly one failed
-   clip (the truncated one), and the 290 columns the two runs share held
+   clip (the truncated one), every other clip decoded by the native
+   loader (its count), and the 290 columns the two runs share held
    to the fast-mode contract (2% rtol / 1.0 atol);
 8. the paths joined: ``run_simple_vae`` on the ``processed_data1`` that
    phase 7 wrote, and ``ClipEncoder`` serving that bundle;
@@ -86,7 +87,26 @@ Phases (any failure exits non-zero, and no result line is printed):
     cluster ids equal); ``/encode`` latency of one clip with lyrics through
     ``make_server``, median of 8 sequential requests, with and without the
     20 ms micro-batch window;
-14. time each kernel, its plain version and the library yardstick with
+14. the lyrics encoder at full width: a checkpoint directory of seeded
+    XLM-R-base weights (the published geometry of
+    ``sentence-transformers/paraphrase-multilingual-mpnet-base-v2``: 12
+    layers, hidden 768, 12 heads, vocab 250,002; 278 M parameters, 1.1 GB)
+    with its ``config.json`` and a unigram sentencepiece model counted from
+    the corpus's lyrics, loaded through ``embed_lyrics(checkpoint=...)`` on
+    the card (load time, peak memory); 8 lyrics on the card held to the CPU
+    (max abs diff 1e-4); a 32 x 128 batch timed (tokenize on the host,
+    copy, forward; median of 7) beside its operations bound;
+15. the input front end: ``generate_dataset(container="mixed")`` writes 66
+    clips of 30 s, half FLAC; one clip's decode timed native against
+    Python; ``preprocess_advanced`` (``stft_method=pallas``) with the
+    checkpoint: every clip through the native loader by its count, the
+    ``xlmr-checkpoint:`` backend recorded, kernels 4 and 3 launched; a
+    1-epoch ``run_hybrid_vae`` on what it wrote (kernels 5 and 6); with
+    ``$TPUVAE_TEXT_CHECKPOINT`` set, ``/encode`` of one FLAC clip with lyrics
+    through ``make_server`` (20 ms window and none, median of 8): no
+    backend warning, the latent equal to its WAV twin's and within 1e-4 of
+    the CPU's; the checkpoint is deleted at the end of the phase;
+16. time each kernel, its plain version and the library yardstick with
     CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
     also at the pipelines' 128 clips and partial batches, each held
     against its plain version there too; the extract stage's parts,
@@ -96,7 +116,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     optimizer, with the cost of the fused pair's backward; one more step
     under ``torch.profiler``: the pair's kernel time, launches and span
     inside it;
-15. print the ``kernels`` JSON line, then the ``ok`` line last.
+17. print the ``kernels`` JSON line, then the ``ok`` line last.
 """
 
 from __future__ import annotations
@@ -140,6 +160,10 @@ HYBRID_LATENT = 128
 HYBRID_ROWS = ("K-Means-Main (k=", "K-Means-Language (k=2)", "Agglomerative (k=",
                "DBSCAN (eps=")
 N_SERVE = 32          # clips each conv bundle encodes on the card and the CPU
+MIXED_PER_GENRE_LANG = 11   # x 6 = 66 clips of the mixed WAV / FLAC corpus
+# the published geometry of XLM-RoBERTa-base (the reference's lyrics encoder)
+XLMR = dict(vocab_size=250002, hidden=768, layers=12, heads=12,
+            intermediate=3072, max_positions=514)
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores, TF32 FLOP/s on them
@@ -602,6 +626,12 @@ def preprocess_path(torch, dev, work: Path) -> dict:
             {k: round(v["seconds"], 4) for k, v in res["stages"].items()}))
         check(len(res["failed"]) == 1 and res["failed"][0][0] == str(bad),
               f"failed clips {res['failed']}")
+        # every clip through the native loader; the truncated one failed
+        # there and in the Python decoder after it
+        check(detail["decodes_native"] == n_entries - 1
+              and detail["decodes_python"] == 0,
+              f"decodes native {detail['decodes_native']}, python "
+              f"{detail['decodes_python']} of {n_entries - 1} clips")
         for name in expect:
             check(counts[name] == batches,
                   f"{name} launched {counts[name]} times for {batches} batches")
@@ -1401,6 +1431,345 @@ def serve_conv_bundles(torch, dev, work: Path, dataset_root: Path) -> dict:
     return out
 
 
+# -- phases 14 and 15: the lyrics encoder at full width, the front end ----------
+
+def write_xlmr_checkpoint(torch, dev, path: Path, texts) -> dict:
+    """A checkpoint directory at the published XLM-R-base geometry of
+    ``sentence-transformers/paraphrase-multilingual-mpnet-base-v2`` (12
+    layers, hidden 768, 12 heads, intermediate 3,072, vocab 250,002, 514
+    positions, type vocab 1, the pooler included): weights from a seeded
+    generator in HuggingFace naming, ``config.json``, and a unigram
+    sentencepiece model counted from ``texts``."""
+    from tpuvae_torch.text.tokenizer import unigram_pieces, write_sentencepiece_model
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h, inter = XLMR["hidden"], XLMR["intermediate"]
+
+    def rnd(*shape, loc=0.0):
+        return (loc + 0.02 * torch.randn(*shape, generator=g, device=dev)).cpu()
+
+    sd = {"embeddings.word_embeddings.weight": rnd(XLMR["vocab_size"], h),
+          "embeddings.position_embeddings.weight": rnd(XLMR["max_positions"], h),
+          "embeddings.token_type_embeddings.weight": rnd(1, h),
+          "embeddings.LayerNorm.weight": rnd(h, loc=1.0),
+          "embeddings.LayerNorm.bias": rnd(h),
+          "pooler.dense.weight": rnd(h, h), "pooler.dense.bias": rnd(h)}
+    for i in range(XLMR["layers"]):
+        p = f"encoder.layer.{i}."
+        for name, (o, n) in (("attention.self.query", (h, h)),
+                             ("attention.self.key", (h, h)),
+                             ("attention.self.value", (h, h)),
+                             ("attention.output.dense", (h, h)),
+                             ("intermediate.dense", (inter, h)),
+                             ("output.dense", (h, inter))):
+            sd[p + name + ".weight"] = rnd(o, n)
+            sd[p + name + ".bias"] = rnd(o)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + name + ".weight"] = rnd(h, loc=1.0)
+            sd[p + name + ".bias"] = rnd(h)
+    n_params = sum(v.numel() for v in sd.values())
+    path.mkdir(parents=True)
+    torch.save(sd, path / "pytorch_model.bin")
+    del sd
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "xlm-roberta", "hidden_size": h,
+        "num_hidden_layers": XLMR["layers"],
+        "num_attention_heads": XLMR["heads"], "intermediate_size": inter,
+        "vocab_size": XLMR["vocab_size"],
+        "max_position_embeddings": XLMR["max_positions"],
+        "type_vocab_size": 1, "pad_token_id": 1, "layer_norm_eps": 1e-5}))
+    pieces = unigram_pieces(texts, n_pieces=4000)
+    write_sentencepiece_model(path / "sentencepiece.bpe.model", pieces)
+    return {"params": n_params, "pieces": len(pieces),
+            "bytes": (path / "pytorch_model.bin").stat().st_size,
+            "write_s": time.perf_counter() - t0}
+
+
+def lyrics_encoder_full_width(torch, dev, ckpt: Path, lyrics) -> dict:
+    """Phase 14: the checkpoint through ``embed_lyrics`` on the card (load
+    time, peak memory), 8 lyrics on the card against the CPU with the same
+    code and weights, and a 32 x 128 batch timed (tokenize on the host,
+    copy, forward) beside its bound."""
+    from tpuvae_torch.text.embedder import embed_lyrics, load_checkpoint_encoder
+
+    out = {}
+    eight = lyrics[:8]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    card, backend = embed_lyrics(eight, checkpoint=str(ckpt), device="cuda")
+    out["first_call_s"] = time.perf_counter() - t0      # read, convert, move
+    # the encoder's share of the peak: earlier phases' tensors are still live
+    out["peak_mb"] = (torch.cuda.max_memory_allocated(dev) - before) / 2**20
+    out["resident_mb"] = (torch.cuda.memory_allocated(dev) - before) / 2**20
+    t0 = time.perf_counter()
+    again, _ = embed_lyrics(eight, checkpoint=str(ckpt), device="cuda")
+    out["cached_call_s"] = time.perf_counter() - t0
+    out["load_s"] = out["first_call_s"] - out["cached_call_s"]
+    out["load_steps_s"] = load_checkpoint_encoder(ckpt, "cuda").load_seconds
+    check(backend == f"xlmr-checkpoint:{ckpt.name}", f"backend {backend}")
+    check(card.shape == (8, XLMR["hidden"]) and card.dtype == np.float32
+          and np.isfinite(card).all(), f"card embeddings {card.shape}")
+    check(np.array_equal(card, again), "a cached encoder gave other numbers")
+    t0 = time.perf_counter()
+    cpu, _ = embed_lyrics(eight, checkpoint=str(ckpt), device="cpu")
+    out["cpu_first_call_s"] = time.perf_counter() - t0
+    err = float(np.abs(card - cpu).max())
+    out["max_abs_err_vs_cpu"] = err
+    out["max_abs_embedding"] = float(np.abs(cpu).max())
+    check(err <= 1e-4, f"lyrics embeddings on the card off the CPU's by {err}")
+    log(f"lyrics encoder: {backend} loaded on the card in "
+        f"{out['load_s']:.2f} s (first call {out['first_call_s']:.2f} s, "
+        f"steps {json.dumps(out['load_steps_s'])}; {out['resident_mb']:.0f} MB "
+        f"resident, peak {out['peak_mb']:.0f} MB above what was allocated "
+        f"before); 8 lyrics card vs CPU max abs diff "
+        f"{err:.3g} (max |embedding| {out['max_abs_embedding']:.3g})")
+
+    # 32 x 128: each text long enough that every row is 128 valid tokens
+    enc = load_checkpoint_encoder(ckpt, "cuda")
+    texts = [" ".join([t] * (1 + 3000 // len(t))) for t in
+             (lyrics * (1 + 32 // len(lyrics)))[:32]]
+    ids, mask = enc.tokenize(texts)
+    check(ids.shape == (32, 128) and int(mask.sum()) == 32 * 128,
+          f"timing batch {ids.shape}, {int(mask.sum())} valid tokens")
+    parts = {"tokenize_ms": [], "copy_ms": [], "forward_ms": []}
+    for i in range(9):
+        t0 = time.perf_counter()
+        ids, mask = enc.tokenize(texts)
+        t_tok = (time.perf_counter() - t0) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        d_ids = torch.from_numpy(ids).to(dev)
+        d_mask = torch.from_numpy(mask).to(dev)
+        ev[1].record()
+        with torch.no_grad():
+            emb = enc.model(d_ids, d_mask)
+        ev[2].record()
+        ev[2].synchronize()
+        if i >= 2:                                        # 2 warm-up runs
+            parts["tokenize_ms"].append(t_tok)
+            parts["copy_ms"].append(ev[0].elapsed_time(ev[1]))
+            parts["forward_ms"].append(ev[1].elapsed_time(ev[2]))
+    check(tuple(emb.shape) == (32, XLMR["hidden"])
+          and bool(torch.isfinite(emb).all()), "32 x 128 embeddings")
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    h, inter, layers, t = (XLMR["hidden"], XLMR["intermediate"],
+                           XLMR["layers"], 128)
+    # per token: two operations per weight of the 12 layers' products, and
+    # the attention's two T x h products per layer
+    flops_per_token = layers * (2 * (4 * h * h + 2 * h * inter) + 4 * t * h)
+    flops = 32 * t * flops_per_token
+    bound_ms, bound_by = bound(0.0, flops)
+    total = sum(med.values())
+    out["batch_32x128"] = {
+        **med, "all": {k: [round(x, 3) for x in v] for k, v in parts.items()},
+        "sentences_per_s_forward": 32 / med["forward_ms"] * 1e3,
+        "sentences_per_s_end_to_end": 32 / total * 1e3,
+        "tokenize_share": med["tokenize_ms"] / total,
+        "gflop": flops / 1e9, "mflop_per_token": flops_per_token / 1e6,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "forward_over_bound": med["forward_ms"] / bound_ms}
+    log("lyrics encoder 32 x 128 batch: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in out["batch_32x128"].items() if k != "all"}))
+    return out
+
+
+def front_end_path(torch, dev, work: Path, ckpt: Path) -> dict:
+    """Phase 15: a mixed WAV / FLAC corpus through ``preprocess_advanced``
+    (native loader, ``stft_method=pallas``, the phase-14 checkpoint), a
+    1-epoch ``run_hybrid_vae`` on what it wrote, and ``/encode`` of a FLAC
+    clip with lyrics through ``make_server`` with
+    ``$TPUVAE_TEXT_CHECKPOINT`` set."""
+    from tpuvae_torch import ops, pipelines
+    from tpuvae_torch.config import (
+        AdvancedPreprocessConfig,
+        ClusterConfig,
+        HybridVAEConfig,
+    )
+    from tpuvae_torch.infer import ClipEncoder
+    from tpuvae_torch.io import native_loader
+    from tpuvae_torch.io.flac import read_flac
+    from tpuvae_torch.io.normalize import load_normalizer
+    from tpuvae_torch.io.synthetic import generate_dataset
+    from tpuvae_torch.io.wav import load_audio
+    from tpuvae_torch.serve import make_server
+    from tpuvae_torch.utils.logging import RunLogger
+
+    out = {}
+    root = work / "MixedDatasets"
+    t0 = time.perf_counter()
+    meta_csv = generate_dataset(root, clips_per_genre_lang=MIXED_PER_GENRE_LANG,
+                                sr=SR, duration=DURATION, seed=SEED + 1,
+                                container="mixed")
+    out["corpus_write_s"] = time.perf_counter() - t0
+    flacs = sorted(root.rglob("*.flac"))
+    wavs = sorted(root.rglob("*.wav"))
+    n_clips = 6 * MIXED_PER_GENRE_LANG
+    check(len(flacs) == n_clips // 2 and len(wavs) == n_clips - n_clips // 2,
+          f"mixed corpus: {len(flacs)} FLAC, {len(wavs)} WAV")
+    log(f"mixed corpus: {len(flacs)} FLAC + {len(wavs)} WAV clips of "
+        f"{DURATION:g} s written in {out['corpus_write_s']:.1f} s")
+
+    # decode of one 30 s clip, native against Python (host clock)
+    dec = {}
+    for kind, path in (("flac", flacs[0]), ("wav", wavs[0])):
+        for how, runs in (("native", 7), ("python", 3)):
+            ts = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                y = load_audio(path, SR, DURATION, prefer_native=how == "native")
+                ts.append((time.perf_counter() - t0) * 1e3)
+            dec[f"{kind}_{how}_ms"] = statistics.median(ts)
+            dec[f"{kind}_{how}_all_ms"] = [round(v, 3) for v in ts]
+            if how == "native":
+                ref = y
+        check(np.array_equal(y, ref), f"{kind}: native and Python decodes differ")
+    out["decode_per_clip"] = dec
+    log("decode of one 30 s clip, ms: " + json.dumps(
+        {k: round(v, 3) for k, v in dec.items() if not k.endswith("all_ms")}))
+
+    # preprocess_advanced on the mixed corpus with the checkpoint
+    d2 = work / "front_end" / "processed_data2"
+    cfg = AdvancedPreprocessConfig(
+        sample_rate=SR, duration=DURATION, dataset_root=str(root),
+        metadata_csv=str(meta_csv), extract_batch=EXTRACT_BATCH,
+        output_dir=str(d2), stft_method="pallas")
+    logger = RunLogger(work / "front_end.jsonl", echo=False)
+    ops.reset_launch_counts()
+    native_loader.reset_decode_counts()
+    t0 = time.perf_counter()
+    try:
+        res = pipelines.preprocess_advanced(cfg, device="cuda", logger=logger,
+                                            text_checkpoint=str(ckpt))
+        torch.cuda.synchronize()
+    finally:
+        logger.close()
+    wall = time.perf_counter() - t0
+    counts, decodes = ops.launch_counts(), native_loader.decode_counts()
+    n_adv = n_clips - 6                  # the strict catalog drops the lyricless
+    batches = -(-n_adv // EXTRACT_BATCH)
+    detail, stage = res["extract_detail"], res["stages"]["extract_advanced"]
+    backend = load_normalizer(d2 / "config.pkl")["lyrics_embedder_backend"]
+    check(res["n"] == n_adv and not res["failed"], f"front end {res['n']} ok, "
+          f"{res['failed']}")
+    check(backend == f"xlmr-checkpoint:{ckpt.name}", f"backend {backend}")
+    check(detail["decodes_native"] == n_adv and detail["decodes_python"] == 0
+          and decodes == {"native": n_adv, "python": 0},
+          f"decodes {detail} {decodes}")
+    for name in ("stft_dense", "masked_median_select"):
+        check(counts[name] == batches, f"front end: {name} launched "
+              f"{counts[name]} times for {batches} batches")
+    text = np.load(d2 / "lyrics_embeddings.npy")
+    check(text.shape == (n_adv, XLMR["hidden"]) and np.isfinite(text).all(),
+          f"lyrics embeddings {text.shape}")
+    idle = 1.0 - detail["device_s"] / stage["seconds"]
+    out["preprocess_advanced"] = {
+        "n": res["n"], "wall_s": wall, "counts": counts, "decodes": decodes,
+        "backend": backend, "clips_per_s": stage["items_per_sec"],
+        "device_idle_share": idle, "extract_detail": detail,
+        "stages_s": {k: v["seconds"] for k, v in res["stages"].items()}}
+    log(f"front end preprocess_advanced: {res['n']} clips ({len(flacs)} FLAC "
+        f"in the corpus) in {wall:.2f} s; extract stage "
+        f"{stage['seconds']:.3f} s = {stage['items_per_sec']:.1f} clips/s, "
+        f"decode_wait_s {detail['decode_wait_s']}, device idle share "
+        f"{idle:.3f}; decodes {decodes}; launch counts {counts}; lyrics "
+        f"{res['stages']['lyrics_embeddings']['seconds']:.3f} s ({backend})")
+    log("front end stages_s: " + json.dumps(
+        {k: round(v, 4) for k, v in out["preprocess_advanced"]["stages_s"].items()}))
+
+    # a 1-epoch Hybrid VAE on those embeddings
+    results = work / "front_end" / "results"
+    logger = RunLogger(work / "front_end_hybrid.jsonl", echo=False)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        df = pipelines.run_hybrid_vae(
+            str(d2), str(results), HybridVAEConfig(epochs=1, batch_size=BATCH),
+            ClusterConfig(), logger, make_plots=False, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        logger.close()
+    out["run_hybrid_vae_s"] = time.perf_counter() - t0
+    out["hybrid_counts"] = ops.launch_counts()
+    for name in ("pairwise", "fusedconv_conv0", "fusedconv_conv1"):
+        check(out["hybrid_counts"][name] > 0, f"{name} not launched by the "
+              f"front end's run_hybrid_vae")
+    check(len(df) == 4, f"hybrid rows {len(df)}")
+    log(f"front end run_hybrid_vae (1 epoch, {n_adv} clips) in "
+        f"{out['run_hybrid_vae_s']:.2f} s; launch counts {out['hybrid_counts']}")
+
+    # /encode of one FLAC clip with lyrics, and its WAV twin
+    flac = flacs[0]
+    pcm, _ = read_flac(flac)
+    twin = work / "front_end" / "twin.wav"
+    with wave.open(str(twin), "wb") as w:      # the same int16 samples
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(np.round(pcm[:, 0] * 32768).astype("<i2").tobytes())
+    lyric = "the road goes ever on and on la la la"
+    blobs = {k: base64.b64encode(p.read_bytes()).decode()
+             for k, p in (("flac", flac), ("wav", twin))}
+    os.environ["TPUVAE_TEXT_CHECKPOINT"] = str(ckpt)
+    try:
+        enc = ClipEncoder.load("hybrid", results_dir=str(results))
+        check(enc.embed_backend == backend, f"bundle backend {enc.embed_backend}")
+        cpu = ClipEncoder.load("hybrid", results_dir=str(results), device="cpu")
+        want = cpu.encode_paths([flac], lyrics=[lyric]).latents[0]
+        ops.reset_launch_counts()
+        got = enc.encode_paths([flac], lyrics=[lyric])
+        out["launches_per_flac_encode"] = ops.launch_counts()
+        err = float(np.abs(got.latents[0] - want).max())
+        check(err <= 1e-4, f"FLAC latent on the card off the CPU's by {err}")
+        out["latent_max_abs_err_vs_cpu"] = err
+        embed_ms = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            enc._embed_texts([lyric], 1)
+            embed_ms.append((time.perf_counter() - t0) * 1e3)
+        out["embed_stage_ms"] = statistics.median(embed_ms)
+        for window in (20.0, 0.0):
+            srv = make_server(enc, port=0, quiet=True, batch_wait_ms=window,
+                              max_batch=BATCH)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}/encode"
+            try:
+                replies = {k: post_json(url, {"audio_b64": [b],
+                                              "lyrics": [lyric]})[0]
+                           for k, b in blobs.items()}
+                seq = [post_json(url, {"audio_b64": [blobs["flac"]],
+                                       "lyrics": [lyric]})[1]
+                       for _ in range(8)]
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                srv.app.close()
+                thread.join(timeout=30)
+            check(replies["flac"]["warnings"] == []
+                  and replies["wav"]["warnings"] == [],
+                  f"/encode warnings {replies['flac']['warnings']}")
+            check(replies["flac"]["latents"] == replies["wav"]["latents"],
+                  "the FLAC upload's latent differs from its WAV twin's")
+            lat = np.asarray(replies["flac"]["latents"][0])
+            check(np.abs(lat - want).max() <= 1e-4, "/encode latent vs CPU")
+            out[f"flac_encode_request_ms_window_{window:g}"] = {
+                "median": statistics.median(seq),
+                "all": [round(v, 3) for v in seq]}
+    finally:
+        del os.environ["TPUVAE_TEXT_CHECKPOINT"]
+    log(f"front end /encode of one 30 s FLAC clip with lyrics ({backend}): "
+        f"equal to its WAV twin, no warning, card within {err:.3g} of the CPU; "
+        f"embed stage {out['embed_stage_ms']:.2f} ms; launches per encode "
+        f"{out['launches_per_flac_encode']}; request ms " + json.dumps(
+            {k: v["median"] for k, v in out.items()
+             if k.startswith("flac_encode")}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1731,7 +2100,29 @@ def run(torch, dev, work: Path, card: str) -> int:
     sweeps = sweeps_at_reference_n(torch, dev, flush)
     conv_serving = serve_conv_bundles(torch, dev, work, work / "Datasets")
 
-    # ---- 14. timing ---------------------------------------------------------
+    # ---- 14-15. the lyrics encoder at full width, the input front end ------
+    import pandas as pd
+
+    from tpuvae_torch.text import embedder
+
+    lyrics = [t for t in pd.read_csv(
+        work / "Datasets" / "updated_metadata.csv")["lyrics"]
+        if t != "instrumental"]
+    ckpt = work / "xlmr-base-seeded"
+    try:
+        ckpt_info = write_xlmr_checkpoint(torch, dev, ckpt, lyrics)
+        log(f"xlmr checkpoint: {ckpt_info['params']:,} parameters, "
+            f"{ckpt_info['bytes'] / 2**30:.2f} GiB, {ckpt_info['pieces']} "
+            f"sentencepiece pieces, written in {ckpt_info['write_s']:.1f} s")
+        text_enc = lyrics_encoder_full_width(torch, dev, ckpt, lyrics)
+        text_enc["checkpoint"] = ckpt_info
+        front = front_end_path(torch, dev, work, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        embedder._LOADED.clear()
+        torch.cuda.empty_cache()
+
+    # ---- 16. timing ---------------------------------------------------------
     nbins = N_FFT // 2 + 1
     fb = mel_filterbank(SR, N_FFT, N_MELS)
     frames = BATCH * n_frames
@@ -1903,6 +2294,16 @@ def run(torch, dev, work: Path, card: str) -> int:
         arch: conv_serving[arch]["launches_per_encode"]["stft_dense"]
         for arch in ("hybrid", "cvae")}
     del basis_cat
+    # this slice's paths: the front end's preprocess_advanced and its
+    # Hybrid run, and the FLAC /encode
+    by_name = {k["name"]: k for k in kernels}
+    pre_counts = front["preprocess_advanced"]["counts"]
+    for name in ("stft_dense", "masked_median_select"):
+        by_name[name]["launches_front_end_preprocess"] = pre_counts[name]
+    by_name["pairwise"]["launches_front_end_hybrid"] = (
+        front["hybrid_counts"]["pairwise"])
+    by_name["stft_dense"]["launches_per_flac_encode"] = (
+        front["launches_per_flac_encode"]["stft_dense"])
 
     # kernel 6: the pair through its wrapper, each half alone, the plain
     # version, and the library route (the same function through PyTorch
@@ -1990,6 +2391,9 @@ def run(torch, dev, work: Path, card: str) -> int:
                                      + halves[1]["bound_fp32_cuda_cores_ms"]),
         "errors": k6_errs,
         "launches_run_hybrid_vae": hybrid["counts"]["fusedconv_conv1"],
+        "launches_front_end_hybrid": front["hybrid_counts"]["fusedconv_conv1"],
+        "launches_per_flac_encode": (
+            front["launches_per_flac_encode"]["fusedconv_conv1"]),
         "launches_per_conv_encode": {
             arch: conv_serving[arch]["launches_per_encode"]["fusedconv_conv1"]
             for arch in ("hybrid", "cvae")}})
@@ -2076,6 +2480,8 @@ def run(torch, dev, work: Path, card: str) -> int:
     log("hybrid path: " + json.dumps(hybrid["stages"]))
     log("sweeps at the reference's N: " + json.dumps(sweeps))
     log("conv serving: " + json.dumps(conv_serving))
+    log("lyrics encoder: " + json.dumps(text_enc))
+    log("front end: " + json.dumps(front))
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

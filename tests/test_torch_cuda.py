@@ -1004,3 +1004,161 @@ def test_conv_serving_on_the_card_matches_the_cpu(cuda, conv_bundles, arch):
     want = cpu.encode_waveforms(waves, batch_size=4, **kw)
     np.testing.assert_allclose(got.latents, want.latents, rtol=0, atol=1e-3)
     np.testing.assert_array_equal(got.clusters, want.clusters)
+
+
+# -- the input front end: the lyrics encoder, the native loader, FLAC ------------
+
+def _xlmr_checkpoint(path, layers=2, vocab=1000, seed=0):
+    """A checkpoint directory at XLM-R-base width (hidden 768, 12 heads,
+    intermediate 3,072) with ``layers`` layers and a ``vocab``-row table:
+    seeded weights in HuggingFace naming, ``config.json`` and a unigram
+    sentencepiece model."""
+    import json
+
+    from tpuvae_torch.text.tokenizer import unigram_pieces, write_sentencepiece_model
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, loc=0.0):
+        return loc + 0.02 * torch.randn(*shape, generator=g)
+
+    h, inter = 768, 3072
+    sd = {"embeddings.word_embeddings.weight": rnd(vocab, h),
+          "embeddings.position_embeddings.weight": rnd(514, h),
+          "embeddings.token_type_embeddings.weight": rnd(1, h),
+          "embeddings.LayerNorm.weight": rnd(h, loc=1.0),
+          "embeddings.LayerNorm.bias": rnd(h)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (h, h)),
+                            ("attention.self.key", (h, h)),
+                            ("attention.self.value", (h, h)),
+                            ("attention.output.dense", (h, h)),
+                            ("intermediate.dense", (inter, h)),
+                            ("output.dense", (h, inter))):
+            sd[p + name + ".weight"] = rnd(*shape)
+            sd[p + name + ".bias"] = rnd(shape[0])
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + name + ".weight"] = rnd(h, loc=1.0)
+            sd[p + name + ".bias"] = rnd(h)
+    path.mkdir(parents=True)
+    torch.save(sd, path / "pytorch_model.bin")
+    (path / "config.json").write_text(json.dumps({"num_attention_heads": 12}))
+    texts = ["the road goes ever on and on down from the door",
+             "amar sonar bangla ami tomay bhalobashi", "আমার সোনার বাংলা"]
+    write_sentencepiece_model(path / "sentencepiece.bpe.model",
+                              unigram_pieces(texts, n_pieces=vocab - 2))
+    return path
+
+
+def test_lyrics_encoder_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The XLM-R encoder at full width (2 layers) on the card against the
+    same code and weights on the CPU: within 1e-4, padded rows included
+    (fp32 products, TF32 off)."""
+    from tpuvae_torch.text.embedder import embed_lyrics, load_checkpoint_encoder
+
+    ckpt = _xlmr_checkpoint(tmp_path / "xlmr")
+    lyrics = ["the road goes ever on", "", "আমার সোনার বাংলা " * 40,
+              "amar sonar bangla verse 3"] * 3
+    card, backend = embed_lyrics(lyrics, checkpoint=str(ckpt), batch_size=5)
+    cpu, _ = embed_lyrics(lyrics, checkpoint=str(ckpt), device="cpu")
+    assert backend == "xlmr-checkpoint:xlmr" and card.shape == (12, 768)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)
+    enc = load_checkpoint_encoder(ckpt, "cuda")
+    assert next(enc.model.parameters()).device.type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_native_rows_loader_fills_a_pinned_slot(cuda, tmp_path):
+    """``load_audio(out=...)`` writes a clip straight into a row of a pinned
+    buffer (float32 and the int16 wire) as ``_extract_batched`` does; the
+    row's copy on the card is the clip, FLAC and WAV alike."""
+    from tpuvae_torch.io import native_loader
+    from tpuvae_torch.io.flac import write_flac
+    from tpuvae_torch.io.synthetic import write_wav
+    from tpuvae_torch.io.wav import load_audio
+
+    y = _tones(1, 2 * SR, 3)[0] * 0.2
+    write_wav(tmp_path / "a.wav", y, SR)
+    pcm = np.clip(np.round(y * 32767.0), -32768, 32767).astype(np.int64)
+    write_flac(tmp_path / "a.flac", pcm, SR, 16)
+    for dtype in (torch.float32, torch.int16):
+        slot = torch.empty((2, 2 * SR), dtype=dtype, pin_memory=True)
+        rows = slot.numpy()
+        native_loader.reset_decode_counts()
+        load_audio(tmp_path / "a.wav", SR, 2.0, out=rows[0])
+        load_audio(tmp_path / "a.flac", SR, 2.0, out=rows[1])
+        assert native_loader.decode_counts() == {"native": 2, "python": 0}
+        dev = slot.to(cuda, non_blocking=True).cpu()
+        assert torch.equal(dev[0], dev[1])
+        want = load_audio(tmp_path / "a.wav", SR, 2.0)
+        if dtype == torch.int16:
+            want = np.clip(np.rint(want * 32768.0), -32768, 32767)
+        np.testing.assert_array_equal(dev[0].numpy(), want.astype(rows.dtype))
+
+
+def test_flac_encode_with_a_checkpoint_on_the_card(cuda, tmp_path, monkeypatch):
+    """A mixed WAV / FLAC corpus through ``preprocess_advanced`` on the card
+    with an XLM-R checkpoint (every clip decoded natively, the backend
+    recorded), then a hybrid bundle on it serving a FLAC upload with lyrics:
+    its WAV twin's latent, no backend warning, within 1e-4 of the CPU."""
+    import base64
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import AdvancedPreprocessConfig
+    from tpuvae_torch.infer import ClipEncoder, save_serving_model
+    from tpuvae_torch.io.flac import read_flac
+    from tpuvae_torch.io.normalize import load_normalizer
+    from tpuvae_torch.io.synthetic import generate_dataset
+    from tpuvae_torch.models import HybridVAE
+    from tpuvae_torch.pipelines import preprocess_advanced
+    from tpuvae_torch.serve import ServingApp
+    from tpuvae_torch.utils.logging import RunLogger
+
+    ckpt = _xlmr_checkpoint(tmp_path / "xlmr")
+    root = tmp_path / "Datasets"
+    meta = generate_dataset(root, clips_per_genre_lang=3, duration=2.0,
+                            container="mixed")
+    ops.reset_launch_counts()
+    res = preprocess_advanced(AdvancedPreprocessConfig(
+        output_dir=str(tmp_path / "d2"), stft_method="pallas",
+        fixed_time_steps=64, duration=2.0, dataset_root=str(root),
+        metadata_csv=str(meta), extract_batch=8),
+        logger=RunLogger(echo=False), text_checkpoint=str(ckpt))
+    assert res["n"] == 12 and res["extract_detail"]["decodes_native"] == 12
+    assert ops.launch_counts()["stft_dense"] == 2
+    cfg = load_normalizer(tmp_path / "d2" / "config.pkl")
+    assert cfg["lyrics_embedder_backend"] == "xlmr-checkpoint:xlmr"
+    save_serving_model(
+        tmp_path / "results",
+        HybridVAE(input_hw=(128, 64), generator=torch.Generator().manual_seed(1)),
+        np.zeros((3, 128), np.float32),
+        {"arch": "hybrid", "latent_dim": 128, "text_dim": 768,
+         "input_hw": [128, 64], "compute_dtype": "float32",
+         "data_dir": str(tmp_path / "d2")})
+    monkeypatch.setenv("TPUVAE_TEXT_CHECKPOINT", str(ckpt))
+    flac = sorted(root.rglob("*.flac"))[0]
+    pcm, _ = read_flac(flac)
+    import wave
+
+    with wave.open(str(tmp_path / "twin.wav"), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(np.round(pcm[:, 0] * 32768).astype("<i2").tobytes())
+    lyric = ["the road goes ever on"]
+    replies = {}
+    for device in ("cuda", "cpu"):
+        app = ServingApp(ClipEncoder.load("hybrid", str(tmp_path / "results"),
+                                          device=device))
+        try:
+            replies[device] = [app.encode({
+                "audio_b64": [base64.b64encode(p.read_bytes()).decode()],
+                "lyrics": lyric}) for p in (flac, tmp_path / "twin.wav")]
+        finally:
+            app.close()
+    for r in replies.values():
+        assert r[0]["warnings"] == r[1]["warnings"] == []
+        assert r[0]["latents"] == r[1]["latents"]
+    np.testing.assert_allclose(replies["cuda"][0]["latents"],
+                               replies["cpu"][0]["latents"], rtol=0, atol=1e-4)

@@ -190,19 +190,39 @@ def test_load_audio_matches_jax(tmp_path, channels, sr, width):
         w.setsampwidth(width)
         w.setframerate(sr)
         w.writeframes(raw)
-    got = load_audio(p, 22050, 1.0)
+    got = load_audio(p, 22050, 1.0, prefer_native=False)
     want = jax_load(p, 22050, 1.0, prefer_native=False)
     assert got.shape == (22050,) and got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
+    # the native loader (the default) resamples in float: within 1e-5, as
+    # the JAX package's own native test holds it
+    native = load_audio(p, 22050, 1.0)
+    np.testing.assert_allclose(native, want, atol=1e-5)
 
 
 def test_load_audio_rejects_non_wav(tmp_path):
+    """A FLAC decodes (by its magic, whatever the suffix), as the JAX
+    package's does; an unknown container, or a corrupt FLAC, raises the
+    Python decoder's ValueError on both paths."""
+    from tpuvae.io.flac import write_flac as jax_write_flac
+    from tpuvae.io.wav import load_audio as jax_load
+
     from tpuvae_torch.io.wav import load_audio
 
-    p = tmp_path / "x.flac"
-    p.write_bytes(b"fLaC" + b"\0" * 64)
-    with pytest.raises(ValueError, match="FLAC"):
-        load_audio(p)
+    pcm = np.random.default_rng(5).integers(-9000, 9000, (30000, 2))
+    p = tmp_path / "x.wav"                  # a FLAC stream, a WAV name
+    jax_write_flac(p, pcm, 22050, 16, stereo="mid_side")
+    want = jax_load(p, 22050, 1.0, prefer_native=False)
+    for native in (True, False):
+        np.testing.assert_array_equal(
+            load_audio(p, 22050, 1.0, prefer_native=native), want)
+    for name, raw in (("x.ogg", b"OggS" + b"\0" * 64),
+                      ("bad.flac", b"fLaC" + b"\0" * 64)):
+        bad = tmp_path / name
+        bad.write_bytes(raw)
+        for native in (True, False):
+            with pytest.raises(ValueError, match="RIFF/WAVE|STREAMINFO"):
+                load_audio(bad, prefer_native=native)
 
 
 def test_config_matches_jax_defaults():

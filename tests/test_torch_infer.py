@@ -261,8 +261,14 @@ def test_server_concurrent_requests(server, jax_bundle, encoders):
 
 def test_server_client_errors(server, tmp_path):
     url, _ = server
+    # FLAC uploads are decoded (tests/test_torch_decode.py); a corrupt one
+    # is the client's error, as is a container that is neither WAV nor FLAC
     flac = base64.b64encode(b"fLaC" + b"\0" * 64).decode()
-    assert _post(url + "/encode", {"audio_b64": [flac]})[0] == 400
+    status, out = _post(url + "/encode", {"audio_b64": [flac]})
+    assert status == 400 and "STREAMINFO" in out["error"], out
+    ogg = base64.b64encode(b"OggS" + b"\0" * 64).decode()
+    status, out = _post(url + "/encode", {"audio_b64": [ogg]})
+    assert status == 400 and "WAV/FLAC" in out["error"], out
     assert _post(url + "/encode", {"paths": []})[0] == 400
     assert _post(url + "/encode", {"paths": [str(tmp_path / "x.wav")]})[0] == 404
     assert _post(url + "/encode", {"bogus": 1})[0] == 400

@@ -135,13 +135,29 @@ def test_synth_data_is_byte_identical(tmp_path, corpus):
 
 @pytest.mark.parametrize("container", ["flac", "mixed"])
 def test_synth_data_flac_containers_raise(tmp_path, container):
+    """The FLAC containers are written byte for byte as the JAX package
+    writes them (files and ``metadata.csv``); an unknown container still
+    raises ``ValueError``."""
+    from tpuvae.io.synthetic import generate_dataset as jax_generate
+
     from tpuvae_torch.io.synthetic import generate_dataset
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate_dataset(tmp_path / "D", container=container)
-    assert not (tmp_path / "D").exists()
+    kw = dict(clips_per_genre_lang=2, duration=0.5, seed=9, container=container)
+    meta = generate_dataset(tmp_path / "D", **kw)
+    jax_generate(tmp_path / "J", **kw)
+    files = sorted(f.relative_to(tmp_path / "D")
+                   for f in (tmp_path / "D").rglob("*") if f.is_file())
+    assert files == sorted(f.relative_to(tmp_path / "J")
+                           for f in (tmp_path / "J").rglob("*") if f.is_file())
+    suffixes = [f.suffix for f in files if f.suffix != ".csv"]
+    assert suffixes.count(".flac") == (12 if container == "flac" else 6)
+    for f in files:
+        assert filecmp.cmp(tmp_path / "D" / f, tmp_path / "J" / f,
+                           shallow=False), f
+    assert meta == tmp_path / "D" / "updated_metadata.csv"
     with pytest.raises(ValueError, match="container"):
-        generate_dataset(tmp_path / "D", container="ogg")
+        generate_dataset(tmp_path / "E", container="ogg")
+    assert not (tmp_path / "E").exists()
 
 
 @pytest.mark.parametrize("kw", [
@@ -298,12 +314,19 @@ def test_lyrics_checkpoint_is_never_silently_ignored(tmp_path, monkeypatch):
 
     with pytest.raises(FileNotFoundError, match="does not exist"):
         embed_lyrics(["a"], checkpoint=str(tmp_path / "missing"))
-    (tmp_path / "ckpt").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        embed_lyrics(["a"], checkpoint=str(tmp_path / "ckpt"))
-    monkeypatch.setenv("TPUVAE_TEXT_CHECKPOINT", str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        embed_lyrics(["a"])
+    # a real checkpoint directory embeds, by argument or from the
+    # environment (tests/test_torch_text.py holds the values to the JAX
+    # package's)
+    from test_torch_text import write_checkpoint
+
+    ckpt = write_checkpoint(tmp_path / "ckpt")
+    emb, backend = embed_lyrics(["a", ""], checkpoint=str(ckpt), device="cpu")
+    assert backend == "xlmr-checkpoint:ckpt" and emb.shape == (2, 64)
+    assert np.isfinite(emb).all()
+    monkeypatch.setenv("TPUVAE_TEXT_CHECKPOINT", str(ckpt))
+    emb_env, backend_env = embed_lyrics(["a", ""], device="cpu")
+    assert backend_env == backend
+    np.testing.assert_array_equal(emb_env, emb)
     monkeypatch.setenv("TPUVAE_TEXT_CHECKPOINT", str(tmp_path / "missing"))
     with pytest.raises(FileNotFoundError):
         embed_lyrics(["a"])
@@ -549,8 +572,11 @@ def test_preprocess_basic_matches_jax(corpus, tmp_path, jax_basic, method):
     res = preprocess_basic(cfg, device="cpu", logger=_quiet("torch"))
     assert res["n"] == jres["n"] == 16 and res["failed"] == []
     # the JAX ledger's keys, plus the buffer set-up the port times apart
+    # and the clips each decoder read (all by the native loader here)
     assert set(res["extract_detail"]) == set(jres["extract_detail"]) | {
-        "setup_s"}
+        "setup_s", "decodes_native", "decodes_python"}
+    assert res["extract_detail"]["decodes_native"] == 16
+    assert res["extract_detail"]["decodes_python"] == 0
     assert {"catalog", "extract_basic", "assemble", "normalize",
             "save_artifacts"} <= set(res["stages"])
     assert sorted(p.name for p in out.iterdir()) == sorted(
@@ -820,7 +846,10 @@ def test_cli_synth_data_preprocess_and_preprocess_advanced(tmp_path, capsys):
     assert cli.main(["preprocess", "--bogus=1"]) == 2
     assert cli.main(["synth-data", "extra"]) == 2
     assert cli.main(["synth-data", f"--root={tmp_path / 'F'}",
-                     "--container=flac"]) == 2
+                     "--container=ogg"]) == 2
+    assert cli.main(["synth-data", f"--root={tmp_path / 'M'}",
+                     "--container=mixed", "--clips_per_genre_lang=1"]) == 0
+    assert len(list((tmp_path / "M").rglob("*.flac"))) == 3
     assert cli.main(["preprocess-advanced", "--stft_method=ct", *common,
                      f"--output_dir={tmp_path / 'x'}"]) == 2
     err = capsys.readouterr().err

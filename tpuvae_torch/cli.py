@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch port (counterpart of the same
 commands in ``tpuvae/cli.py``):
 
-  python -m tpuvae_torch.cli synth-data  [--root=Datasets --clips_per_genre_lang=4]
+  python -m tpuvae_torch.cli synth-data  [--root=Datasets --clips_per_genre_lang=4] [--container=wav|flac|mixed]
   python -m tpuvae_torch.cli preprocess           [--key=value ...]
   python -m tpuvae_torch.cli preprocess-advanced  [--key=value ...]
   python -m tpuvae_torch.cli train-simple [--key=value ...]
@@ -10,11 +10,12 @@ commands in ``tpuvae/cli.py``):
   python -m tpuvae_torch.cli encode [--arch=hybrid] song.wav [song2.wav ...]
   python -m tpuvae_torch.cli serve  [--arch=hybrid] --port=8787   # HTTP daemon
 
-``synth-data`` writes a seeded reference-layout corpus of WAVs with its
+``synth-data`` writes a seeded reference-layout corpus with its
 ``updated_metadata.csv``.  Flags: ``--root`` (default ``Datasets``),
 ``--clips_per_genre_lang`` (4), ``--seed_data`` (42), ``--separation``
-(1.0), ``--container`` (``wav``; the FLAC containers are not ported).  It
-touches no device.
+(1.0), ``--container`` (``wav``; ``flac``, or ``mixed`` to alternate the
+two by clip).  It touches no device.  Audio decodes through the native C++
+loader (built with g++ at first use), FLAC and WAV alike.
 
 ``preprocess`` extracts the 370-d features of every catalogued clip into
 ``processed_data1/``; ``preprocess-advanced`` the mel images, 290-d
@@ -24,7 +25,10 @@ overrides map onto ``PreprocessConfig`` / ``AdvancedPreprocessConfig``
 extra flag: ``--device`` (default cuda).  ``stft_method``: ``auto`` =
 the fused FFT kernel with the fused tuning kernel; ``pallas`` = the
 dense-DFT kernel with the staged tuning route; ``fft`` / ``dft`` = library
-FFT / dense matmuls with the staged route.
+FFT / dense matmuls with the staged route.  ``$TPUVAE_TEXT_CHECKPOINT``
+(a directory with ``pytorch_model.bin``, an optional ``config.json`` and a
+sentencepiece ``*.model``) embeds the lyrics with the XLM-R sentence
+encoder on ``--device``; unset, by hashed n-grams.
 
 ``train-simple`` trains the Simple VAE on a ``processed_data1`` and writes
 ``results/clustering_metrics.csv``, ``results/Simple_VAE/best_vae_model/``
@@ -64,6 +68,8 @@ scalers), ``--lyrics=<text>`` (the same lyrics for every clip) or
 ``--lyrics_file=<file>`` (one line per clip; ``cvae`` / ``hybrid``),
 ``--genres=a,b,...`` (one per clip; ``cvae``), ``--batch_size``,
 ``--out=<file.npz>`` to save latents/clusters, ``--device`` (default cuda).
+``encode`` and ``serve`` embed lyrics through ``$TPUVAE_TEXT_CHECKPOINT``
+as ``preprocess-advanced`` does; a backend other than the bundle's warns.
 
 ``serve`` keeps a trained model resident behind a JSON HTTP API
 (``GET /healthz``, ``GET /info``, ``POST /encode`` — see

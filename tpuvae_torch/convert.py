@@ -20,6 +20,15 @@ Module names: flax's auto-named ``<block>/Dense_i``, ``BatchNorm_i``,
 (``fc_mu``, ``text_bn``, ...) keep their names.  No Linear weight is
 permuted beyond its transpose: the port keeps NHWC at its modules' borders,
 so the trunks flatten in flax's (H, W, C) order.
+
+The lyrics encoder (``tpuvae_torch.text.encoder.SentenceEncoder``) carries
+across from the flax ``SentenceEncoder``'s nested ``params`` with
+:func:`encoder_from_flax` / :func:`encoder_to_flax`: Embed ``embedding``
+-> ``weight``; LayerNorm ``scale`` -> ``weight``; Dense ``kernel (in, out)``
+-> ``weight (out, in)``; the attention's q / k / v ``kernel (h, heads,
+head_dim)`` and ``bias (heads, head_dim)`` -> ``(h, h)`` / ``(h,)``, its
+``out`` ``kernel (heads, head_dim, h)`` -> ``(h, h)``; ``layer_<i>`` ->
+``layers.<i>``.
 """
 
 from __future__ import annotations
@@ -153,3 +162,79 @@ def to_flax(state_dict) -> dict[str, np.ndarray]:
 # the names the SimpleVAE callers use: the same maps
 simple_vae_from_flax = from_flax
 simple_vae_to_flax = to_flax
+
+
+# -- the lyrics encoder ---------------------------------------------------------
+
+_ENC_EMBEDS = ("word_emb", "pos_emb", "type_emb")
+_ENC_QKV = ("query", "key", "value")
+
+
+def encoder_from_flax(variables: dict) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``SentenceEncoder`` variables (``{"params": {...}}`` or the
+    params alone) -> the port's ``SentenceEncoder`` ``state_dict``."""
+    params = variables.get("params", variables)
+    out: OrderedDict[str, torch.Tensor] = OrderedDict()
+
+    def put(name, arr):
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32,
+                                              order="C"))
+
+    for name in _ENC_EMBEDS:
+        put(f"{name}.weight", params[name]["embedding"])
+    put("emb_ln.weight", params["emb_ln"]["scale"])
+    put("emb_ln.bias", params["emb_ln"]["bias"])
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        lp, pre = params[f"layer_{i}"], f"layers.{i}."
+        att = lp["attention"]
+        for name in _ENC_QKV:
+            k = np.asarray(att[name]["kernel"])            # (h, heads, hd)
+            put(pre + f"attention.{name}.weight", k.reshape(k.shape[0], -1).T)
+            put(pre + f"attention.{name}.bias",
+                np.asarray(att[name]["bias"]).reshape(-1))
+        k = np.asarray(att["out"]["kernel"])               # (heads, hd, h)
+        put(pre + "attention.out.weight", k.reshape(-1, k.shape[-1]).T)
+        put(pre + "attention.out.bias", att["out"]["bias"])
+        for name in ("attn_ln", "ffn_ln"):
+            put(pre + f"{name}.weight", lp[name]["scale"])
+            put(pre + f"{name}.bias", lp[name]["bias"])
+        for name in ("ffn_in", "ffn_out"):
+            put(pre + f"{name}.weight", np.asarray(lp[name]["kernel"]).T)
+            put(pre + f"{name}.bias", lp[name]["bias"])
+    return out
+
+
+def encoder_to_flax(state_dict, heads: int) -> dict:
+    """The port's ``SentenceEncoder`` ``state_dict`` -> flax variables
+    ``{"params": {...}}`` (numpy); ``heads`` splits the attention kernels."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32)
+          for k, v in state_dict.items()}
+    params: dict = {name: {"embedding": sd[f"{name}.weight"]}
+                    for name in _ENC_EMBEDS}
+    params["emb_ln"] = {"scale": sd["emb_ln.weight"], "bias": sd["emb_ln.bias"]}
+    n_layers = 1 + max((int(k.split(".")[1]) for k in sd
+                        if k.startswith("layers.")), default=-1)
+    for i in range(n_layers):
+        pre = f"layers.{i}."
+        h = sd[pre + "attention.query.weight"].shape[0]
+        att = {}
+        for name in _ENC_QKV:
+            w = sd[pre + f"attention.{name}.weight"]
+            att[name] = {
+                "kernel": np.ascontiguousarray(w.T.reshape(h, heads, h // heads)),
+                "bias": sd[pre + f"attention.{name}.bias"].reshape(heads, -1)}
+        att["out"] = {
+            "kernel": np.ascontiguousarray(
+                sd[pre + "attention.out.weight"].T.reshape(heads, h // heads, h)),
+            "bias": sd[pre + "attention.out.bias"]}
+        layer = {"attention": att}
+        for name in ("attn_ln", "ffn_ln"):
+            layer[name] = {"scale": sd[pre + f"{name}.weight"],
+                           "bias": sd[pre + f"{name}.bias"]}
+        for name in ("ffn_in", "ffn_out"):
+            layer[name] = {
+                "kernel": np.ascontiguousarray(sd[pre + f"{name}.weight"].T),
+                "bias": sd[pre + f"{name}.bias"]}
+        params[f"layer_{i}"] = layer
+    return {"params": params}

@@ -7,7 +7,10 @@ model-rebuild metadata) together with the preprocessing normalizers
 (``processed_data1/{scaler,imputer,config}.pkl`` for ``simple``,
 ``processed_data2/{mel_scaler,config}.pkl`` for ``cvae`` / ``hybrid``), and
 maps raw audio (+ lyrics, + genres for ``cvae``) to latent vectors and
-nearest-centroid cluster ids, batched on the card.  The bundle layout is
+nearest-centroid cluster ids, batched on the card.  Lyrics are embedded as
+at training time when ``$TPUVAE_TEXT_CHECKPOINT`` names the same
+checkpoint (on the encoder's device), else by hashed n-grams, with a
+warning when the backend differs from the bundle's.  The bundle layout is
 the JAX pipeline's, so a bundle written by either package loads here.
 
 Usage::
@@ -197,12 +200,13 @@ class ClipEncoder:
             lyrics = [" "] * n          # ref coerces empty lyrics to ' '
         if len(lyrics) != n:
             raise ValueError(f"got {len(lyrics)} lyrics for {n} clips")
-        emb, backend = embed_lyrics(list(lyrics))
+        emb, backend = embed_lyrics(list(lyrics), device=self.device)
         if self.embed_backend and backend != self.embed_backend:
             warnings.warn(
                 f"lyrics embedder backend {backend!r} differs from the one "
                 f"used at training time ({self.embed_backend!r}) — latents "
-                f"will not be comparable", stacklevel=3)
+                f"will not be comparable (set TPUVAE_TEXT_CHECKPOINT to "
+                f"match)", stacklevel=3)
         return emb.astype(np.float32)
 
     def _condition(self, genres, n: int) -> np.ndarray:

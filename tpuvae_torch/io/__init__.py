@@ -1,1 +1,2 @@
-"""Host I/O: WAV decoding and the preprocessing normalizers."""
+"""Host I/O: audio decoding (native C++ loader, WAV, FLAC, MP3), the
+synthetic corpus, the preprocessing normalizers and artifacts."""

@@ -1,7 +1,7 @@
 """Synthetic dataset generator — reference-layout datasets for tests and
 chip runs (own copy of ``tpuvae/io/synthetic.py``: the same numpy
-arithmetic from the same seed, so both packages write byte-identical WAVs
-and the same metadata CSV; FLAC output is not ported).
+arithmetic from the same seed, so both packages write byte-identical WAV
+and FLAC files and the same metadata CSV).
 
 The reference's Bangla+English WAV corpus is not distributable; this module
 fabricates a corpus with the same on-disk layout
@@ -102,18 +102,13 @@ def generate_dataset(
 ) -> Path:
     """Write a reference-layout synthetic corpus; returns metadata csv path.
 
-    ``container`` is 'wav'; 'flac' and 'mixed' (the JAX package's FLAC
-    writer) raise ``NotImplementedError``.
+    ``container`` ∈ {'wav', 'flac', 'mixed'} — 'mixed' alternates per clip,
+    exercising the loader's magic-byte dispatch across a whole pipeline run.
     ``separation`` < 1 blends genre signatures toward their mean (harder
     clustering problem; see :func:`_blend_profile`).
     """
     if container not in ("wav", "flac", "mixed"):
         raise ValueError(f"unknown container {container!r}")
-    if container != "wav":
-        raise NotImplementedError(
-            f"container {container!r} needs the FLAC writer, which is not "
-            f"ported to tpuvae_torch yet (ROADMAP.md, queue 1, item 1: "
-            f"io/flac); use container='wav'")
     root = Path(root)
     rng = np.random.default_rng(seed)
     rows = []
@@ -128,7 +123,16 @@ def generate_dataset(
                 idx += 1
                 y = synth_clip(genre if genre != "jazz" else "classical",
                                rng, sr, duration, separation=separation)
-                write_wav(gdir / f"{file_id}.wav", y, sr)
+                as_flac = container == "flac" or (
+                    container == "mixed" and idx % 2 == 0)
+                if as_flac:
+                    from tpuvae_torch.io.flac import write_flac
+
+                    pcm = np.clip(np.round(y * 32767.0), -32768,
+                                  32767).astype(np.int64)
+                    write_flac(gdir / f"{file_id}.flac", pcm, sr, 16)
+                else:
+                    write_wav(gdir / f"{file_id}.wav", y, sr)
                 lyrics = LYRICS_BANK[lang] + f" verse {i}"
                 if include_lyricless and i == clips_per_genre_lang - 1:
                     lyrics = "instrumental"      # filtered by the strict catalog

@@ -1,12 +1,13 @@
-"""WAV decoding + resampling (counterpart of ``tpuvae/io/wav.py``, numpy
-path only).
+"""Audio decoding + resampling (counterpart of ``tpuvae/io/wav.py``).
 
 ``librosa.load`` (reference ``1_preprocessing.py:137-153``) decodes, mixes
 to mono (channel mean), resamples to the target rate, truncates to
-``duration`` and zero-pads short clips.  Here RIFF/WAVE parsing is plain
-numpy (PCM 8/16/24/32-bit and float32/64) and resampling is scipy's
-polyphase filter.  FLAC, MP3 and the native C++ loader of the JAX package
-are not ported yet (ROADMAP.md).
+``duration`` and zero-pads short clips.  :func:`load_audio` does the same
+through the native C++ loader (``tpuvae_torch.io.native_loader``: WAV and
+FLAC), and through the Python decoders for what that loader does not read:
+RIFF/WAVE parsed in numpy (PCM 8/16/24/32-bit and float32/64), FLAC
+(``io/flac.py``) and MP3 (``io/mp3.py``, libmpg123), resampled by scipy's
+polyphase filter.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import struct
 from pathlib import Path
 
 import numpy as np
+
+from tpuvae_torch.io import native_loader
 
 
 def raw_np(buf: bytes, dtype) -> np.ndarray:
@@ -25,8 +28,7 @@ def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
     """Decode a RIFF/WAVE file -> (float32 samples (n, channels), sample_rate)."""
     data = Path(path).read_bytes()
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
-        raise ValueError(f"{path}: not a RIFF/WAVE file (FLAC and MP3 "
-                         f"decoding are not ported to tpuvae_torch yet)")
+        raise ValueError(f"{path}: not a RIFF/WAVE file")
     pos = 12
     fmt = None
     fmt_body = None
@@ -97,11 +99,48 @@ def resample_poly(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 
 
 def load_audio(path: str | Path, sample_rate: int = 22050,
-               duration: float | None = 30.0) -> np.ndarray:
+               duration: float | None = 30.0, prefer_native: bool = True,
+               out: np.ndarray | None = None) -> np.ndarray:
     """librosa.load-compatible: mono float32 at ``sample_rate``; truncated to
     ``duration`` and zero-padded when short (ref ``1_preprocessing.py:137-153``).
+
+    The order of the JAX package (``tpuvae/io/wav.py:98-146``): the native
+    loader, then FLAC by its ``fLaC`` magic, then MP3, then WAV.  Unlike
+    the JAX package, only an ``IOError`` of the native loader — a file its
+    C++ decoder cannot read, such as an MP3 — falls through to the Python
+    decoders (as the JAX package's ``_extract_batched`` does); a failed
+    build raises.  With ``out`` (a flat float32 or int16 array of at least
+    ``sample_rate * duration`` samples, e.g. a row of a pinned batch
+    buffer) the clip is written into it, zeros after, and ``out`` is
+    returned; int16 is the fast mode's wire, rounded to nearest and
+    clamped.
     """
-    x, sr = read_wav(path)
+    if (prefer_native and duration is not None
+            and native_loader.native_available()):
+        try:
+            if out is None:
+                return native_loader.load_audio_native(path, sample_rate,
+                                                       duration)
+            native_loader.load_audio_into_native(path, out, sample_rate,
+                                                 duration)
+            return out
+        except IOError:
+            pass    # a container the C++ decoder does not know: below
+    with open(path, "rb") as fh:
+        magic = fh.read(4)
+    if magic == b"fLaC":
+        from tpuvae_torch.io.flac import read_flac
+
+        x, sr = read_flac(path)
+    elif magic[:4] != b"RIFF":
+        from tpuvae_torch.io import mp3
+
+        if mp3.looks_like_mp3(magic):
+            x, sr = mp3.read_mp3(path)
+        else:
+            x, sr = read_wav(path)   # raises the WAV parser's clear error
+    else:
+        x, sr = read_wav(path)
     y = to_mono(x)
     if duration is not None:
         # decode-side truncation before resample (librosa truncates at load)
@@ -113,4 +152,12 @@ def load_audio(path: str | Path, sample_rate: int = 22050,
             y = np.pad(y, (0, n - len(y)))
         else:
             y = y[:n]
-    return y.astype(np.float32)
+    native_loader.count_decode("python")
+    y = y.astype(np.float32)
+    if out is None:
+        return y
+    if out.dtype == np.int16:
+        y = np.clip(np.rint(y * 32768.0), -32768, 32767)
+    out[:len(y)] = y
+    out[len(y):] = 0
+    return out

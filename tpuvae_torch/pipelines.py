@@ -65,6 +65,7 @@ from tpuvae_torch.io.artifacts import (
     save_advanced,
     save_basic,
 )
+from tpuvae_torch.io import native_loader
 from tpuvae_torch.io.catalog import collect_audio_files
 from tpuvae_torch.io.normalize import impute_and_scale, normalize_mel_images
 from tpuvae_torch.io.results import consolidate_metrics
@@ -148,7 +149,9 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
 
     * loader threads write each clip into its slot of one of three
       rotating **pinned** ``(extract_batch, num_samples)`` buffers in the
-      wire dtype (int16 PCM in fast mode);
+      wire dtype (int16 PCM in fast mode), through the native rows loader
+      (decode, mono, resample and placement in one C++ pass; the Python
+      decoders only for a container it cannot read);
     * the main thread enqueues a non-blocking copy on a copy stream into
       the slot's device twin, then the extraction on the compute stream,
       which waits for the copy's event.  A host buffer is decoded into
@@ -179,10 +182,7 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
     ok_entries, outputs, failed = [], [], []
 
     def load_slot(e, dest):
-        y = load_audio(e.path, cfg.sample_rate, cfg.duration)
-        if wire == np.int16:
-            y = np.clip(np.rint(y * 32768.0), -32768, 32767)
-        dest[:] = y
+        load_audio(e.path, cfg.sample_rate, cfg.duration, out=dest)
 
     # main-thread wall = setup + decode_wait + drain_wait + enqueue overhead:
     #   setup        — allocating (and pinning) the batch buffers
@@ -196,6 +196,7 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
     #   fetch_worker / persist_worker — the drain worker's wait for the
     #                  extraction plus the device->host fetch, and the
     #                  shard write; they overlap the next batches
+    #   decodes_native / decodes_python — clips each decoder read
     detail = {"decode_wait_s": 0.0, "transfer_s": 0.0, "device_s": 0.0,
               "drain_wait_s": 0.0, "fetch_worker_s": 0.0,
               "persist_worker_s": 0.0, "wire_mb_per_batch":
@@ -290,6 +291,7 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
             detail["drain_wait_s"] += time.time() - t3
         drain.append(writer.submit(drain_one, kept, out_list, timing))
 
+    decodes0 = native_loader.decode_counts()
     it = iter(entries)
     pending: deque = deque()
     ci = 0
@@ -315,6 +317,8 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
             t3 = time.time()
             drain.popleft().result()
             detail["drain_wait_s"] += time.time() - t3
+    for k, v in native_loader.decode_counts().items():
+        detail[f"decodes_{k}"] = v - decodes0[k]
     detail = {k: (round(v, 4) if isinstance(v, float) else v)
               for k, v in detail.items()}
     if logger:
@@ -429,7 +433,10 @@ def preprocess_advanced(
 ) -> dict:
     """Raw audio + lyrics -> ``processed_data2/`` (mel images, 290-d
     features, 768-d lyrics embeddings, normalizers, labels, metadata).
-    ``device`` defaults to CUDA and raises without a card."""
+    ``device`` defaults to CUDA and raises without a card.  The lyrics are
+    embedded by the XLM-R encoder of ``text_checkpoint`` (else
+    ``$TPUVAE_TEXT_CHECKPOINT``) on ``device``, else by hashed n-grams;
+    ``config.pkl`` records which (``lyrics_embedder_backend``)."""
     if cfg.assembly_mode not in ("auto", "inmem", "stream"):
         raise ValueError(f"assembly_mode must be 'auto'|'inmem'|'stream', "
                          f"got {cfg.assembly_mode!r}")
@@ -495,7 +502,7 @@ def preprocess_advanced(
     labels = np.array([e.genre for e in ok])
     with timer.stage("lyrics_embeddings", items=len(ok)):
         embeddings, embedder_backend = embed_lyrics(
-            [e.lyrics for e in ok], checkpoint=text_checkpoint)
+            [e.lyrics for e in ok], checkpoint=text_checkpoint, device=dev)
     logger.log("lyrics_embedder", backend=embedder_backend)
     assert len(ok) == len(embeddings), "Mismatch between audio and lyrics samples!"
     with timer.stage("normalize"):

@@ -16,7 +16,7 @@ Endpoints (all JSON):
 - ``GET /info`` — serving metadata (preprocess geometry, genres, centroid
   count, lyrics-embedder backend).
 - ``POST /encode`` — body ``{"paths": [...]}`` for server-local files or
-  ``{"audio_b64": [...]}`` for base64 WAV container bytes; optional
+  ``{"audio_b64": [...]}`` for base64 WAV or FLAC container bytes; optional
   ``"lyrics"`` (cvae / hybrid), ``"genres"`` (cvae), ``"batch_size"``.
   Returns ``{"latents": [[...]], "clusters": [...], "warnings": [...]}``.
 
@@ -53,8 +53,7 @@ MAX_BODY_BYTES = 256 * 1024 * 1024
 # each other's warnings
 _WARN_LOCK = threading.Lock()
 
-# FLAC / MP3 decoding is not ported yet (ROADMAP.md)
-_MAGIC_SUFFIX = {b"RIFF": ".wav"}
+_MAGIC_SUFFIX = {b"fLaC": ".flac", b"RIFF": ".wav"}
 
 
 class RequestError(ValueError):
@@ -66,8 +65,9 @@ class RequestError(ValueError):
 
 
 def _decode_b64_clips(blobs, tmp_dir: str) -> list[str]:
-    """Write base64 WAV container bytes to ``tmp_dir`` files for
-    ``load_audio``."""
+    """Write base64 container bytes to ``tmp_dir`` files ``load_audio`` can
+    dispatch on (WAV or FLAC, by magic; MP3 uploads are refused, as in the
+    JAX package)."""
     paths = []
     for i, blob in enumerate(blobs):
         if not isinstance(blob, str):
@@ -79,9 +79,8 @@ def _decode_b64_clips(blobs, tmp_dir: str) -> list[str]:
         suffix = _MAGIC_SUFFIX.get(raw[:4])
         if suffix is None:
             raise RequestError(
-                f"audio_b64[{i}] is not a WAV container "
-                f"(magic {raw[:4]!r}); FLAC/MP3 are not supported by the "
-                f"PyTorch port yet")
+                f"audio_b64[{i}] is not a WAV/FLAC container "
+                f"(magic {raw[:4]!r})")
         p = Path(tmp_dir) / f"clip_{i:05d}{suffix}"
         p.write_bytes(raw)
         paths.append(str(p))
@@ -290,7 +289,7 @@ class ServingApp:
         if (paths is None) == (blobs is None):
             raise RequestError(
                 "exactly one of 'paths' (server-local files) or 'audio_b64' "
-                "(base64 WAV bytes) is required")
+                "(base64 WAV/FLAC bytes) is required")
         for key in ("paths", "audio_b64", "lyrics", "genres"):
             if body.get(key) is not None and not isinstance(body[key], list):
                 raise RequestError(f"'{key}' must be a list")

@@ -6,8 +6,8 @@ checkpoint.  Produces the same (N, 768) float32
 contract as the sentence-transformer (C8), is language-agnostic (char
 n-grams work for Bangla and English alike), deterministic, and similar texts
 map to nearby vectors — enough structure for the multi-modal VAEs and for
-tests.  NOT a semantic-quality substitute for the sentence encoder, which
-is not ported yet (ROADMAP.md, queue 1, item 4).
+tests.  NOT a semantic-quality substitute; the real encoder is
+``tpuvae_torch.text.encoder.SentenceEncoder``, run from a checkpoint.
 """
 
 from __future__ import annotations
