@@ -96,7 +96,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     the card (load time, peak memory); 8 lyrics on the card held to the CPU
     (max abs diff 1e-4); a 32 x 128 batch timed (tokenize on the host,
     copy, forward; median of 7) beside its operations bound;
-15. the input front end: ``generate_dataset(container="mixed")`` writes 66
+15. the input front end: ``generate_dataset(container="mixed")`` writes 36
     clips of 30 s, half FLAC; one clip's decode timed native against
     Python; ``preprocess_advanced`` (``stft_method=pallas``) with the
     checkpoint: every clip through the native loader by its count, the
@@ -106,7 +106,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     through ``make_server`` (20 ms window and none, median of 8): no
     backend warning, the latent equal to its WAV twin's and within 1e-4 of
     the CPU's; the checkpoint is deleted at the end of the phase;
-16. time each kernel, its plain version and the library yardstick with
+16. the whole workflow: kernel 5 at t-SNE's D = 2 against its plain version
+    at N = 186 and 1,336; ``tsne`` on phase 12's 1,336 x 128 latents on the
+    card against the CPU (P within rtol 1e-4 / atol 1e-4 x max, the planted
+    groups' kNN purity, the 10-NN overlap beside the card's own under a
+    1e-6 perturbation of the input, >= 0.9 on a helix; 1,001 kernel-5
+    launches); ``cli.main(["all", ...])`` in-process on phase 7's artifacts
+    at 3 epochs (the figures when matplotlib is installed, else each
+    figure's t-SNE run on its pipeline's latents, and the line ``plots:
+    matplotlib is not installed on this machine``); ``run_eda`` (or,
+    without matplotlib, its refusal before any work and its two t-SNEs); a
+    2-epoch Conditional VAE run with ``checkpoint_every=1`` resumed to 3
+    under deterministic algorithms, held to the spread of two uninterrupted
+    runs there (that of two default runs logged); ``run_parity`` (tol 0.01)
+    and ``run_quality`` at 3 epochs. Cuts: 193 of the reference's 1,336
+    clips, 3 of 500-600 epochs;
+17. time each kernel, its plain version and the library yardstick with
     CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
     also at the pipelines' 128 clips and partial batches, each held
     against its plain version there too; the extract stage's parts,
@@ -116,7 +131,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     optimizer, with the cost of the fused pair's backward; one more step
     under ``torch.profiler``: the pair's kernel time, launches and span
     inside it;
-17. print the ``kernels`` JSON line, then the ``ok`` line last.
+18. print the ``kernels`` JSON line, then the ``ok`` line last.
 """
 
 from __future__ import annotations
@@ -160,7 +175,7 @@ HYBRID_LATENT = 128
 HYBRID_ROWS = ("K-Means-Main (k=", "K-Means-Language (k=2)", "Agglomerative (k=",
                "DBSCAN (eps=")
 N_SERVE = 32          # clips each conv bundle encodes on the card and the CPU
-MIXED_PER_GENRE_LANG = 11   # x 6 = 66 clips of the mixed WAV / FLAC corpus
+MIXED_PER_GENRE_LANG = 6    # x 6 = 36 clips of the mixed WAV / FLAC corpus
 # the published geometry of XLM-RoBERTa-base (the reference's lyrics encoder)
 XLMR = dict(vocab_size=250002, hidden=768, layers=12, heads=12,
             intermediate=3072, max_positions=514)
@@ -1232,12 +1247,8 @@ def sweeps_at_reference_n(torch, dev, flush) -> dict:
     from tpuvae_torch.metrics.external import adjusted_rand_score
     from tpuvae_torch.ops.pairwise import self_distances, self_distances_plain
 
-    rng = np.random.default_rng(SEED + 128)
     groups = 6
-    centres = rng.normal(0.0, 1.5, (groups, HYBRID_LATENT))
-    y = np.arange(N_TRAIN) % groups
-    x = (centres[y] + rng.normal(0.0, 0.5, (N_TRAIN, HYBRID_LATENT))
-         ).astype(np.float32)
+    x, y = planted_latents(groups=groups)
     xc = torch.from_numpy(x).to(dev)
     k_range = range(2, 15)
     eps = np.arange(3.0, 19.0 + 1e-9, 1.0)
@@ -1770,6 +1781,333 @@ def front_end_path(torch, dev, work: Path, ckpt: Path) -> dict:
     return out
 
 
+# -- phase 16: the whole workflow ---------------------------------------------
+
+def planted_latents(n: int = N_TRAIN, dim: int = HYBRID_LATENT,
+                    groups: int = 6) -> tuple[np.ndarray, np.ndarray]:
+    """Phase 12's seeded latents: ``groups`` planted Gaussian groups."""
+    rng = np.random.default_rng(SEED + 128)
+    centres = rng.normal(0.0, 1.5, (groups, dim))
+    y = np.arange(n) % groups
+    return (centres[y] + rng.normal(0.0, 0.5, (n, dim))).astype(np.float32), y
+
+
+def helix(n: int, dim: int) -> np.ndarray:
+    """``n`` points evenly along a helix in ``dim`` dimensions: every
+    point's nearest neighbours are fixed by the curve, so two t-SNE
+    embeddings of it must agree on them."""
+    t = np.linspace(0.0, 8 * np.pi, n)
+    basis = np.linalg.qr(np.random.default_rng(SEED).normal(size=(dim, 3)))[0]
+    return ((np.stack([np.cos(t), np.sin(t), t / 4], 1) * 3.0)
+            @ basis.T).astype(np.float32)
+
+
+def knn(torch, e: np.ndarray, k: int = 10) -> np.ndarray:
+    """Each row's ``k`` nearest other rows (on the host)."""
+    e = torch.from_numpy(np.ascontiguousarray(e, np.float32))
+    d = torch.cdist(e, e)
+    d.fill_diagonal_(float("inf"))
+    return d.topk(k, largest=False).indices.numpy()
+
+
+def knn_overlap(torch, a: np.ndarray, b: np.ndarray, k: int = 10) -> float:
+    na, nb = knn(torch, a, k), knn(torch, b, k)
+    return float(np.mean([len(set(na[i]) & set(nb[i])) / k
+                          for i in range(len(na))]))
+
+
+def check_pairwise_d2(torch, dev) -> dict:
+    """Kernel 5 at D = 2 (t-SNE's per-step distances: its scalar-load path,
+    D not a multiple of 4) against its plain version at N = 186 and 1,336:
+    rtol 1e-5 / atol 1e-5 x max."""
+    from tpuvae_torch.ops.pairwise import (
+        squared_distances,
+        squared_distances_plain,
+    )
+
+    errs = {}
+    for n in (N_CVAE_CLIPS, N_TRAIN):
+        g = torch.Generator(device=dev).manual_seed(SEED + n + 2)
+        y = 10.0 * torch.randn((n, 2), generator=g, device=dev)
+        got, want = squared_distances(y, y), squared_distances_plain(y, y)
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+        errs[n] = (got - want).abs().max().item()
+    log(f"kernel 5 at D = 2: within rtol 1e-5 / atol 1e-5 x max of plain at "
+        f"N = {N_CVAE_CLIPS}, {N_TRAIN}; max abs err {errs}")
+    return errs
+
+
+def tsne_at_reference_n(torch, dev) -> dict:
+    """``tsne`` on phase 12's 1,336 x 128 latents on the card against the
+    CPU: P within rtol 1e-4; the planted groups' kNN purity; the 10-NN
+    overlap of the two embeddings beside the card's own overlap with its
+    embedding of a 1e-6-perturbed input (how far these neighbourhoods are
+    determined at all); the same on a helix, whose neighbourhoods are
+    fixed (>= 0.9); time and kernel-5 launches (1,001)."""
+    import importlib
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.metrics.pairwise import squared_distances
+
+    tsne_mod = importlib.import_module("tpuvae_torch.viz.tsne")
+    x, y = planted_latents()
+    xc, xh = torch.from_numpy(x).to(dev), torch.from_numpy(x)
+    p_card = tsne_mod._calibrated_p(squared_distances(xc, xc), 30.0)
+    p_cpu = tsne_mod._calibrated_p(squared_distances(xh, xh), 30.0)
+    # P's relative error is beta_i times kernel 5's error on d2 (within
+    # 1e-5 x max): largest on the small tail entries, hence the atol
+    torch.testing.assert_close(p_card.cpu(), p_cpu, rtol=1e-4,
+                               atol=1e-4 * p_cpu.max().item())
+    p_err = ((p_card.cpu() - p_cpu).abs() / p_cpu).max().item()
+    out = {"n": N_TRAIN, "d": HYBRID_LATENT, "p_max_rel_err": p_err,
+           "p_max_abs_err_share_of_max": ((p_card.cpu() - p_cpu).abs().max()
+                                          / p_cpu.max()).item()}
+    times, launches = [], []
+    for _ in range(3):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        emb = tsne_mod.tsne(x, device=dev)        # returns on the host
+        times.append(time.perf_counter() - t0)
+        launches.append(ops.launch_counts()["pairwise"])
+    check(launches == [1001] * 3, f"kernel 5 launches per t-SNE {launches}")
+    check(emb.shape == (N_TRAIN, 2) and np.isfinite(emb).all(), "embedding")
+    t0 = time.perf_counter()
+    cpu = tsne_mod.tsne(x, device="cpu")
+    out["cpu_s"] = time.perf_counter() - t0
+    noise = 1e-6 * np.random.default_rng(SEED).normal(size=x.shape)
+    perturbed = tsne_mod.tsne(x + noise.astype(np.float32), device=dev)
+    out.update(seconds=statistics.median(times), seconds_runs=times,
+               kernel5_launches=launches[0],
+               overlap_card_cpu=knn_overlap(torch, emb, cpu),
+               overlap_card_perturbed=knn_overlap(torch, emb, perturbed),
+               purity_card=float(np.mean(y[knn(torch, emb)] == y[:, None])),
+               purity_cpu=float(np.mean(y[knn(torch, cpu)] == y[:, None])))
+    check(out["purity_card"] >= 0.99 and out["purity_cpu"] >= 0.99,
+          f"planted groups' kNN purity {out['purity_card']} / "
+          f"{out['purity_cpu']}")
+    check(out["overlap_card_cpu"] >= out["overlap_card_perturbed"] - 0.05,
+          f"10-NN overlap card / CPU {out['overlap_card_cpu']} below the "
+          f"card's own under a 1e-6 perturbation "
+          f"{out['overlap_card_perturbed']}")
+    h = helix(N_TRAIN, HYBRID_LATENT)
+    out["overlap_card_cpu_helix"] = knn_overlap(
+        torch, tsne_mod.tsne(h, device=dev), tsne_mod.tsne(h, device="cpu"))
+    check(out["overlap_card_cpu_helix"] >= 0.9,
+          f"10-NN overlap card / CPU on the helix {out['overlap_card_cpu_helix']}")
+    log("tsne at the reference's N: " + json.dumps(out))
+    return out
+
+
+def pipeline_latents(torch, dev, results: Path, data1: Path,
+                     data2: Path) -> dict:
+    """The latents each pipeline's t-SNE figure embeds: the Simple and CVAE
+    encoders' means through their saved bundles, the Hybrid VAE's file."""
+    from tpuvae_torch.infer import ClipEncoder
+    from tpuvae_torch.io.artifacts import load_advanced, load_basic
+    from tpuvae_torch.metrics.labels import encode_labels, one_hot_np
+
+    def batched(enc, *arrays):
+        return np.concatenate([
+            enc.apply_latent(*(a[i:i + BATCH] for a in arrays)).cpu().numpy()
+            for i in range(0, len(arrays[0]), BATCH)])
+
+    simple = ClipEncoder.load("simple", results_dir=str(results),
+                              data_dir=str(data1), device=dev)
+    adv = load_advanced(data2)
+    cond = one_hot_np(encode_labels(adv["metadata"]["genre"].values)[0])
+    cvae = ClipEncoder.load("cvae", results_dir=str(results),
+                            data_dir=str(data2), device=dev)
+    return {
+        "simple": batched(simple, load_basic(data1)["features"]
+                          .astype(np.float32)),
+        "cvae": batched(cvae, adv["mel"].astype(np.float32)[..., None],
+                        adv["text"].astype(np.float32), cond),
+        "hybrid": np.load(results / "Convolutional_VAE"
+                          / "hybrid_latent_features.npy")}
+
+
+PNGS = ("Simple_VAE/tsne_visualization_simplified.png",
+        "Conditional_VAE/reconstruction.png",
+        "Conditional_VAE/cvae_latent_tsne_genre.png",
+        "Conditional_VAE/cluster_lang_distribution.png",
+        "Convolutional_VAE/training_loss.png",
+        "Convolutional_VAE/tsne_clusters_v2.png")
+
+
+def workflow_path(torch, dev, work: Path, data1: Path, data2: Path,
+                  have_mpl: bool) -> dict:
+    """``cli.main(["all", ...])`` in-process on phase 7's artifacts at 3
+    epochs (plots when matplotlib is there, else each figure's t-SNE run on
+    the pipeline's latents), ``run_eda``, a CVAE run resumed from its
+    checkpoint against uninterrupted runs, ``run_parity`` and
+    ``run_quality``."""
+    import contextlib
+    import io
+
+    import pandas as pd
+
+    from tpuvae_torch import cli, ops
+    from tpuvae_torch.config import ConditionalVAEConfig
+    from tpuvae_torch.parity import (
+        deterministic_algorithms,
+        run_parity,
+        run_quality,
+    )
+    from tpuvae_torch.pipelines import run_conditional_vae
+    from tpuvae_torch.train.checkpoint import load_checkpoint
+    from tpuvae_torch.utils.logging import RunLogger
+    from tpuvae_torch.viz.eda import run_eda
+    from tpuvae_torch.viz.tsne import tsne
+
+    out = {"matplotlib": have_mpl}
+    root = work / "workflow"
+    results = root / "results"
+
+    # (c) cli all: the stages' events (each pipeline's own logger, to
+    # stderr) and the tables (stdout) captured
+    argv = ["all", f"--data1_dir={data1}", f"--data2_dir={data2}",
+            f"--results_dir={results}", "--epochs=3",
+            f"--plots={int(have_mpl)}", f"--device={dev.type}"]
+    err, std = io.StringIO(), io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(std):
+        rc = cli.main(argv)
+    out["cli_all_s"] = time.perf_counter() - t0
+    out["cli_all_counts"] = ops.launch_counts()
+    check(rc == 0, f"cli all exited {rc}: {err.getvalue()[-2000:]}")
+    events = [json.loads(line) for line in err.getvalue().splitlines()
+              if line.startswith("{")]
+    ends = [e for e in events if e["event"] == "metrics"]
+    out["cli_all_stages_s"] = {e["architecture"]: e["t"] for e in ends}
+    out["cli_all_fit_s"] = [e["seconds"] for e in events if e["event"] == "fit"]
+    df = pd.read_csv(results / "clustering_metrics.csv")
+    archs = df["Architecture"].value_counts().to_dict()
+    check(archs == {"Simple VAE": 2, "Conditional VAE": 4,
+                    "Convolutional VAE": 4}, f"cli all rows {archs}")
+    for name in ("fusedconv_conv0", "fusedconv_conv1", "pairwise"):
+        check(out["cli_all_counts"][name] > 0, f"{name} not launched by all")
+    if have_mpl:
+        for png in PNGS:
+            check((results / png).stat().st_size > 0, f"{png} missing")
+    else:
+        # each figure's device work: the t-SNE of its pipeline's latents
+        # (perplexity 30, as the three pipelines run it at ClusterConfig's)
+        out["tsne_of_pipeline_latents"] = {}
+        for arch, z in pipeline_latents(torch, dev, results, data1,
+                                        data2).items():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            xy = tsne(z, device=dev)
+            out["tsne_of_pipeline_latents"][arch] = {
+                "n": len(z), "d": z.shape[1],
+                "seconds": time.perf_counter() - t0,
+                "kernel5_launches": ops.launch_counts()["pairwise"]}
+            check(np.isfinite(xy).all() and xy.shape == (len(z), 2),
+                  f"{arch} embedding")
+            check(ops.launch_counts()["pairwise"] == 1001, f"{arch} launches")
+    log(f"cli all on {data1.name} / {data2.name}: exit 0 in "
+        f"{out['cli_all_s']:.2f} s; rows {archs}; launch counts "
+        f"{out['cli_all_counts']}")
+
+    # (d) run_eda on phase 7's processed_data2
+    eda_dir = root / "eda"
+    t0 = time.perf_counter()
+    if have_mpl:
+        summary = run_eda(str(data2), str(eda_dir), device=dev)
+        check(len(list(eda_dir.iterdir())) == 5, "eda outputs")
+        out["eda"] = {"seconds": time.perf_counter() - t0,
+                      "n_clips": summary["n_clips"]}
+    else:
+        try:
+            run_eda(str(data2), str(eda_dir), device=dev)
+            raise RuntimeError("check failed: run_eda ran without matplotlib")
+        except ImportError as e:
+            check("matplotlib" in str(e) and not eda_dir.exists(),
+                  f"run_eda without matplotlib: {e}")
+        # its device work: the t-SNEs of the 290-d flats and 768-d lyrics
+        from tpuvae_torch.io.artifacts import load_advanced
+
+        adv = load_advanced(data2)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        embs = [tsne(adv[k], device=dev) for k in ("handcrafted", "text")]
+        out["eda"] = {"refused_before_any_work": True,
+                      "tsne_seconds": time.perf_counter() - t0,
+                      "kernel5_launches": ops.launch_counts()["pairwise"]}
+        check(all(np.isfinite(e).all() for e in embs)
+              and out["eda"]["kernel5_launches"] == 2002, "eda t-SNEs")
+    log("eda: " + json.dumps(out["eda"]))
+
+    # (e) the Conditional VAE resumed from a mid-train checkpoint.  Two
+    # uninterrupted runs part by cuDNN's and cuBLAS's run-to-run freedom
+    # (measured and logged); under deterministic algorithms they should
+    # not, and the resumed run is held to that spread
+    def cvae(results_dir, epochs, every):
+        logger = RunLogger(root / f"{results_dir.name}.jsonl", echo=False)
+        try:
+            run_conditional_vae(
+                str(data2), str(results_dir),
+                ConditionalVAEConfig(epochs=epochs, batch_size=BATCH,
+                                     checkpoint_every=every),
+                logger=logger, make_plots=False, device=dev)
+        finally:
+            logger.close()
+        flat, _ = load_checkpoint(results_dir / "Conditional_VAE" / "serving"
+                                  / "model")
+        return flat
+
+    def max_diff(a, b):
+        return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+    t0 = time.perf_counter()
+    spread_default = max_diff(cvae(root / "cvae_a", CVAE_EPOCHS, 0),
+                              cvae(root / "cvae_b", CVAE_EPOCHS, 0))
+    out["cvae_two_runs_s"] = time.perf_counter() - t0
+    with deterministic_algorithms() as nondeterministic:
+        whole_a = cvae(root / "cvae_det_a", CVAE_EPOCHS, 0)
+        whole_b = cvae(root / "cvae_det_b", CVAE_EPOCHS, 0)
+        cvae(root / "cvae_cut", CVAE_EPOCHS - 1, 1)
+        resumed = cvae(root / "cvae_cut", CVAE_EPOCHS, 1)
+    spread, diff = max_diff(whole_a, whole_b), max_diff(whole_a, resumed)
+    saves = [json.loads(line) for line in
+             (root / "cvae_cut.jsonl").read_text().splitlines()]
+    out["resume"] = {
+        "uninterrupted_runs_max_abs_diff_default": spread_default,
+        "uninterrupted_runs_max_abs_diff_deterministic": spread,
+        "resumed_vs_uninterrupted_max_abs_diff_deterministic": diff,
+        "nondeterministic_ops": nondeterministic,
+        "checkpoint_write_s": [e["seconds"] for e in saves
+                               if e["event"] == "checkpoint_saved"],
+        "resumed_from_epoch": [e["from_epoch"] for e in saves
+                               if e["event"] == "resume_training"]}
+    check(out["resume"]["resumed_from_epoch"] == [CVAE_EPOCHS - 1],
+          f"resume {out['resume']}")
+    check(diff <= spread, f"resumed run {diff} from the uninterrupted one, "
+          f"two uninterrupted runs {spread} apart (deterministic algorithms)")
+    log("cvae resume: " + json.dumps(out["resume"]))
+
+    # (f) parity: two whole sweeps at 3 epochs, tol 0.01
+    t0 = time.perf_counter()
+    par = run_parity(str(data1), str(data2), str(root / "parity"),
+                     device=dev)
+    out["parity"] = {"seconds": time.perf_counter() - t0, **par}
+    check(par["ok"], f"parity: {par['problems']}")
+    log("parity: " + json.dumps(out["parity"]))
+
+    # (g) quality at 3 epochs: the default training-free floors, the
+    # trained floors of tests/test_pipelines.py
+    t0 = time.perf_counter()
+    qual = run_quality(str(data1), str(data2), str(root / "quality"),
+                       floors={"hybrid_ari": 0.0, "cvae_purity_margin": 0.10},
+                       device=dev)
+    out["quality"] = {"seconds": time.perf_counter() - t0, **qual}
+    check(qual["ok"], f"quality: {qual['problems']}")
+    log("quality: " + json.dumps(out["quality"]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2122,7 +2460,20 @@ def run(torch, dev, work: Path, card: str) -> int:
         embedder._LOADED.clear()
         torch.cuda.empty_cache()
 
-    # ---- 16. timing ---------------------------------------------------------
+    # ---- 16. the whole workflow ---------------------------------------------
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+        log("plots: matplotlib is not installed on this machine")
+    k5_d2_errs = check_pairwise_d2(torch, dev)
+    tsne_ref = tsne_at_reference_n(torch, dev)
+    flow = workflow_path(torch, dev, work,
+                         work / "preprocess" / "processed_data1", data2,
+                         have_mpl)
+
+    # ---- 17. timing ---------------------------------------------------------
     nbins = N_FFT // 2 + 1
     fb = mel_filterbank(SR, N_FFT, N_MELS)
     frames = BATCH * n_frames
@@ -2265,6 +2616,30 @@ def run(torch, dev, work: Path, card: str) -> int:
             x1336, x1336, compute_mode="use_mm_for_euclid_dist"), flush),
         "bound_ms": k5_main_bound, "bound_by": k5_main_by}
     log(f"time pairwise at N = {n_main}: " + json.dumps(k5["at_main_path"]))
+    # kernel 5 at t-SNE's D = 2 (1,000 launches a t-SNE): its bound is the
+    # (N, N) output's bytes
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    y2 = 10.0 * torch.randn((n_main, 2), generator=g2, device=dev)
+    from tpuvae_torch.ops.pairwise import (
+        squared_distances,
+        squared_distances_plain,
+    )
+
+    d2_bound, d2_by = bound(2 * n_main * 2 * 4 + n_main * n_main * 4,
+                            2 * n_main * n_main * 2 + 3 * n_main * n_main)
+    k5["at_tsne_d2"] = {
+        "n": n_main, "d": 2,
+        "ms": time_ms(torch, lambda: squared_distances(y2, y2), flush),
+        "plain_ms": time_ms(torch, lambda: squared_distances_plain(y2, y2),
+                            flush),
+        "library_ms": time_ms(torch, lambda: torch.cdist(y2, y2).square(),
+                              flush),
+        "bound_ms": d2_bound, "bound_by": d2_by,
+        "max_abs_err": k5_d2_errs}
+    log(f"time pairwise at t-SNE's D = 2, N = {n_main}: "
+        + json.dumps(k5["at_tsne_d2"]))
+    k5["launches_per_tsne"] = tsne_ref["kernel5_launches"]
+    k5["launches_cli_all"] = flow["cli_all_counts"]["pairwise"]
     # the Hybrid path's launches and its width, D = 128 (timed in phase 12)
     k5["launches_run_hybrid_vae"] = hybrid["counts"]["pairwise"]
     k5["at_hybrid_width_d128"] = {str(n): v for n, v in
@@ -2391,6 +2766,7 @@ def run(torch, dev, work: Path, card: str) -> int:
                                      + halves[1]["bound_fp32_cuda_cores_ms"]),
         "errors": k6_errs,
         "launches_run_hybrid_vae": hybrid["counts"]["fusedconv_conv1"],
+        "launches_cli_all": flow["cli_all_counts"]["fusedconv_conv1"],
         "launches_front_end_hybrid": front["hybrid_counts"]["fusedconv_conv1"],
         "launches_per_flac_encode": (
             front["launches_per_flac_encode"]["fusedconv_conv1"]),
@@ -2482,6 +2858,8 @@ def run(torch, dev, work: Path, card: str) -> int:
     log("conv serving: " + json.dumps(conv_serving))
     log("lyrics encoder: " + json.dumps(text_enc))
     log("front end: " + json.dumps(front))
+    log("tsne at the reference's N: " + json.dumps(tsne_ref))
+    log("workflow: " + json.dumps(flow))
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -506,7 +506,7 @@ def test_run_simple_vae_on_the_card(cuda, tmp_path):
     df = run_simple_vae(str(tmp_path / "data"), str(tmp_path / "results"),
                         SimpleVAEConfig(epochs=2, batch_size=16),
                         ClusterConfig(simple_k_sweep=(2, 3, 4)),
-                        logger=RunLogger(echo=False))
+                        logger=RunLogger(echo=False), make_plots=False)
     assert ops.launch_counts()["pairwise"] == 3
     assert np.isfinite(df[["Silhouette", "Calinski-Harabasz"]].to_numpy()).all()
 
@@ -1162,3 +1162,143 @@ def test_flac_encode_with_a_checkpoint_on_the_card(cuda, tmp_path, monkeypatch):
         assert r[0]["latents"] == r[1]["latents"]
     np.testing.assert_allclose(replies["cuda"][0]["latents"],
                                replies["cpu"][0]["latents"], rtol=0, atol=1e-4)
+
+
+# -- the whole workflow: t-SNE, checkpoints, plots ----------------------------
+
+@pytest.mark.parametrize("n", [186, 1336])
+def test_pairwise_kernel_at_tsne_width(cuda, n):
+    """Kernel 5 at D = 2 (t-SNE's per-step distances; its scalar-load
+    path): within rtol 1e-5 / atol 1e-5 x max of its plain version."""
+    from tpuvae_torch.ops.pairwise import (
+        squared_distances,
+        squared_distances_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    y = 10.0 * torch.randn((n, 2), generator=g, device=cuda)
+    want = squared_distances_plain(y, y)
+    torch.testing.assert_close(squared_distances(y, y), want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def _knn(e, k=10):
+    e = torch.from_numpy(e)
+    d = torch.cdist(e, e)
+    d.fill_diagonal_(float("inf"))
+    return d.topk(k, largest=False).indices.numpy()
+
+
+def test_tsne_on_the_card_matches_the_cpu(cuda):
+    """P within rtol 1e-4 / atol 1e-4 x max on planted latents, their
+    groups kept together,
+    1,001 kernel-5 launches; on a helix (neighbourhoods fixed by the curve)
+    the card's and the CPU's embeddings share >= 0.9 of each point's 10
+    nearest neighbours."""
+    import importlib
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.metrics.pairwise import squared_distances
+
+    tsne_mod = importlib.import_module("tpuvae_torch.viz.tsne")
+    x, y = _planted_latents()
+    xc, xh = torch.from_numpy(x).to(cuda), torch.from_numpy(x)
+    p_cpu = tsne_mod._calibrated_p(squared_distances(xh, xh), 30.0)
+    # P's relative error is beta_i times kernel 5's error on d2: largest on
+    # the small tail entries (1.4e-4 at P ~ 1.6e-5), hence the atol
+    torch.testing.assert_close(
+        tsne_mod._calibrated_p(squared_distances(xc, xc), 30.0).cpu(), p_cpu,
+        rtol=1e-4, atol=1e-4 * p_cpu.max().item())
+    ops.reset_launch_counts()
+    emb = tsne_mod.tsne(x, device=cuda)
+    assert ops.launch_counts()["pairwise"] == 1001
+    assert np.mean(y[_knn(emb)] == y[:, None]) >= 0.99
+    t = np.linspace(0.0, 8 * np.pi, 1336)
+    basis = np.linalg.qr(np.random.default_rng(0).normal(size=(128, 3)))[0]
+    h = ((np.stack([np.cos(t), np.sin(t), t / 4], 1) * 3.0)
+         @ basis.T).astype(np.float32)
+    a, b = _knn(tsne_mod.tsne(h, device=cuda)), _knn(tsne_mod.tsne(h, device="cpu"))
+    assert np.mean([len(set(a[i]) & set(b[i])) / 10 for i in range(1336)]) >= 0.9
+
+
+def test_fit_resume_on_the_card(cuda, tmp_path):
+    """A 6-epoch fit against a 3-epoch fit resumed to 6 on the card (the
+    CUDA generator's state restored), held to the spread of two
+    uninterrupted runs; both host_stream and resident data."""
+    from tpuvae_torch.models import SimpleVAE
+    from tpuvae_torch.train.loop import FitConfig, fit
+    from tpuvae_torch.train.objectives import simple_vae_objective
+    from tpuvae_torch.train.state import create_state
+
+    x = np.random.default_rng(0).normal(size=(256, 370)).astype(np.float32)
+
+    def run(epochs, ck=None, stream=False):
+        model = SimpleVAE(generator=torch.Generator().manual_seed(0)).to(cuda)
+        cfg = FitConfig(epochs=epochs, batch_size=32, patience=100, seed=0,
+                        plateau_patience=0, host_stream=stream,
+                        checkpoint_dir=None if ck is None else str(ck),
+                        checkpoint_every=1)
+        data = (x,) if stream else (torch.from_numpy(x).to(cuda),)
+        res = fit(create_state(model, 1e-3), simple_vae_objective(0.8), data,
+                  cfg)
+        return res.history["train_loss"], [
+            v.detach().cpu().numpy() for v in model.state_dict().values()]
+
+    for stream in (False, True):
+        la, wa = run(6, stream=stream)
+        lb, wb = run(6, stream=stream)
+        run(3, tmp_path / f"ck{stream}", stream)
+        lc, wc = run(6, tmp_path / f"ck{stream}", stream)
+        spread = max(float(np.abs(a - b).max()) for a, b in zip(wa, wb))
+        diff = max(float(np.abs(a - c).max()) for a, c in zip(wa, wc))
+        assert diff <= 4.0 * spread, (stream, diff, spread)
+        np.testing.assert_allclose(lc, la, rtol=max(1e-7, 4 * max(
+            abs(p - q) / abs(p) for p, q in zip(la, lb))))
+
+
+def test_plots_on_the_card_or_their_refusal(cuda, tmp_path):
+    """With matplotlib the Conditional VAE's three figures are drawn; the
+    card's machine may have none, and then ``make_plots=True`` is refused
+    with an ImportError naming it before any training."""
+    import importlib.util
+
+    import pandas as pd
+
+    from tpuvae_torch.config import ConditionalVAEConfig
+    from tpuvae_torch.io.artifacts import save_advanced
+    from tpuvae_torch.io.normalize import impute_and_scale, normalize_mel_images
+    from tpuvae_torch.pipelines import run_conditional_vae
+    from tpuvae_torch.utils.logging import RunLogger
+
+    rng = np.random.default_rng(0)
+    n = 24
+    labels = np.array(["pop", "rock", "jazz"])[np.arange(n) % 3]
+    mel = rng.normal(size=(n, 64, 128)).astype(np.float32)
+    feats = rng.normal(size=(n, 290)).astype(np.float32)
+    mel_norm, mel_scaler = normalize_mel_images(mel)
+    feats_norm, imputer, flat_scaler = impute_and_scale(feats)
+    save_advanced(tmp_path / "d2", mel_raw=mel, mel_normalized=mel_norm,
+                  features_raw=feats, features_normalized=feats_norm,
+                  lyrics_embeddings=rng.normal(size=(n, 768)).astype(np.float32),
+                  labels=labels, mel_scaler=mel_scaler, flat_scaler=flat_scaler,
+                  imputer=imputer, config={},
+                  metadata=pd.DataFrame({"file_id": [f"c{i}" for i in range(n)],
+                                         "genre": labels,
+                                         "language": "english"}))
+    out = tmp_path / "results"
+
+    def run():
+        return run_conditional_vae(
+            str(tmp_path / "d2"), str(out),
+            ConditionalVAEConfig(epochs=1, batch_size=8),
+            logger=RunLogger(echo=False), make_plots=True)
+
+    if importlib.util.find_spec("matplotlib") is None:
+        with pytest.raises(ImportError, match="matplotlib"):
+            run()
+        assert not out.exists()
+    else:
+        run()
+        for png in ("reconstruction.png", "cvae_latent_tsne_genre.png",
+                    "cluster_lang_distribution.png"):
+            assert (out / "Conditional_VAE" / png).stat().st_size > 0

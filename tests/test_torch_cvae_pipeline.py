@@ -286,25 +286,33 @@ def test_cli_train_cvae_on_cpu_with_host_stream(trained, capsys):
 
 
 @pytest.mark.parametrize("what", ["bfloat16", "make_plots", "trunk_bfloat16"])
-def test_what_waits_raises_naming_its_roadmap_item(what, tmp_path):
+def test_what_waits_raises_naming_its_roadmap_item(what, tmp_path, trained):
+    """bf16 still waits (item 5).  ``make_plots``, ported: the three
+    figures of the JAX pipeline are drawn under ``Conditional_VAE/``."""
     from tpuvae_torch import pipelines
     from tpuvae_torch.config import ConditionalVAEConfig
+    from tpuvae_torch.utils.logging import RunLogger
 
+    if what == "make_plots":
+        pipelines.run_conditional_vae(
+            str(trained["data"]), str(tmp_path / "r"),
+            ConditionalVAEConfig(epochs=1, batch_size=8), logger=RunLogger(
+                echo=False), make_plots=True, device="cpu")
+        out = tmp_path / "r" / "Conditional_VAE"
+        for png in ("reconstruction.png", "cvae_latent_tsne_genre.png",
+                    "cluster_lang_distribution.png"):
+            assert (out / png).stat().st_size > 0, png
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md") as err:
         if what == "bfloat16":
             pipelines.run_conditional_vae(
                 str(tmp_path), str(tmp_path),
                 ConditionalVAEConfig(compute_dtype="bfloat16"), device="cpu")
-        elif what == "make_plots":
-            pipelines.run_conditional_vae(str(tmp_path), str(tmp_path),
-                                          make_plots=True, device="cpu")
         else:
             from tpuvae_torch.models.layers import ConvEncoderTrunk
 
             ConvEncoderTrunk()(torch.zeros((1, 64, 64, 1), dtype=torch.bfloat16))
-    item = {"bfloat16": "item 5", "make_plots": "item 9",
-            "trunk_bfloat16": "item 5"}[what]
-    assert item in str(err.value)
+    assert "item 5" in str(err.value)
     assert not any(tmp_path.iterdir())
 
 

@@ -274,17 +274,37 @@ def test_cli_train_hybrid_on_cpu_with_host_stream(runs, capsys):
 
 @pytest.mark.parametrize("what", ["make_plots", "bfloat16", "checkpoint_every"])
 def test_what_waits_raises_naming_its_roadmap_item(runs, what, tmp_path):
+    """bf16 still waits (item 5).  Ported: ``make_plots`` draws the loss
+    curve and the t-SNE triptych; ``checkpoint_every`` writes rotating
+    checkpoints under ``Convolutional_VAE/checkpoints``."""
     from tpuvae_torch.config import HybridVAEConfig
     from tpuvae_torch.pipelines import run_hybrid_vae
+    from tpuvae_torch.utils.logging import RunLogger
 
-    kwargs = {"make_plots": {"make_plots": True},
-              "bfloat16": {"cfg": HybridVAEConfig(compute_dtype="bfloat16")},
-              "checkpoint_every": {"cfg": HybridVAEConfig(
-                  epochs=1, checkpoint_every=1)}}[what]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md") as err:
-        run_hybrid_vae(str(runs["data"]), str(tmp_path / "r"), device="cpu",
-                       **kwargs)
-    item = {"make_plots": "item 9", "bfloat16": "item 5",
-            "checkpoint_every": "item 9"}[what]
-    assert item in str(err.value)
-    assert not (tmp_path / "r").exists()
+    out = tmp_path / "r" / "Convolutional_VAE"
+    if what == "bfloat16":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md") as err:
+            run_hybrid_vae(str(runs["data"]), str(tmp_path / "r"),
+                           HybridVAEConfig(compute_dtype="bfloat16"),
+                           device="cpu")
+        assert "item 5" in str(err.value)
+        assert not (tmp_path / "r").exists()
+        return
+    plots = what == "make_plots"
+    run_hybrid_vae(str(runs["data"]), str(tmp_path / "r"),
+                   HybridVAEConfig(epochs=2, batch_size=8,
+                                   checkpoint_every=0 if plots else 1),
+                   logger=RunLogger(echo=False), make_plots=plots,
+                   device="cpu")
+    if plots:
+        for png in ("training_loss.png", "tsne_clusters_v2.png"):
+            assert (out / png).stat().st_size > 0, png
+        assert not (out / "checkpoints").exists()
+    else:
+        ck = out / "checkpoints"
+        assert sorted(p.name for p in ck.iterdir()) == ["latest",
+                                                        "step_00000001"]
+        assert (ck / "step_00000001" / "train_state.pt").exists()
+        meta = json.loads((ck / "latest" / "metadata.json").read_text())
+        assert meta["epoch"] == 1 and len(meta["history"]["val_loss"]) == 2
+        assert not list(out.glob("*.png"))

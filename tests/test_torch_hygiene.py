@@ -46,6 +46,12 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_sources()
     assert len(files) > 20 and all(f.exists() for f in files)
+    # the workflow's modules keep their own copies of the JAX package's
+    # JAX-free tpuvae/parity.py and tpuvae/viz/plots.py
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"tpuvae_torch/parity.py", "tpuvae_torch/viz/tsne.py",
+            "tpuvae_torch/viz/plots.py", "tpuvae_torch/viz/eda.py",
+            "tpuvae_torch/viz/__init__.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {mod}"
            for f in files for line, mod in _imported_roots(f)
            if mod in FORBIDDEN]
@@ -135,6 +141,27 @@ def test_kernel_library_is_not_built_on_import():
                                   "('masked_median_select', 0), "
                                   "('pairwise', 0), ('stft_dense', 0), "
                                   "('stft_features', 0), ('tuning', 0)]")
+
+
+def test_matplotlib_is_imported_only_to_draw(tmp_path):
+    """Importing the port, its CLI and its plot modules imports no
+    matplotlib (a machine without it runs everything but the figures);
+    drawing one does (checked in a fresh interpreter)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import tpuvae_torch.cli, tpuvae_torch.pipelines, tpuvae_torch.parity\n"
+        "import tpuvae_torch.viz.eda, tpuvae_torch.viz as viz\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "viz.loss_curve([1.0, 0.5], sys.argv[1])\n"
+        "assert 'matplotlib.pyplot' in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "loss.png")],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert (tmp_path / "loss.png").stat().st_size > 0
 
 
 def test_bundle_unpickler_maps_jax_classes_and_refuses_others(tmp_path):

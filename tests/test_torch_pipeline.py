@@ -153,14 +153,35 @@ def test_cli_train_simple_on_the_cpu(data_dir, tmp_path, capsys):
     assert cli.main(["train-simple", f"--data_dir={data_dir}",
                      f"--results_dir={res}", "--device=cpu",
                      "--bogus=1"]) == 2
+    # mid-train checkpoints: every 2 epochs, the newest kept, plots off
+    ck = res / "Simple_VAE" / "checkpoints"
     assert cli.main(["train-simple", f"--data_dir={data_dir}",
-                     f"--results_dir={res}", "--device=cpu",
-                     "--checkpoint_every=5"]) == 2
+                     f"--results_dir={res}", "--device=cpu", "--plots=0",
+                     "--epochs=4", "--checkpoint_every=2",
+                     "--hidden_dims=[64, 32]", "--latent_dim=8"]) == 0
+    assert sorted(p.name for p in ck.iterdir()) == [
+        "best", "latest", "step_00000003"]
+    assert (ck / "latest").resolve().name == "step_00000003"
 
 
-def test_run_simple_vae_refuses_plots(data_dir, tmp_path):
+def test_run_simple_vae_refuses_plots(data_dir, tmp_path, monkeypatch):
+    """``make_plots`` draws the t-SNE figure; without matplotlib the run
+    is refused before it trains or writes anything."""
+    import sys
+
+    from tpuvae_torch.config import ClusterConfig, SimpleVAEConfig
     from tpuvae_torch.pipelines import run_simple_vae
+    from tpuvae_torch.utils.logging import RunLogger
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_simple_vae(str(data_dir), str(tmp_path), make_plots=True,
-                       device="cpu")
+    cfg = SimpleVAEConfig(epochs=1, batch_size=32, hidden_dims=(64, 32),
+                          latent_dim=8)
+    run_simple_vae(str(data_dir), str(tmp_path / "r"), cfg,
+                   ClusterConfig(simple_k_sweep=K_SWEEP),
+                   RunLogger(echo=False), make_plots=True, device="cpu")
+    png = tmp_path / "r" / "Simple_VAE" / "tsne_visualization_simplified.png"
+    assert png.stat().st_size > 0
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        run_simple_vae(str(data_dir), str(tmp_path / "none"), cfg,
+                       make_plots=True, device="cpu")
+    assert not (tmp_path / "none").exists()

@@ -308,15 +308,19 @@ def test_fit_val_monitor_and_per_dataset_normaliser():
         fit(state, loss_fn, (x,), FitConfig(epochs=1, monitor="val"))
 
 
-def test_fit_rejects_what_is_not_ported_and_ignores_scan_epochs():
+def test_fit_rejects_what_is_not_ported_and_ignores_scan_epochs(tmp_path):
     from tpuvae_torch.train.loop import FitConfig, fit
     from tpuvae_torch.train.state import create_state
 
     state = create_state(_Scripted(), 0.01)
     loss_fn = _scripted_objective([1.0] * 4, 1)
     data = (torch.zeros((4, 1)),)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fit(state, loss_fn, data, FitConfig(epochs=1, checkpoint_dir="ck"))
+    # checkpoints are ported: one rotated step directory per epoch
+    fit(create_state(_Scripted(), 0.01), _scripted_objective([1.0] * 4, 1),
+        data, FitConfig(epochs=2, batch_size=4, checkpoint_every=1,
+                        checkpoint_dir=str(tmp_path / "ck")))
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "latest", "step_00000001"]
     with pytest.raises(NotImplementedError, match="item 9"):
         fit(state, loss_fn, data, FitConfig(epochs=1), mesh=object())
     # host_stream is ported: host arrays in, the same loss as resident data

@@ -3,7 +3,9 @@
 The JAX package ``tpuvae`` stays the reference; this package re-implements
 its input front end (WAV / FLAC / MP3 decode, the native C++ loader, the
 XLM-R lyrics encoder), its preprocess pipelines, the Simple, Conditional
-and Hybrid VAE training pipelines and serving on one H100, with
+and Hybrid VAE training pipelines with their figures and checkpoints, the
+reference's whole workflow with its parity and quality gates, and serving
+on one H100, with
 every Pallas kernel on those paths replaced by a CUDA C++ kernel for
 ``sm_90a`` (``tpuvae_torch/csrc``) and a plain PyTorch version of the same
 function beside it.  It imports neither JAX nor anything of ``tpuvae``.
@@ -26,6 +28,10 @@ Layers, mirroring ``tpuvae/``:
                 NMI / ARI / purity
   cluster/      k-means, Ward, DBSCAN, spectral, the three sweeps, PCA
   train/        train state (Adam), objectives, the fit loop, checkpoints
+                (weights; rotating full-state checkpoints for resume)
+  viz/          t-SNE on the device (kernel 5), the report figures, EDA
+  parity.py     the parity (run twice, ±0.01) and quality gates
+  utils/        batching, run logging, stage timers (``torch.profiler``)
   convert.py    flax ``weights.npz`` <-> the port's ``state_dict``; the
                 flax sentence encoder's params <-> the port's
   pipelines.py  preprocess_basic / preprocess_advanced; run_simple_vae,
@@ -34,8 +40,9 @@ Layers, mirroring ``tpuvae/``:
   infer.py      ClipEncoder: raw clips -> latents + nearest centroid
   serve.py      HTTP daemon around infer (stdlib-only JSON API)
   cli.py        ``synth-data``, ``preprocess``, ``preprocess-advanced``,
-                ``train-simple``, ``train-cvae``, ``train-hybrid``,
-                ``encode`` and ``serve``
+                ``train-simple``, ``train-cvae``, ``train-hybrid``, ``all``,
+                ``encode``, ``serve``, ``eda``, ``parity``, ``quality`` and
+                ``report``
 """
 
 __version__ = "0.1.0"

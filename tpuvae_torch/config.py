@@ -155,8 +155,8 @@ class SimpleVAEConfig(_ConfigBase):
     # read by the JAX package only (epochs per device call); the port runs
     # one epoch per step of its host loop and logs that it ignores this
     scan_epochs: int = 8
-    # mid-train checkpoints (0 = off); the port raises NotImplementedError
-    # when they are asked for (ROADMAP.md, queue 1)
+    # periodic full-train-state checkpoints (0 = off), written to
+    # <results_dir>/<arch>/checkpoints with CheckpointManager rotation
     checkpoint_every: int = 0
     checkpoint_keep: int = 1
     seed: int = 42
@@ -184,8 +184,8 @@ class ConditionalVAEConfig(_ConfigBase):
     # (FitConfig.host_stream): O(batch) host and device memory instead of
     # O(N), for datasets larger than either
     host_stream: bool = False
-    # mid-train checkpoints (0 = off); the port raises NotImplementedError
-    # when they are asked for (ROADMAP.md, queue 1)
+    # periodic full-train-state checkpoints (0 = off), written to
+    # <results_dir>/<arch>/checkpoints with CheckpointManager rotation
     checkpoint_every: int = 0
     checkpoint_keep: int = 1
     seed: int = 42

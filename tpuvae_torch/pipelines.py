@@ -18,9 +18,13 @@ latents, k-means at k = number of genres, the serving bundle, and the four
 rows of ``evaluate_clustering`` (CVAE, PCA, autoencoder, raw features).
 ``run_hybrid_vae`` goes as ``tpuvae/pipelines.py:822-958``: the latents
 file, the k-means, Ward and DBSCAN sweeps, the serving bundle and four rows
-(Silhouette, Davies-Bouldin, ARI per algorithm).  All run on one device;
-the artifact, shard and CSV contracts are the JAX pipeline's, so either
-package reads what the other writes.
+(Silhouette, Davies-Bouldin, ARI per algorithm).  With ``make_plots``
+(the default, as in the JAX package) each also draws the reference's
+figures, its t-SNEs on the device; with ``checkpoint_every > 0`` each
+keeps rotating mid-train checkpoints under ``<arch>/checkpoints`` and
+resumes from them.  All run on one device; the artifact, shard and CSV
+contracts are the JAX pipeline's, so either package reads what the other
+writes.
 """
 
 from __future__ import annotations
@@ -105,6 +109,16 @@ from tpuvae_torch.train.state import create_state
 from tpuvae_torch.utils.batching import RowView, batched_apply
 from tpuvae_torch.text.embedder import embed_lyrics
 from tpuvae_torch.utils.logging import RunLogger, StageTimer
+from tpuvae_torch.viz.plots import (
+    cluster_language_bar,
+    loss_curve,
+    pyplot,
+    reconstruction_pair,
+    tsne_by_genre,
+    tsne_cluster_language,
+    tsne_triptych,
+)
+from tpuvae_torch.viz.tsne import tsne
 
 
 # -----------------------------------------------------------------------------
@@ -377,7 +391,8 @@ def preprocess_basic(
     and raises without a card."""
     dev = resolve_device(device)
     logger = logger or RunLogger()
-    timer = StageTimer(logger)
+    timer = StageTimer(logger,
+                       profile_dir=os.environ.get("TPUVAE_PROFILE_DIR"))
     with timer.stage("catalog"):
         entries, skipped = collect_audio_files(
             cfg.dataset_root, cfg.metadata_csv,
@@ -445,7 +460,8 @@ def preprocess_advanced(
                          "(extraction shards are the streaming source)")
     dev = resolve_device(device)
     logger = logger or RunLogger()
-    timer = StageTimer(logger)
+    timer = StageTimer(logger,
+                       profile_dir=os.environ.get("TPUVAE_PROFILE_DIR"))
     with timer.stage("catalog"):
         entries, skipped = collect_audio_files(
             cfg.dataset_root, cfg.metadata_csv,
@@ -537,6 +553,18 @@ def preprocess_advanced(
 # -----------------------------------------------------------------------------
 
 
+def _ckpt_kwargs(cfg, default_dir: str) -> dict:
+    """FitConfig checkpoint kwargs from a model config
+    (``tpuvae/pipelines.py:570-582``): rotating mid-train checkpoints under
+    ``default_dir`` when ``checkpoint_every > 0`` (off by default; the
+    reference persists nothing mid-train)."""
+    if cfg.checkpoint_every <= 0:
+        return {}
+    return {"checkpoint_dir": default_dir,
+            "checkpoint_every": cfg.checkpoint_every,
+            "checkpoint_keep": cfg.checkpoint_keep}
+
+
 def _silhouette_ch(x: torch.Tensor, labels: np.ndarray) -> tuple[float, float]:
     lab, k = compact_labels(labels)
     sil = float(silhouette_from_distances(self_distances(x), lab, k))
@@ -549,21 +577,21 @@ def run_simple_vae(
     cfg: SimpleVAEConfig = SimpleVAEConfig(),
     ccfg: ClusterConfig = ClusterConfig(),
     logger: RunLogger | None = None,
-    make_plots: bool = False,
+    make_plots: bool = True,
     device: str = "cuda",
 ) -> pd.DataFrame:
     """Train the Simple VAE on ``data_dir`` (a ``processed_data1``) and
     write its metrics, best weights and serving bundle under
-    ``results_dir``.  Returns the two metric rows.
+    ``results_dir``; with ``make_plots`` also the t-SNE figure by cluster
+    and language (``Simple_VAE/tsne_visualization_simplified.png``).
+    Returns the two metric rows.
 
-    ``device`` defaults to CUDA and raises without a card.  The t-SNE plot
-    of the JAX pipeline is not ported: ``make_plots=True`` raises.
+    ``device`` defaults to CUDA and raises without a card.  With
+    ``make_plots`` a missing matplotlib raises before any training.
     """
-    if make_plots:
-        raise NotImplementedError(
-            "t-SNE and plots are not ported to tpuvae_torch yet (ROADMAP.md, "
-            "queue 1, item 9: viz/); pass make_plots=False")
     dev = resolve_device(device)
+    if make_plots:
+        pyplot()
     logger = logger or RunLogger()
     data = load_basic(data_dir)
     features = np.asarray(data["features"], np.float32)
@@ -578,9 +606,7 @@ def run_simple_vae(
         monitor="train", restore_best=True,
         plateau_patience=cfg.plateau_patience, plateau_factor=cfg.plateau_factor,
         seed=cfg.seed, scan_epochs=cfg.scan_epochs,
-        # mid-train checkpoints (off by default): fit does not take them yet
-        checkpoint_dir=(f"{results_dir}/Simple_VAE/checkpoints"
-                        if cfg.checkpoint_every > 0 else None),
+        **_ckpt_kwargs(cfg, f"{results_dir}/Simple_VAE/checkpoints"),
     )
     xd = torch.from_numpy(features).to(dev)
     t0 = time.perf_counter()
@@ -635,6 +661,13 @@ def run_simple_vae(
     consolidate_metrics(results_dir, df, "Simple VAE")
     logger.log("metrics", architecture="Simple VAE",
                rows=df.to_dict("records"))
+
+    if make_plots:
+        xy = tsne(latents, perplexity=ccfg.tsne_perplexity, seed=ccfg.seed,
+                  device=dev)
+        tsne_cluster_language(
+            xy, vae_clusters, data["metadata"]["language"].values, best_k,
+            f"{results_dir}/Simple_VAE/tsne_visualization_simplified.png")
     return df
 
 
@@ -670,12 +703,7 @@ def _batched_latents(fn, arrays, batch_size: int,
             arrays, batch_size)
 
 
-def _reject_unported_conv(cfg, make_plots: bool) -> None:
-    if make_plots:
-        raise NotImplementedError(
-            "t-SNE, the reconstruction pair and the plots are not ported to "
-            "tpuvae_torch yet (ROADMAP.md, queue 1, item 9: viz/); pass "
-            "make_plots=False")
+def _reject_unported_conv(cfg) -> None:
     if str(cfg.compute_dtype) != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} is not ported to "
@@ -712,21 +740,26 @@ def run_conditional_vae(
     cfg: ConditionalVAEConfig = ConditionalVAEConfig(),
     ccfg: ClusterConfig = ClusterConfig(),
     logger: RunLogger | None = None,
-    make_plots: bool = False,
+    make_plots: bool = True,
     device: str = "cuda",
 ) -> pd.DataFrame:
     """Train the Conditional VAE on ``data_dir`` (a ``processed_data2``),
     cluster its latents at k = number of genres, and write the serving
-    bundle and the four metric rows under ``results_dir``.  Returns the
+    bundle and the four metric rows under ``results_dir``; with
+    ``make_plots`` also the reconstruction pair, the t-SNE by genre and
+    the cluster x language bars under ``Conditional_VAE/``.  Returns the
     rows.
 
     ``device`` defaults to CUDA and raises without a card.  On the card
-    every trunk forward launches kernel 6 and every
-    ``evaluate_clustering`` kernel 5.  Plots and ``compute_dtype=
-    "bfloat16"`` are not ported and raise.
+    every trunk forward launches kernel 6, every ``evaluate_clustering``
+    kernel 5, and the t-SNE kernel 5 1,001 times.  ``compute_dtype=
+    "bfloat16"`` is not ported and raises; with ``make_plots`` a missing
+    matplotlib raises before any training.
     """
-    _reject_unported_conv(cfg, make_plots)
+    _reject_unported_conv(cfg)
     dev = resolve_device(device)
+    if make_plots:
+        pyplot()
     logger = logger or RunLogger()
     t_start = time.perf_counter()
     stream = bool(cfg.host_stream)
@@ -748,9 +781,7 @@ def run_conditional_vae(
         epochs=cfg.epochs, batch_size=cfg.batch_size, patience=cfg.patience,
         monitor="val", restore_best=False, seed=cfg.seed,
         scan_epochs=cfg.scan_epochs, host_stream=stream,
-        # mid-train checkpoints (off by default): fit does not take them yet
-        checkpoint_dir=(f"{results_dir}/Conditional_VAE/checkpoints"
-                        if cfg.checkpoint_every > 0 else None),
+        **_ckpt_kwargs(cfg, f"{results_dir}/Conditional_VAE/checkpoints"),
     )
     splits = _fit_splits(data, mel, (text, cond), (tr, va), stream, dev)
     t0 = time.perf_counter()
@@ -826,6 +857,26 @@ def run_conditional_vae(
                         per_arch_subdir="Conditional_VAE")
     logger.log("metrics", architecture="Conditional VAE",
                rows=df.to_dict("records"))
+
+    if make_plots:
+        # reconstruction of the first clip (ref :496-511): running
+        # BatchNorm statistics, z sampled with the run's seed
+        out = f"{results_dir}/Conditional_VAE"
+        first = tuple(torch.from_numpy(np.array(a[:1])).to(dev)
+                      for a in (mel, text, cond))
+        with torch.no_grad():
+            recon, _, _, _ = model(*first, generator=torch.Generator(
+                device=dev).manual_seed(cfg.seed))
+        reconstruction_pair(np.array(mel[:1])[0, :, :, 0],
+                            recon.cpu().numpy()[0, :, :, 0],
+                            f"{out}/reconstruction.png")
+        xy = tsne(z_cvae, perplexity=ccfg.tsne_perplexity, seed=ccfg.seed,
+                  device=dev)
+        tsne_by_genre(xy, y_genre, genre_names,
+                      f"{out}/cvae_latent_tsne_genre.png")
+        y_lang, lang_names = encode_labels(data["metadata"]["language"].values)
+        cluster_language_bar(km_cvae.labels, y_lang, lang_names,
+                             f"{out}/cluster_lang_distribution.png")
     return df
 
 
@@ -839,13 +890,15 @@ def run_hybrid_vae(
     cfg: HybridVAEConfig = HybridVAEConfig(),
     ccfg: ClusterConfig = ClusterConfig(),
     logger: RunLogger | None = None,
-    make_plots: bool = False,
+    make_plots: bool = True,
     device: str = "cuda",
 ) -> pd.DataFrame:
     """Train the Hybrid VAE on ``data_dir`` (a ``processed_data2``), write
     its latents (``Convolutional_VAE/hybrid_latent_features.npy``, on every
     run), cluster them four ways and write the serving bundle and the four
-    metric rows under ``results_dir``.  Returns the rows.
+    metric rows under ``results_dir``; with ``make_plots`` also the loss
+    curve and the t-SNE triptych under ``Convolutional_VAE/``.  Returns the
+    rows.
 
     Step for step as ``tpuvae/pipelines.py:822-958``: 85/15 split, fit on
     the validation loss with the per-dataset normaliser, batched latents,
@@ -854,11 +907,14 @@ def run_hybrid_vae(
     cluster count of each algorithm's labels.  ``device`` defaults to CUDA
     and raises without a card.  On the card every trunk forward launches
     kernel 6; each sweep and the rows launch kernel 5 once, and each row's
-Davies-Bouldin once more (its centroid distances).  Plots and
-    ``compute_dtype="bfloat16"`` are not ported and raise.
+    Davies-Bouldin once more (its centroid distances), and the t-SNE 1,001
+    times.  ``compute_dtype="bfloat16"`` is not ported and raises; with
+    ``make_plots`` a missing matplotlib raises before any training.
     """
-    _reject_unported_conv(cfg, make_plots)
+    _reject_unported_conv(cfg)
     dev = resolve_device(device)
+    if make_plots:
+        pyplot()
     logger = logger or RunLogger()
     t_start = time.perf_counter()
     stream = bool(cfg.host_stream)
@@ -879,9 +935,7 @@ Davies-Bouldin once more (its centroid distances).  Plots and
         monitor="val", restore_best=False, loss_normalizer="per_dataset",
         seed=cfg.seed, log_every=1, scan_epochs=cfg.scan_epochs,
         host_stream=stream,
-        # mid-train checkpoints (off by default): fit does not take them yet
-        checkpoint_dir=(f"{results_dir}/Convolutional_VAE/checkpoints"
-                        if cfg.checkpoint_every > 0 else None),
+        **_ckpt_kwargs(cfg, f"{results_dir}/Convolutional_VAE/checkpoints"),
     )
     splits = _fit_splits(data, mel, (text,), (tr, va), stream, dev)
     t0 = time.perf_counter()
@@ -896,6 +950,9 @@ Davies-Bouldin once more (its centroid distances).  Plots and
                epoch_seconds=res.history["epoch_seconds"],
                train_loss=res.history["train_loss"],
                val_loss=res.history["val_loss"])
+    if make_plots:
+        loss_curve(res.history["train_loss"],
+                   f"{results_dir}/Convolutional_VAE/training_loss.png")
 
     t0 = time.perf_counter()
     model.eval()
@@ -969,4 +1026,12 @@ Davies-Bouldin once more (its centroid distances).  Plots and
                         per_arch_subdir="Convolutional_VAE")
     logger.log("metrics", architecture="Convolutional VAE",
                rows=df.to_dict("records"))
+
+    if make_plots:
+        # no perplexity here, as in the JAX pipeline: t-SNE's default 30
+        xy = tsne(latents, seed=ccfg.seed, device=dev)
+        tsne_triptych(
+            xy, algos[f"K-Means-Main (k={best_k})"],
+            algos["K-Means-Language (k=2)"], y_genre, best_k,
+            f"{results_dir}/Convolutional_VAE/tsne_clusters_v2.png")
     return df

@@ -17,9 +17,19 @@ epoch (the summed losses).  With ``FitConfig.host_stream`` the datasets
 stay on the host (numpy arrays, ``np.memmap``, ``RowView``) and one batch
 at a time goes to the device, staged while the previous step runs; batch
 composition, noise and the ragged remainder are those of the resident
-epoch, so the losses are the same.  Not ported: ``scan_epochs`` (TPU
-dispatch amortisation; accepted and logged as ignored), a data-parallel
-``mesh`` and mid-train checkpoints with resume (each raises
+epoch, so the losses are the same.
+
+With ``FitConfig.checkpoint_dir`` the loop saves its whole state every
+``checkpoint_every`` epochs (``tpuvae/train/loop.py:454-465``; rotated by
+:class:`~tpuvae_torch.train.checkpoint.CheckpointManager`): weights,
+optimizer, the counters of early stopping and ReduceLROnPlateau, the
+history and the state of its ``torch.Generator``, so a resumed run draws
+the same permutations, dropout masks and noise as an uninterrupted one.
+With ``restore_best`` it also writes the best weights to ``best/`` on each
+improvement and reads them back on resume (``:336-370``, ``:425-440``).
+
+Not ported: ``scan_epochs`` (TPU dispatch amortisation; accepted and
+logged as ignored) and a data-parallel ``mesh`` (raises
 ``NotImplementedError`` naming its ROADMAP.md item).
 """
 
@@ -27,11 +37,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from tpuvae_torch.convert import from_flax
+from tpuvae_torch.train.checkpoint import (
+    CheckpointManager,
+    latest_train_state_dir,
+    load_checkpoint,
+    restore_train_state,
+    save_checkpoint,
+)
 from tpuvae_torch.train.state import (
     TrainState,
     get_learning_rate,
@@ -55,7 +74,10 @@ class FitConfig:
     loss_normalizer: str = "per_batch"    # 'per_batch' | 'per_dataset'
     seed: int = 42
     log_every: int = 10
-    checkpoint_dir: str | None = None     # mid-train checkpoints: not ported
+    checkpoint_dir: str | None = None     # periodic full-state checkpoints
+    checkpoint_every: int = 50
+    checkpoint_keep: int = 1              # rotation depth (CheckpointManager)
+    resume: bool = True                   # continue from checkpoint_dir if present
     scan_epochs: int = 1                  # TPU dispatch amortisation: ignored
     host_stream: bool = False             # data stays on the host, one
                                           # batch at a time on the device
@@ -70,15 +92,11 @@ class FitResult:
     steps_per_sec: float
 
 
-def _reject_unported(cfg: FitConfig, mesh) -> None:
+def _reject_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training over a mesh is not ported to "
             "tpuvae_torch yet (ROADMAP.md, queue 1, item 9: torch.distributed)")
-    if cfg.checkpoint_dir:
-        raise NotImplementedError(
-            "mid-train checkpoints and resume are not ported to tpuvae_torch "
-            "yet (ROADMAP.md, queue 1, item 9)")
 
 
 def _resident_batches(data, bs: int):
@@ -198,7 +216,7 @@ def fit(
     """
     if cfg.monitor == "val" and val_data is None:
         raise ValueError("FitConfig.monitor='val' requires val_data")
-    _reject_unported(cfg, mesh)
+    _reject_unported(mesh)
     model, optimizer = state.model, state.optimizer
     train_data = tuple(train_data)
     stream = bool(cfg.host_stream)
@@ -228,9 +246,35 @@ def fit(
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     t0 = time.time()
     total_steps = 0
-    epoch = -1
+    epoch = -1                     # the last epoch run
 
-    for epoch in range(cfg.epochs):
+    if cfg.checkpoint_dir and cfg.resume:
+        ck = latest_train_state_dir(cfg.checkpoint_dir)
+        if ck is not None:
+            state, meta = restore_train_state(ck, state, generator=gen)
+            epoch = int(meta["epoch"])
+            best = float(meta["best"])
+            best_epoch = int(meta["best_epoch"])
+            patience_counter = int(meta["patience_counter"])
+            plateau_best = float(meta["plateau_best"])
+            plateau_counter = int(meta["plateau_counter"])
+            lr = float(meta["lr"])
+            set_learning_rate(state, lr)
+            history = meta["history"]
+            best_ck = Path(cfg.checkpoint_dir) / "best"
+            if cfg.restore_best and (best_ck / "weights.npz").exists():
+                # rehydrate the best-weights snapshot, else a resumed run
+                # that never improves again would keep its final weights
+                flat, _ = load_checkpoint(best_ck)
+                best_snapshot = {k: v.to(dev)
+                                 for k, v in from_flax(flat).items()}
+            if logger is not None:
+                logger.log("resume_training", from_epoch=epoch + 1)
+    # a run that had stopped early before its last save stays stopped
+    start_epoch = (cfg.epochs if epoch >= 0 and patience_counter >= cfg.patience
+                   else epoch + 1)
+
+    for epoch in range(start_epoch, cfg.epochs):
         t_epoch = time.perf_counter()
         perm = torch.randperm(n, generator=gen, device=dev)
         model.train()
@@ -278,6 +322,10 @@ def fit(
             if cfg.restore_best:
                 best_snapshot = {k: v.detach().clone()
                                  for k, v in model.state_dict().items()}
+                if cfg.checkpoint_dir:
+                    save_checkpoint(Path(cfg.checkpoint_dir) / "best",
+                                    best_snapshot,
+                                    {"epoch": epoch, "monitored": monitored})
         else:
             patience_counter += 1
 
@@ -287,6 +335,20 @@ def fit(
                 val_loss=history["val_loss"][-1] if val_data is not None else None,
                 lr=lr,
             )
+        if cfg.checkpoint_dir and (epoch + 1) % cfg.checkpoint_every == 0:
+            t_save = time.perf_counter()
+            saved = CheckpointManager(
+                cfg.checkpoint_dir, cfg.checkpoint_keep).save(
+                state,
+                {"epoch": epoch, "best": best, "best_epoch": best_epoch,
+                 "patience_counter": patience_counter,
+                 "plateau_best": plateau_best,
+                 "plateau_counter": plateau_counter, "lr": lr,
+                 "history": history},
+                step=epoch, generator=gen)
+            if logger is not None:
+                logger.log("checkpoint_saved", dir=str(saved), epoch=epoch,
+                           seconds=time.perf_counter() - t_save)
         if patience_counter >= cfg.patience:
             break
 

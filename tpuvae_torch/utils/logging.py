@@ -1,8 +1,8 @@
 """Structured run logging and stage timing (counterpart of
 ``tpuvae/utils/logging.py``): JSONL event records, one line per event, to
-a stream and/or a file, and per-stage wall-clock / throughput counters.
-The JAX package's profiler hook (``TPUVAE_PROFILE_DIR``) is not ported
-(ROADMAP.md, queue 1, item 9)."""
+a stream and/or a file, and per-stage wall-clock / throughput counters,
+each stage optionally traced with ``torch.profiler`` (the preprocess
+pipelines pass ``$TPUVAE_PROFILE_DIR``, which ``cli --profile`` sets)."""
 
 from __future__ import annotations
 
@@ -45,16 +45,37 @@ class RunLogger:
 
 
 class StageTimer:
-    """Wall-clock + items/sec counters per pipeline stage."""
+    """Wall-clock + items/sec counters per pipeline stage; with
+    ``profile_dir``, each stage is also traced with ``torch.profiler``
+    (CPU and, where there is one, CUDA activity) into a Chrome trace
+    ``<profile_dir>/<stage>-<time>.json``."""
 
-    def __init__(self, logger: RunLogger | None = None):
+    def __init__(self, logger: RunLogger | None = None,
+                 profile_dir: str | None = None):
         self.logger = logger
+        self.profile_dir = profile_dir
         self.stages: dict[str, dict[str, float]] = {}
+
+    def _trace(self, name: str):
+        if not self.profile_dir:
+            return contextlib.nullcontext()
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"{name}-{time.strftime('%Y%m%d-%H%M%S')}.json"
+        return torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=lambda prof: prof.export_chrome_trace(str(path)))
 
     @contextlib.contextmanager
     def stage(self, name: str, items: int | None = None):
         t0 = time.time()
-        yield
+        with self._trace(name):
+            yield
         dt = time.time() - t0
         rec = {"seconds": dt}
         if items is not None:
