@@ -121,7 +121,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     runs there (that of two default runs logged); ``run_parity`` (tol 0.01)
     and ``run_quality`` at 3 epochs. Cuts: 193 of the reference's 1,336
     clips, 3 of 500-600 epochs;
-17. time each kernel, its plain version and the library yardstick with
+17. kernel 1 at every geometry of the JAX kernel: against its plain
+    version at each n_fft = 256 q, q = 1 .. 23, hop n_fft / 4 and n_fft, 4
+    clips of 30 s, exact and fast (rolloff within one bin, sr / n_fft),
+    kernel 2 bit-equal on each fused output, edge padding at 1024 / 256 and
+    2048 / 512; timed at 32 clips at 256 / 64, 1024 / 256, 1536 / 384,
+    4096 / 1024 and 5632 / 512 beside its byte bound, plain version and
+    ``torch.stft`` + mel matmul, launches from ``extract_basic_features``
+    (``auto``) there; ``preprocess_basic`` at 1024 / 256 and
+    ``preprocess_advanced`` at 3072 / 768 (``auto``: kernels 1 + 2, once
+    per device batch) on phase 7's 193 WAVs; ``stft_method='ct'`` on 32
+    clips (kernel 3); ``auto`` at n_fft 1000 (the ``fft`` route; explicit
+    ``ct_pallas`` raises before a launch); the hybrid bundle with
+    ``stft_method='auto'`` encoding 32 clips with lyrics (kernel 1 once per
+    device batch), card against CPU.  Cut: 4 of 32 clips for the 92
+    comparisons;
+18. time each kernel, its plain version and the library yardstick with
     CUDA events (median of 15 runs, L2 flushed before each); kernels 1-4
     also at the pipelines' 128 clips and partial batches, each held
     against its plain version there too; the extract stage's parts,
@@ -131,7 +146,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     optimizer, with the cost of the fused pair's backward; one more step
     under ``torch.profiler``: the pair's kernel time, launches and span
     inside it;
-18. print the ``kernels`` JSON line, then the ``ok`` line last.
+19. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
+    then the ``ok`` line last.
 """
 
 from __future__ import annotations
@@ -457,23 +473,25 @@ def all_valid_keys(torch, dev, n_cols: int):
 
 # -- phase 3 (and again at 128 clips): kernel 1 against its plain version ------
 
-def check_stft_features(torch, y, exact: bool):
+def check_stft_features(torch, y, exact: bool, n_fft: int = N_FFT,
+                        hop: int = HOP, pad_mode: str = "constant"):
     """Kernel 1 against its plain version on ``y``.  It computes an fp32
-    radix-32 x 32 FFT in registers where the plain version calls cuFFT:
-    power, mel power and
-    column maxima within rtol 1e-4 / atol 1e-6 x max power (bf16 power in
-    fast mode within one bf16 step, rtol 2^-7); centroid, bandwidth, zcr
-    and rms within rtol 1e-4 / atol 1e-6; rolloff within one bin (a prefix
-    sum in another order).  Returns ``(kernel, plain, max power, power max
-    abs err, rolloff max err)``."""
+    FFT (the radix-32 x 32 register plan at n_fft 2048, a mixed-radix plan
+    in shared memory at every other size) where the plain version calls
+    cuFFT: power, mel power and column maxima within rtol 1e-4 / atol 1e-6
+    x max power (bf16 power in fast mode within one bf16 step, rtol 2^-7);
+    centroid, bandwidth, zcr and rms within rtol 1e-4 / atol 1e-6; rolloff
+    within one bin, sr / n_fft (a prefix sum in another order).  Returns
+    ``(kernel, plain, max power, power max abs err, rolloff max err)``."""
     from tpuvae_torch.ops.stft import (
         stft_fused_features,
         stft_fused_features_plain,
     )
 
-    got = stft_fused_features(y, N_FFT, HOP, sr=SR, n_mels=N_MELS, exact=exact)
-    want = stft_fused_features_plain(y, N_FFT, HOP, sr=SR, n_mels=N_MELS,
-                                     exact=exact)
+    got = stft_fused_features(y, n_fft, hop, sr=SR, n_mels=N_MELS,
+                              exact=exact, pad_mode=pad_mode)
+    want = stft_fused_features_plain(y, n_fft, hop, sr=SR, n_mels=N_MELS,
+                                     exact=exact, pad_mode=pad_mode)
     torch.cuda.synchronize()
     check(got.power.dtype == (torch.float32 if exact else torch.bfloat16),
           f"kernel 1 power dtype {got.power.dtype} (exact={exact})")
@@ -488,8 +506,19 @@ def check_stft_features(torch, y, exact: bool):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    rtol=1e-4, atol=1e-6)
     roll_err = (got.rolloff - want.rolloff).abs().max().item()
-    check(roll_err <= SR / N_FFT * 1.0001, f"rolloff off by {roll_err} Hz")
+    check(roll_err <= one_bin_hz(n_fft),
+          f"rolloff off by {roll_err} Hz at n_fft {n_fft}")
     return got, want, pmax, err, roll_err
+
+
+def one_bin_hz(n_fft: int) -> float:
+    """One bin of the rolloff's fp32 frequency table: sr / n_fft, or the
+    widest gap between two of its fp32 values where rounding widens it
+    (by ~1e-3 Hz above 8 kHz)."""
+    from tpuvae_torch.dsp.primitives import fft_frequencies
+
+    return max(SR / n_fft * 1.0001,
+               float(np.diff(fft_frequencies(SR, n_fft)).max()))
 
 
 def check_tuning_worst_case(torch, dev) -> None:
@@ -2108,6 +2137,300 @@ def workflow_path(torch, dev, work: Path, data1: Path, data2: Path,
     return out
 
 
+# -- phase 17: kernel 1 at every geometry of the JAX kernel ------------------
+
+# the timed geometries (n_fft, hop) beside the main path's 2048 / 512
+TIMED_GEOMETRIES = ((256, 64), (1024, 256), (1536, 384), (4096, 1024),
+                    (5632, 512))
+
+
+def k1_bytes(n_clips: int, n_samples: int, n_fft: int, hop: int,
+             n_mels: int = N_MELS) -> int:
+    """Bytes kernel 1 must move in fast mode: the waveform read once, the
+    bf16 power, the fp32 mel power and six fp32 statistics written once."""
+    t = 1 + n_samples // hop
+    return (n_clips * n_samples * 4 + n_clips * (n_fft // 2 + 1) * t * 2
+            + n_clips * n_mels * t * 4 + n_clips * 6 * t * 4)
+
+
+def k1_flops(n_clips: int, n_samples: int, n_fft: int, hop: int,
+             n_mels: int = N_MELS) -> float:
+    """Operations kernel 1 does: the complex FFT of n_fft / 2 points, the
+    split and power, the sparse mel, the statistics, window, zcr and rms."""
+    from tpuvae_torch.dsp.primitives import mel_filterbank
+
+    m, nbins = n_fft // 2, n_fft // 2 + 1
+    nnz = int((mel_filterbank(SR, n_fft, n_mels) != 0).sum())
+    frames = n_clips * (1 + n_samples // hop)
+    return float(frames * (5 * m * np.log2(m) + 13 * nbins + 2 * nnz
+                           + 13 * nbins + 5 * n_fft))
+
+
+def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
+    """Kernel 1 (and kernel 2 on its output) at every n_fft = 256 q of
+    the JAX kernel, q = 1 .. 23, the paths that run them through the entry
+    points, the ``ct`` method and ``auto`` off the domain:
+
+    (a) kernel 1 against its plain version on 4 clips of 661,500 samples
+        at hop n_fft / 4 and at the largest hop the predicate takes (n_fft),
+        exact and fast, kernel 2 bit-equal to its plain version on each
+        fused output; edge padding at 1024 / 256 and 2048 / 512;
+    (b) the timed geometries at 32 clips: kernel, plain, library
+        (``torch.stft`` power + the mel ``torch.matmul``, TF32 off), byte
+        bound, and the launches of ``extract_basic_features`` (``auto``)
+        there, counts set to 0 just before and read just after;
+    (c) ``preprocess_basic`` at 1024 / 256 and ``preprocess_advanced`` at
+        3072 / 768, both ``auto``, on the preprocess phase's 193 WAVs;
+    (d) ``extract_basic_features(stft_method='ct')`` on 32 clips (kernel 3);
+    (e) ``auto`` at n_fft 1000 / hop 250 (the ``fft`` route; explicit
+        ``ct_pallas`` raises there, before any launch);
+    (f) ``ClipEncoder`` of the hybrid bundle with ``stft_method='auto'``
+        recorded, on 32 clips with lyrics, card against CPU."""
+    import pickle
+
+    from tpuvae_torch import ops, pipelines
+    from tpuvae_torch.config import AdvancedPreprocessConfig, PreprocessConfig
+    from tpuvae_torch.dsp.features import extract_basic_features, make_extractor
+    from tpuvae_torch.dsp.primitives import mel_filterbank, stft_power
+    from tpuvae_torch.infer import ClipEncoder
+    from tpuvae_torch.io.artifacts import load_advanced, load_basic
+    from tpuvae_torch.io.normalize import load_normalizer
+    from tpuvae_torch.ops.stft import (
+        _radix_plan,
+        stft_fused_features,
+        stft_fused_features_plain,
+        stft_kernel_supports,
+    )
+    from tpuvae_torch.ops.tuning import estimate_tuning, estimate_tuning_plain
+    from tpuvae_torch.utils.logging import RunLogger
+
+    out = {"geometries": {}}
+    t_phase = time.perf_counter()
+
+    # (a) every size, two hops, both modes; kernel 2 on each fused output
+    y4 = torch.from_numpy(waves[:4]).to(dev)
+    for q in range(1, 24):
+        n_fft = 256 * q
+        for hop in (n_fft // 4, n_fft):
+            check(stft_kernel_supports(n_fft, hop), f"{n_fft} / {hop}")
+            row = {}
+            for exact in (True, False):
+                fe, _, pmax, err, roll = check_stft_features(
+                    torch, y4, exact, n_fft, hop)
+                t_k = estimate_tuning(fe.power, fe.colmax, SR, n_fft)
+                t_p = estimate_tuning_plain(fe.power, fe.colmax, SR, n_fft)
+                check(torch.equal(t_k, t_p),
+                      f"kernel 2 != plain at {n_fft} / {hop} exact={exact}")
+                row["exact" if exact else "fast"] = {
+                    "power_max_abs_err": err, "max_power": pmax,
+                    "rolloff_max_err_hz": roll}
+            out["geometries"][f"{n_fft}/{hop}"] = row
+    plans = {256 * q: list(_radix_plan(128 * q)) for q in range(1, 24)
+             if q != 8}
+    for n_fft, hop in ((1024, 256), (2048, 512)):
+        for exact in (True, False):
+            check_stft_features(torch, y4, exact, n_fft, hop, "edge")
+    out["phase_a_s"] = time.perf_counter() - t_phase
+    log(f"kernel 1 at the 23 sizes 256 .. 5888 x hops n_fft / 4 and n_fft, "
+        f"exact and fast, within tolerance of plain (rolloff one bin); "
+        f"kernel 2 equal to plain on every fused output; edge padding at "
+        f"1024 / 256 and 2048 / 512 within tolerance; "
+        f"{out['phase_a_s']:.1f} s; plans {plans}")
+    del y4
+
+    # (b) the timed geometries at 32 clips
+    y = torch.from_numpy(waves[:BATCH]).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timed = []
+    for n_fft, hop in TIMED_GEOMETRIES:
+        _, _, pmax, err, roll = check_stft_features(torch, y, False, n_fft,
+                                                    hop)
+        window = torch.hann_window(n_fft, periodic=True, device=dev)
+        fb_t = torch.from_numpy(mel_filterbank(SR, n_fft, N_MELS)).to(dev)
+
+        def library(n_fft=n_fft, hop=hop, window=window, fb_t=fb_t):
+            spec = torch.stft(y, n_fft, hop, window=window, center=True,
+                              pad_mode="constant", return_complex=True)
+            p = spec.real.square() + spec.imag.square()
+            return p.to(torch.bfloat16), torch.matmul(fb_t, p)
+
+        cfg = PreprocessConfig(duration=DURATION, n_fft=n_fft, hop_length=hop)
+        extract = make_extractor(extract_basic_features, cfg, dev)
+        extract(waves[:1])                               # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        feats = extract(waves[:BATCH]).cpu().numpy()
+        extract_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        check(counts["stft_features"] == 1 and counts["tuning"] == 1
+              and counts["masked_median_select"] == 0,
+              f"extract_basic_features at {n_fft} / {hop}: {counts}")
+        check(feats.shape == (BATCH, 370) and np.isfinite(feats).all(),
+              f"features at {n_fft} / {hop}")
+        nbytes = k1_bytes(BATCH, y.shape[1], n_fft, hop)
+        nflops = k1_flops(BATCH, y.shape[1], n_fft, hop)
+        b_ms, b_by = bound(nbytes, nflops)
+        row = {
+            "n_fft": n_fft, "hop": hop, "launches": counts["stft_features"],
+            "max_abs_err": err, "rolloff_max_err_hz": roll,
+            "ms": time_ms(torch, lambda: stft_fused_features(
+                y, n_fft, hop, sr=SR, n_mels=N_MELS), flush),
+            "plain_ms": time_ms(torch, lambda: stft_fused_features_plain(
+                y, n_fft, hop, sr=SR, n_mels=N_MELS), flush, runs=7),
+            "library_ms": time_ms(torch, library, flush, runs=7),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": nflops,
+            "extract_basic_features_ms_host": extract_ms,
+            "plan": list(_radix_plan(n_fft // 2)) if n_fft != N_FFT
+            else "radix-32 x 32 registers"}
+        timed.append(row)
+        log(f"time stft_features at {n_fft} / {hop}: kernel {row['ms']:.4f} "
+            f"ms, plain {row['plain_ms']:.4f}, library "
+            f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); "
+            f"extract_basic_features (auto, 32 clips) {extract_ms:.1f} ms "
+            f"host, launch counts {counts}")
+    out["timed"] = timed
+
+    # (c) the preprocess pipelines at other geometries, auto
+    root = work / "Datasets"
+    meta_csv = root / "updated_metadata.csv"
+    n_entries = len(list(root.rglob("*.wav")))
+    common = dict(sample_rate=SR, duration=DURATION, dataset_root=str(root),
+                  metadata_csv=str(meta_csv), extract_batch=EXTRACT_BATCH)
+    for tag, kind, fn, cfg in (
+            ("basic_1024", "basic", pipelines.preprocess_basic,
+             PreprocessConfig(
+                output_dir=str(work / "geom" / "d1"), n_fft=1024,
+                hop_length=256, **common)),
+            ("advanced_3072", "advanced", pipelines.preprocess_advanced,
+             AdvancedPreprocessConfig(
+                 output_dir=str(work / "geom" / "d2"), n_fft=3072,
+                 hop_length=768, **common))):
+        logger = RunLogger(work / f"{tag}.jsonl", echo=False)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = fn(cfg, device="cuda", logger=logger)
+            torch.cuda.synchronize()
+        finally:
+            logger.close()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        n_dec = res["extract_detail"]["decodes_native"] + 1
+        batches = -(-n_dec // EXTRACT_BATCH)
+        check(counts["stft_features"] == batches
+              and counts["tuning"] == batches
+              and counts["stft_dense"] == 0
+              and counts["masked_median_select"] == 0,
+              f"preprocess {tag}: counts {counts} for {batches} batches")
+        check(len(res["failed"]) == 1, f"{tag} failed {res['failed']}")
+        stage = res["stages"][f"extract_{kind}"]
+        out[f"preprocess_{tag}"] = {
+            "n": res["n"], "wall_s": wall, "counts": counts,
+            "clips_per_s": stage["items_per_sec"],
+            "extract_s": stage["seconds"],
+            "device_idle_share": 1.0 - res["extract_detail"]["device_s"]
+            / stage["seconds"]}
+        log(f"preprocess {tag} (auto): {res['n']} clips, wall {wall:.3f} s, "
+            f"extract {stage['items_per_sec']:.1f} clips/s, counts {counts}")
+    basic = load_basic(work / "geom" / "d1")
+    adv = load_advanced(work / "geom" / "d2")
+    check(basic["features"].shape[1] == 370
+          and np.isfinite(basic["features"]).all(), "basic_1024 artifacts")
+    check(adv["mel"].shape[1:] == (N_MELS, 1024)
+          and np.isfinite(adv["mel"]).all()
+          and np.isfinite(adv["handcrafted"]).all(), "advanced_3072 artifacts")
+
+    # (d) the ct method on 32 clips: staged front end, kernel 3
+    cfg_ct = PreprocessConfig(duration=DURATION, stft_method="ct")
+    ext_ct = make_extractor(extract_basic_features, cfg_ct, dev)
+    ext_ct(waves[:1])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    f_ct = ext_ct(waves[:BATCH]).cpu().numpy()
+    ct_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    check(counts["masked_median_select"] == 1
+          and counts["stft_features"] == counts["tuning"] == 0,
+          f"ct route counts {counts}")
+    f_fft = make_extractor(extract_basic_features, PreprocessConfig(
+        duration=DURATION, stft_method="fft"), dev)(waves[:BATCH]).cpu().numpy()
+    np.testing.assert_allclose(f_ct, f_fft, rtol=0.02, atol=1.0)
+    out["ct_extract"] = {"ms_host": ct_ms, "counts": counts,
+                         "max_abs_diff_vs_fft": float(np.abs(f_ct - f_fft).max())}
+    log(f"extract_basic_features(stft_method='ct') on 32 clips: {ct_ms:.1f} "
+        f"ms host, counts {counts}; within 2% / 1.0 of 'fft' (max diff "
+        f"{out['ct_extract']['max_abs_diff_vs_fft']:.4g})")
+
+    # (e) auto off the domain: the fft route; explicit ct_pallas raises
+    cfg_off = PreprocessConfig(duration=DURATION, n_fft=1000, hop_length=250)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    f_off = make_extractor(extract_basic_features, cfg_off, dev)(
+        waves[:BATCH]).cpu().numpy()
+    off_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    check(np.isfinite(f_off).all() and counts["stft_features"] == 0
+          and counts["masked_median_select"] == 1,
+          f"auto at 1000 / 250: counts {counts}")
+    try:
+        stft_power(y, 1000, 250, method="ct_pallas")
+        raise RuntimeError("check failed: ct_pallas took n_fft 1000")
+    except ValueError as e:
+        check("256 | n_fft" in str(e), f"ct_pallas at 1000: {e}")
+    check(ops.launch_counts()["stft_features"] == 0, "a launch at 1000")
+    out["auto_off_domain"] = {"ms_host": off_ms, "counts": counts}
+    log(f"auto at n_fft 1000 / hop 250: the fft route in {off_ms:.1f} ms "
+        f"host, counts {counts}; explicit ct_pallas raised before a launch")
+
+    # (f) the hybrid bundle with stft_method='auto' recorded
+    src = Path(ClipEncoder.load("hybrid", results_dir=str(
+        work / "hybrid_first")).meta["data_dir"])
+    data_auto = work / "geom" / "data2_auto"
+    data_auto.mkdir(parents=True, exist_ok=True)
+    cfg_dict = dict(load_normalizer(src / "config.pkl"))
+    cfg_dict["stft_method"] = "auto"
+    with open(data_auto / "config.pkl", "wb") as f:
+        pickle.dump(cfg_dict, f)
+    shutil.copy(src / "mel_scaler.pkl", data_auto / "mel_scaler.pkl")
+    wavs = sorted(p for p in root.rglob("*.wav")
+                  if "truncated" not in p.name)[:N_SERVE]
+    lyrics = [f"{p.stem.replace('_', ' ')} la la la" for p in wavs]
+    enc = ClipEncoder.load("hybrid", results_dir=str(work / "hybrid_first"),
+                           data_dir=str(data_auto))
+    check(enc.pre_cfg.stft_method == "auto", "auto bundle")
+    w = enc.load_waveforms(wavs)
+    enc.encode_waveforms(w[:1], lyrics=lyrics[:1])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = enc.encode_waveforms(w, lyrics=lyrics)
+    enc_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    batches = -(-N_SERVE // BATCH)
+    check(counts["stft_features"] == batches and counts["stft_dense"] == 0
+          and counts["fusedconv_conv1"] == batches,
+          f"auto hybrid encode counts {counts}")
+    cpu = ClipEncoder.load("hybrid", results_dir=str(work / "hybrid_first"),
+                           data_dir=str(data_auto), device="cpu")
+    want = cpu.encode_waveforms(w, lyrics=lyrics)
+    err = float(np.abs(got.latents - want.latents).max())
+    scale = float(np.abs(want.latents).max())
+    check(np.isfinite(got.latents).all() and err <= 1e-3 * max(scale, 1.0),
+          f"auto hybrid latents off the CPU's by {err}")
+    same = int((got.clusters == want.clusters).sum())
+    check(same == N_SERVE, f"auto hybrid: {N_SERVE - same} cluster ids differ")
+    out["hybrid_auto_encode"] = {"encode_s": enc_s, "counts": counts,
+                                 "max_abs_err_vs_cpu": err,
+                                 "max_abs_latent": scale}
+    log(f"hybrid bundle with stft_method='auto': {N_SERVE} clips encoded in "
+        f"{enc_s * 1e3:.1f} ms, counts {counts}; latents within {err:.3g} "
+        f"of the CPU's (max |latent| {scale:.3g}), cluster ids equal")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2473,7 +2796,10 @@ def run(torch, dev, work: Path, card: str) -> int:
                          work / "preprocess" / "processed_data1", data2,
                          have_mpl)
 
-    # ---- 17. timing ---------------------------------------------------------
+    # ---- 17. kernel 1 at every geometry, ct, auto ---------------------------
+    geom = geometry_path(torch, dev, work, waves, flush)
+
+    # ---- 18. timing ---------------------------------------------------------
     nbins = N_FFT // 2 + 1
     fb = mel_filterbank(SR, N_FFT, N_MELS)
     frames = BATCH * n_frames
@@ -2858,8 +3184,30 @@ def run(torch, dev, work: Path, card: str) -> int:
     log("conv serving: " + json.dumps(conv_serving))
     log("lyrics encoder: " + json.dumps(text_enc))
     log("front end: " + json.dumps(front))
+    log("geometries: " + json.dumps(geom))
     log("tsne at the reference's N: " + json.dumps(tsne_ref))
     log("workflow: " + json.dumps(flow))
+    # kernel 1 per geometry: the main path's 2048 / 512 row above, then the
+    # timed geometries of phase 17 (launches: extract_basic_features there)
+    k1 = next(k for k in kernels if k["name"] == "stft_features")
+    k1["launches_auto_hybrid_encode"] = (
+        geom["hybrid_auto_encode"]["counts"]["stft_features"])
+    k1["launches_preprocess_basic_1024"] = (
+        geom["preprocess_basic_1024"]["counts"]["stft_features"])
+    k1["launches_preprocess_advanced_3072"] = (
+        geom["preprocess_advanced_3072"]["counts"]["stft_features"])
+    for row in geom["timed"]:
+        kernels.append({
+            "name": f"stft_features n_fft={row['n_fft']} hop={row['hop']}",
+            "route": "cuda", "source": "tpuvae_torch/csrc/stft_features.cu",
+            "replaces": "tpuvae/ops/stft.py:418", "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "path": f"extract_basic_features (auto) at n_fft {row['n_fft']} "
+                    f"/ hop {row['hop']}, 32 clips",
+            "bytes": row["bytes"], "flops": row["flops"],
+            "plan": row["plan"]})
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@ import) when no card is present.  Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: kernel 1 computes an fp32 radix-32 x 32 FFT in registers where
-the plain version calls cuFFT — rtol 1e-4 / atol 1e-6 x max power, rolloff within one bin
-(sr / n_fft); bf16 power within one bf16 step.  Kernels 2 and 3 equal;
+Tolerances: kernel 1 computes an fp32 radix-32 x 32 FFT in registers at
+n_fft 2048, and a mixed-radix FFT in shared memory at every other n_fft =
+256 q up to 5,888, where the plain version calls cuFFT — rtol 1e-4 / atol
+1e-6 x max power, rolloff within one bin (sr / n_fft; above 8 kHz the fp32
+frequency table's gaps are ~1e-3 Hz wider); bf16 power within one bf16
+step.  Kernels 2 and 3 equal;
 kernel 3 also at the main path's 32 and 128 rows of piptrack keys, on
 all-valid rows (its lists spill to global memory), on rows shorter than
 its cluster and on rows that start off a 16-byte boundary.
@@ -1302,3 +1305,155 @@ def test_plots_on_the_card_or_their_refusal(cuda, tmp_path):
         for png in ("reconstruction.png", "cvae_latent_tsne_genre.png",
                     "cluster_lang_distribution.png"):
             assert (out / "Conditional_VAE" / png).stat().st_size > 0
+
+
+# -- kernel 1 at every geometry of the JAX kernel --------------------------------
+
+def _one_bin_hz(n_fft):
+    """One bin of the rolloff's fp32 frequency table (sr / n_fft, widened by
+    fp32 rounding by ~1e-3 Hz above 8 kHz)."""
+    from tpuvae_torch.dsp.primitives import fft_frequencies
+
+    return max(SR / n_fft * 1.0001,
+               float(np.diff(fft_frequencies(SR, n_fft)).max()))
+
+
+def _hold_kernel_1(got, want, n_fft, exact):
+    pmax = want.power.float().max().item()
+    for name in ("power", "mel_power", "colmax"):
+        rtol = 2.0 ** -7 if (name == "power" and not exact) else 1e-4
+        torch.testing.assert_close(getattr(got, name).float(),
+                                   getattr(want, name).float(), rtol=rtol,
+                                   atol=1e-6 * pmax)
+    for name in ("centroid", "bandwidth", "rms", "zcr"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-4, atol=1e-6)
+    assert (got.rolloff - want.rolloff).abs().max().item() <= _one_bin_hz(n_fft)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("q", list(range(1, 24)))
+def test_stft_features_kernel_at_every_n_fft(cuda, q, exact):
+    """n_fft = 256 q (the register plan at 2048, the mixed-radix plan
+    elsewhere) at hop n_fft / 4 and n_fft, on a clip length that is not a
+    multiple of either."""
+    from tpuvae_torch.ops.stft import (
+        stft_fused_features,
+        stft_fused_features_plain,
+    )
+
+    n_fft = 256 * q
+    y = torch.from_numpy(_tones(2, 2 * SR + 101, q)).to(cuda)
+    for hop in (n_fft // 4, n_fft):
+        got = stft_fused_features(y, n_fft, hop, sr=SR, n_mels=128,
+                                  exact=exact)
+        want = stft_fused_features_plain(y, n_fft, hop, sr=SR, n_mels=128,
+                                         exact=exact)
+        torch.cuda.synchronize()
+        assert got.power.shape == (2, n_fft // 2 + 1, 1 + (2 * SR + 101) // hop)
+        _hold_kernel_1(got, want, n_fft, exact)
+
+
+@pytest.mark.parametrize("pad_mode", ["edge", "reflect"])
+@pytest.mark.parametrize("n_fft", [1024, 2048])
+def test_stft_features_kernel_pad_modes(cuda, n_fft, pad_mode):
+    from tpuvae_torch.dsp.primitives import stft_power
+    from tpuvae_torch.ops.stft import (
+        stft_fused_features,
+        stft_fused_features_plain,
+        stft_power_plain,
+    )
+
+    y = torch.from_numpy(_tones(2, SR + 7, 4) + 0.2).to(cuda)
+    hop = n_fft // 4
+    got = stft_fused_features(y, n_fft, hop, sr=SR, n_mels=128, exact=True,
+                              pad_mode=pad_mode)
+    want = stft_fused_features_plain(y, n_fft, hop, sr=SR, n_mels=128,
+                                     exact=True, pad_mode=pad_mode)
+    _hold_kernel_1(got, want, n_fft, True)
+    p = stft_power(y, n_fft, hop, pad_mode=pad_mode, method="ct_pallas")
+    w = stft_power_plain(y, n_fft, hop, pad_mode=pad_mode)
+    torch.testing.assert_close(p, w, rtol=1e-4, atol=1e-6 * w.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_fft", [1024, 3072])
+def test_tuning_kernel_equals_plain_at_other_n_fft(cuda, n_fft, dtype):
+    """Kernel 2 on kernel 1's power at another band, ``r8`` and list size."""
+    from tpuvae_torch.ops.stft import stft_fused_features
+    from tpuvae_torch.ops.tuning import estimate_tuning, estimate_tuning_plain
+
+    y = _tones(4, 4 * SR, 6)
+    y[2] = 0.0
+    fe = stft_fused_features(torch.from_numpy(y).to(cuda), n_fft, n_fft // 4,
+                             sr=SR, n_mels=128, exact=dtype == torch.float32)
+    assert fe.power.dtype == dtype
+    got = estimate_tuning(fe.power, fe.colmax, SR, n_fft)
+    want = estimate_tuning_plain(fe.power, fe.colmax, SR, n_fft)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert want[2].item() == 0.0
+
+
+def test_preprocess_basic_at_1024_on_the_card(cuda, tmp_path):
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import PreprocessConfig
+    from tpuvae_torch.io.artifacts import load_basic
+    from tpuvae_torch.io.synthetic import generate_dataset
+    from tpuvae_torch.pipelines import preprocess_basic
+    from tpuvae_torch.utils.logging import RunLogger
+
+    root = tmp_path / "Datasets"
+    meta = generate_dataset(root, clips_per_genre_lang=3, duration=2.0)
+    common = dict(duration=2.0, dataset_root=str(root), metadata_csv=str(meta),
+                  extract_batch=8, n_fft=1024, hop_length=256)
+    ops.reset_launch_counts()
+    r = preprocess_basic(PreprocessConfig(output_dir=str(tmp_path / "d1"),
+                                          **common),
+                         logger=RunLogger(echo=False))
+    counts = ops.launch_counts()
+    assert r["n"] == 18 and r["failed"] == []
+    assert counts["stft_features"] == counts["tuning"] == 3     # 8 + 8 + 2
+    assert counts["stft_dense"] == counts["masked_median_select"] == 0
+    c = preprocess_basic(PreprocessConfig(output_dir=str(tmp_path / "c1"),
+                                          **common), device="cpu",
+                         logger=RunLogger(echo=False))
+    np.testing.assert_allclose(load_basic(tmp_path / "d1")["features_raw"],
+                               load_basic(tmp_path / "c1")["features_raw"],
+                               rtol=0.02, atol=1.0)    # bf16 power, fast mode
+    assert c["n"] == 18
+
+
+def test_auto_off_the_kernel_domain_and_explicit_ct_pallas(cuda):
+    """n_fft 1000: explicit ct_pallas raises before any launch; auto runs
+    the fft route (kernel 3 for the tuning) and equals explicit fft."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import PreprocessConfig
+    from tpuvae_torch.dsp.features import extract_basic_features
+    from tpuvae_torch.dsp.primitives import stft_power
+
+    y = torch.from_numpy(_tones(3, 2 * SR, 8)).to(cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"256 \| n_fft"):
+        stft_power(y, 1000, 250, method="ct_pallas")
+    kw = dict(duration=2.0, n_fft=1000, hop_length=250)
+    auto = extract_basic_features(y, PreprocessConfig(**kw))
+    fft = extract_basic_features(y, PreprocessConfig(stft_method="fft", **kw))
+    counts = ops.launch_counts()
+    assert counts["stft_features"] == counts["tuning"] == 0
+    assert counts["masked_median_select"] == 2
+    torch.testing.assert_close(auto, fft, rtol=0, atol=0)
+    assert torch.isfinite(auto).all()
+
+
+def test_ct_method_on_the_card_matches_the_cpu(cuda):
+    from tpuvae_torch.dsp.primitives import stft_power
+
+    y = _tones(2, 2 * SR, 10)
+    window = np.hamming(3072).astype(np.float32)
+    got = stft_power(torch.from_numpy(y).to(cuda), 3072, 768, window=window,
+                     pad_mode="edge", method="ct")
+    want = stft_power(torch.from_numpy(y), 3072, 768, window=window,
+                      pad_mode="edge", method="ct")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-6 * want.max().item())

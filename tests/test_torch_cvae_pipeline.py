@@ -321,12 +321,12 @@ def test_conv_configs_match_jax_defaults():
 
     from tpuvae_torch import config as pc
 
-    for name in ("ConditionalVAEConfig", "HybridVAEConfig"):
+    for name in ("ConditionalVAEConfig", "HybridVAEConfig", "TrainConfig"):
         assert getattr(pc, name)().to_dict() == getattr(jc, name)().to_dict()
     args = ["--epochs=3", "--host_stream=true", "latent_dim=16"]
     assert (pc.ConditionalVAEConfig().override(args).to_dict()
             == jc.ConditionalVAEConfig().override(args).to_dict())
-    assert set(pc.DEFAULTS) == set(jc.DEFAULTS) - {"train"}
+    assert set(pc.DEFAULTS) == set(jc.DEFAULTS)
     assert pc.DEFAULTS["conditional_vae"] is pc.ConditionalVAEConfig
     with pytest.raises(KeyError):
         pc.HybridVAEConfig().override(["--bogus=1"])

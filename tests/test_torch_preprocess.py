@@ -332,8 +332,10 @@ def test_lyrics_checkpoint_is_never_silently_ignored(tmp_path, monkeypatch):
         embed_lyrics(["a"])
 
 
-def test_configs_match_jax_and_stft_method_is_read():
+def test_configs_match_jax_and_stft_method_is_read(clips):
     from tpuvae.config import AdvancedPreprocessConfig as JaxAdv
+    from tpuvae.config import PreprocessConfig as JaxConfig
+    from tpuvae.dsp.features import extract_basic_features as jextract
 
     from tpuvae_torch.config import AdvancedPreprocessConfig, PreprocessConfig
     from tpuvae_torch.dsp.features import extract_basic_features, resolve_numerics
@@ -349,8 +351,13 @@ def test_configs_match_jax_and_stft_method_is_read():
         True, "pallas")
     assert resolve_numerics(cfg, "fft") == (False, "fft")
     y = torch.zeros((1, 4096))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extract_basic_features(y, PreprocessConfig(stft_method="ct"))
+    # stft_method='ct' is read and runs the JAX package's Cooley-Tukey chain
+    kw = dict(duration=DURATION, precision_mode="exact", stft_method="ct")
+    want = jax.jit(lambda a: jextract(a, JaxConfig(**kw)))(
+        jnp.asarray(clips[:2]))
+    got = extract_basic_features(torch.from_numpy(clips[:2]),
+                                 PreprocessConfig(**kw))
+    _assert_flat_close(got.numpy(), want, rolloff_cols=(340, 341))
     with pytest.raises(ValueError, match="stft_method"):
         extract_basic_features(y, PreprocessConfig(stft_method="bogus"))
     with pytest.raises(ValueError, match="precision_mode"):
@@ -443,7 +450,7 @@ def test_mel_image_pads_short_clips_with_the_min(clips):
     assert (img[:, :, 87:] == img[:, :, :87].amin(dim=(1, 2), keepdim=True)).all()
 
 
-@pytest.mark.parametrize("method", ["fft", "dft", "pallas"])
+@pytest.mark.parametrize("method", ["fft", "dft", "pallas", "ct"])
 def test_basic_extractor_staged_methods_match_jax(clips, method):
     from tpuvae.config import PreprocessConfig as JaxConfig
     from tpuvae.dsp.features import extract_basic_features as jextract
@@ -850,10 +857,13 @@ def test_cli_synth_data_preprocess_and_preprocess_advanced(tmp_path, capsys):
     assert cli.main(["synth-data", f"--root={tmp_path / 'M'}",
                      "--container=mixed", "--clips_per_genre_lang=1"]) == 0
     assert len(list((tmp_path / "M").rglob("*.flac"))) == 3
+    # the ct method runs (the staged route), as the JAX package's does
     assert cli.main(["preprocess-advanced", "--stft_method=ct", *common,
-                     f"--output_dir={tmp_path / 'x'}"]) == 2
+                     "--fixed_time_steps=32",
+                     f"--output_dir={tmp_path / 'x'}"]) == 0
+    assert load_advanced(tmp_path / "x", mmap=True)["mel"].shape == (6, 128, 32)
     err = capsys.readouterr().err
-    assert "bogus" in err and "ROADMAP" in err
+    assert "bogus" in err
     assert cli.main(["nonsense"]) == 2
     assert "preprocess-advanced" in capsys.readouterr().err
 

@@ -166,18 +166,25 @@ def test_stft_power_custom_window_and_pad_mode_match_jax(method):
 
 
 def test_stft_power_refuses_what_it_does_not_run():
+    from tpuvae.dsp import stft_power as jax_stft_power
+
     from tpuvae_torch.dsp.primitives import frame_signal, stft_power
 
     y = torch.zeros((1, 4096))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stft_power(y, method="ct")
+    # 'ct' runs, as the JAX package's does
+    x = _noise((1, 4096), seed=11)
+    _close(stft_power(torch.from_numpy(x), method="ct").numpy(),
+           jax_stft_power(jnp.asarray(x), method="ct"))
     with pytest.raises(ValueError, match="stft method"):
         stft_power(y, method="bogus")
     for method in ("pallas", "ct_pallas"):
         with pytest.raises(ValueError, match="window"):
             stft_power(y, window=np.ones(2048, np.float32), method=method)
+    # ct_pallas takes edge padding; it refuses what the JAX kernel refuses
     with pytest.raises(ValueError, match="pad_mode"):
-        stft_power(y, pad_mode="edge", method="ct_pallas")
+        stft_power(y, pad_mode="symmetric", method="ct_pallas")
+    with pytest.raises(ValueError, match=r"256 \| n_fft and hop \| n_fft"):
+        stft_power(y, 2048, 500, method="ct_pallas")
     with pytest.raises(ValueError, match="hop"):
         stft_power(y, 2048, 500, method="pallas")
     with pytest.raises(ValueError, match="pad_mode"):

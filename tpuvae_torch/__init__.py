@@ -46,3 +46,13 @@ Layers, mirroring ``tpuvae/``:
 """
 
 __version__ = "0.1.0"
+
+from tpuvae_torch.config import (  # noqa: F401
+    PreprocessConfig,
+    AdvancedPreprocessConfig,
+    SimpleVAEConfig,
+    ConditionalVAEConfig,
+    HybridVAEConfig,
+    TrainConfig,
+    ClusterConfig,
+)

@@ -27,10 +27,12 @@ loader (built with g++ at first use), FLAC and WAV alike.
 features and lyrics embeddings into ``processed_data2/``.  ``--key=value``
 overrides map onto ``PreprocessConfig`` / ``AdvancedPreprocessConfig``
 (``--duration=2.0``, ``--extract_batch=8``, ``--stft_method=pallas``, ...);
-extra flag: ``--device`` (default cuda).  ``stft_method``: ``auto`` =
-the fused FFT kernel with the fused tuning kernel; ``pallas`` = the
-dense-DFT kernel with the staged tuning route; ``fft`` / ``dft`` = library
-FFT / dense matmuls with the staged route.  ``$TPUVAE_TEXT_CHECKPOINT``
+extra flag: ``--device`` (default cuda).  ``stft_method``: ``ct_pallas``
+= the fused FFT kernel with the fused tuning kernel (n_fft = 256 q up to
+5,888, hop | n_fft); ``auto`` = ``ct_pallas`` where it takes the geometry,
+else ``fft``; ``pallas`` = the dense-DFT kernel with the staged tuning
+route; ``fft`` / ``dft`` / ``ct`` = library FFT / dense matmuls / the
+Cooley-Tukey matmul chain with the staged route.  ``$TPUVAE_TEXT_CHECKPOINT``
 (a directory with ``pytorch_model.bin``, an optional ``config.json`` and a
 sentencepiece ``*.model``) embeds the lyrics with the XLM-R sentence
 encoder on ``--device``; unset, by hashed n-grams.

@@ -2,8 +2,9 @@
 
 The dict round trip, ``key=value`` overrides, and the configs the ported
 slices read — ``PreprocessConfig``, ``AdvancedPreprocessConfig``,
-``SimpleVAEConfig``, ``ConditionalVAEConfig``, ``HybridVAEConfig`` and
-``ClusterConfig`` — with the same fields and defaults as the JAX package,
+``SimpleVAEConfig``, ``ConditionalVAEConfig``, ``HybridVAEConfig``,
+``TrainConfig`` and ``ClusterConfig`` — with the same fields and defaults
+as the JAX package,
 so a ``config.pkl`` written by either pipeline loads here.
 """
 
@@ -214,6 +215,22 @@ class HybridVAEConfig(_ConfigBase):
 
 
 @dataclass(frozen=True)
+class TrainConfig(_ConfigBase):
+    """Cross-cutting training/runtime options (``tpuvae/config.py:239``).
+    The port reads none of them yet: the mesh item takes ``mesh_*``, the
+    bf16 item ``compute_dtype``; the rest are the JAX package's knobs."""
+
+    mesh_shape: tuple = (-1,)        # -1 = all devices on the 'data' axis
+    mesh_axes: tuple = ("data",)
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"   # 'bfloat16' for large models
+    checkpoint_dir: str = "checkpoints"
+    restore_best: bool = True
+    log_every: int = 10
+    profile: bool = False
+
+
+@dataclass(frozen=True)
 class ClusterConfig(_ConfigBase):
     """Clustering/eval settings covering all three reference sweeps."""
 
@@ -239,5 +256,6 @@ DEFAULTS = {
     "simple_vae": SimpleVAEConfig,
     "conditional_vae": ConditionalVAEConfig,
     "hybrid_vae": HybridVAEConfig,
+    "train": TrainConfig,
     "cluster": ClusterConfig,
 }

@@ -166,6 +166,69 @@ def estimate_tuning_batch(s_power: torch.Tensor, sr: int, n_fft: int,
                         bins_per_octave)
 
 
+def estimate_tuning_from_power(s_power: torch.Tensor, sr: int, n_fft: int,
+                               resolution: float = 0.01,
+                               bins_per_octave: int = 12) -> torch.Tensor:
+    """librosa.estimate_tuning for one clip ``(n_bins, T)`` -> scalar in
+    [-0.5, 0.5) bins: :func:`estimate_tuning_batch` on a batch of one,
+    staged route (the median through kernel 3 on a CUDA tensor)."""
+    return estimate_tuning_batch(s_power[None], sr, n_fft, None, resolution,
+                                 bins_per_octave, route="staged")[0]
+
+
+def _hz_to_octs(freq: torch.Tensor, tuning, bins_per_octave: int = 12):
+    a440 = 440.0 * 2.0 ** (tuning / bins_per_octave)
+    return torch.log2(16.0 * freq / a440)
+
+
+def chroma_filterbank(sr: int, n_fft: int, tuning, n_chroma: int = 12,
+                      ctroct: float = 5.0, octwidth: float = 2.0
+                      ) -> torch.Tensor:
+    """librosa.filters.chroma as a torch function of the tuning (a float
+    or a 0-d tensor): ``(n_chroma, 1 + n_fft//2)`` fp32 with L2-normalised
+    columns, Gaussian octave weighting and the base-C roll — the
+    arithmetic of ``tpuvae/dsp/chroma.py:27`` in fp32."""
+    dev = tuning.device if isinstance(tuning, torch.Tensor) else None
+    tuning = torch.as_tensor(tuning, dtype=torch.float32, device=dev)
+    frequencies = torch.from_numpy(np.linspace(
+        0, sr, n_fft, endpoint=False)[1:].astype(np.float32)).to(dev)
+    frqbins = n_chroma * _hz_to_octs(frequencies, tuning, n_chroma)
+    frqbins = torch.cat([frqbins[:1] - 1.5 * n_chroma, frqbins])
+    binwidth = torch.cat([torch.clamp(frqbins[1:] - frqbins[:-1], min=1.0),
+                          torch.ones(1, device=dev)])
+    d = frqbins[None, :] - torch.arange(n_chroma, dtype=torch.float32,
+                                        device=dev)[:, None]
+    half = round(n_chroma / 2)
+    d = torch.remainder(d + half + 10 * n_chroma, n_chroma) - half
+    wts = torch.exp(-0.5 * (2.0 * d / binwidth[None, :]) ** 2)
+    length = torch.sqrt(torch.sum(wts ** 2, dim=0, keepdim=True))
+    tiny = float(np.finfo(np.float32).tiny)
+    length = torch.where(length < tiny, torch.ones_like(length), length)
+    wts = wts / length
+    wts = wts * torch.exp(
+        -0.5 * (((frqbins / n_chroma - ctroct) / octwidth) ** 2))[None, :]
+    wts = torch.roll(wts, -3 * (n_chroma // 12), dims=0)
+    return wts[:, : 1 + n_fft // 2]
+
+
+def chroma_from_power(s_power: torch.Tensor, sr: int, n_fft: int,
+                      n_chroma: int = 12, tuning=None) -> torch.Tensor:
+    """librosa.feature.chroma_stft for one clip ``(n_bins, T) ->
+    (n_chroma, T)``, max-normalised per frame; ``tuning=None`` estimates it
+    from the clip (:func:`estimate_tuning_from_power`).  A bf16
+    spectrogram is projected with the filterbank rounded to bf16, as
+    :func:`chroma_batch` does."""
+    if tuning is None:
+        tuning = estimate_tuning_from_power(s_power, sr, n_fft,
+                                            bins_per_octave=n_chroma)
+    fb = chroma_filterbank(sr, n_fft, tuning, n_chroma=n_chroma).to(
+        s_power.device)
+    if s_power.dtype == torch.bfloat16:
+        fb = fb.to(torch.bfloat16)
+    raw = torch.matmul(fb.float(), s_power.float())
+    return normalize_inf(raw, dim=0)
+
+
 @functools.lru_cache(maxsize=4)
 def _chroma_fb_table(sr: int, n_fft: int, n_chroma: int,
                      resolution: float) -> np.ndarray:

@@ -10,10 +10,11 @@ One STFT per batch of clips, every feature derived from it:
     ``1_preprocessing_advanced.py:120-156`` (no MFCC);
   * ``extract_advanced``: the last two from one shared STFT.
 
-``stft_method`` picks the front end (:func:`resolve_numerics`): ``'auto'``
-and ``'ct_pallas'`` run the fused front end (kernel 1) and estimate the
-tuning with kernel 2; every other method (``'pallas'`` = kernel 4,
-``'fft'``, ``'dft'``) runs the staged front end — fp32 power from
+``stft_method`` picks the front end (:func:`resolve_numerics`):
+``'ct_pallas'``, and ``'auto'`` where kernel 1 takes the geometry, run
+the fused front end (kernel 1) and estimate the tuning with kernel 2;
+every other method (``'pallas'`` = kernel 4, ``'fft'``, ``'dft'``,
+``'ct'``) runs the staged front end — fp32 power from
 :func:`tpuvae_torch.dsp.primitives.stft_power`, then the plain spectral
 functions below — and the staged tuning route (kernel 3).
 
@@ -129,9 +130,11 @@ def resolve_numerics(cfg, stft_method: str | None = None) -> tuple[bool, str]:
     ``precision_mode='exact'`` keeps the power spectrogram in fp32;
     ``'fast'`` stores it as bfloat16 on the fused route (the staged route
     keeps fp32 power in both modes).  An explicit ``stft_method`` (argument
-    or config) wins over ``'auto'``; ``'auto'`` is the fused front end,
-    ``'ct_pallas'``: kernel 1 on a CUDA tensor, its plain version on a CPU
-    tensor.
+    or config) wins over ``'auto'``; ``'auto'`` resolves through
+    :func:`tpuvae_torch.dsp.primitives.resolve_stft_method`: the fused
+    front end, ``'ct_pallas'`` (kernel 1 on a CUDA tensor, its plain
+    version on a CPU tensor), where kernel 1 takes ``(n_fft, hop_length)``,
+    else ``'fft'``.
     """
     mode = getattr(cfg, "precision_mode", "exact")
     if mode not in ("exact", "fast"):
@@ -140,9 +143,8 @@ def resolve_numerics(cfg, stft_method: str | None = None) -> tuple[bool, str]:
     if method not in prim.STFT_METHODS:
         raise ValueError(f"stft_method must be one of {prim.STFT_METHODS}, "
                          f"got {method!r}")
-    if method == "auto":
-        method = "ct_pallas"
-    return mode == "exact", method
+    return mode == "exact", prim.resolve_stft_method(method, cfg.n_fft,
+                                                      cfg.hop_length)
 
 
 def _spectral_front_end(y: torch.Tensor, cfg, exact: bool,

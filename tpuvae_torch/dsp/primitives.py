@@ -6,7 +6,8 @@ tensor functions the extractors need, in PyTorch:
 
   * ``hann_window``: periodic Hann window (scipy ``get_window('hann')``);
   * ``frame_signal`` / ``stft_power``: centred frames and the power
-    spectrogram, by one of five methods (two of them CUDA kernels);
+    spectrogram, by one of five methods (two of them CUDA kernels), and
+    :func:`resolve_stft_method`, what ``'auto'`` runs;
   * ``mel_filterbank``: Slaney mel scale, ``norm='slaney'``;
   * ``power_to_db``: ``10*log10(max(S, amin))`` relative to ``ref``,
     floored at ``max - top_db`` per clip;
@@ -75,6 +76,77 @@ def _dft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
 
 STFT_METHODS = ("auto", "ct_pallas", "pallas", "fft", "dft", "ct")
 
+_CT_N2 = 128  # inner DFT length of the 'ct' method's Cooley-Tukey chain
+
+
+def resolve_stft_method(method: str, n_fft: int, hop_length: int, *,
+                        window: np.ndarray | None = None,
+                        pad_mode: str = "constant") -> str:
+    """The method ``stft_power`` and the extractors run for ``method``.
+
+    ``'auto'`` is kernel 1 (``'ct_pallas'``) where its wrapper takes the
+    geometry (:func:`tpuvae_torch.ops.stft.stft_kernel_supports`) with the
+    Hann window and constant padding, the JAX package's domain and
+    defaults for that kernel; everywhere else it is ``'fft'``.  It decides
+    from the geometry alone, before any launch, and never raises for a
+    valid one.  Any other name is returned as it is (``ValueError`` for an
+    unknown one)."""
+    if method not in STFT_METHODS:
+        raise ValueError(f"stft method must be one of {STFT_METHODS}, got "
+                         f"{method!r}")
+    if method != "auto":
+        return method
+    from tpuvae_torch.ops.stft import stft_kernel_supports
+
+    if (window is None and pad_mode == "constant"
+            and stft_kernel_supports(n_fft, hop_length)):
+        return "ct_pallas"
+    return "fft"
+
+
+@functools.lru_cache(maxsize=4)
+def _ct_basis(n_fft: int) -> tuple[np.ndarray, ...]:
+    """Constant matrices of the two-stage Cooley-Tukey real DFT (own copy
+    of ``tpuvae/dsp/primitives.py:94``): with ``n = n1 + N1 n2`` and
+    ``k = k2 + N2 k1`` (N2 = 128 inner bins, N1 = n_fft / 128 outer),
+    ``X[k2 + N2 k1] = sum_n1 W_N1^(n1 k1) W_N^(n1 k2) sum_n2
+    x[n1 + N1 n2] W_N2^(n2 k2)``; only ``N1 / 2 + 1`` outer rows are
+    evaluated.  Built in float64, cast once to fp32."""
+    n2 = _CT_N2
+    n1 = n_fft // n2
+    k1 = n1 // 2 + 1
+    a = np.arange(n2, dtype=np.float64)
+    inner = 2.0 * np.pi * a[:, None] * a[None, :] / n2
+    f = np.arange(n1, dtype=np.float64)
+    tw = 2.0 * np.pi * f[:, None] * a[None, :] / n_fft
+    out = 2.0 * np.pi * f[:, None] * np.arange(k1)[None, :] / n1
+    f32 = lambda x: x.astype(np.float32)  # noqa: E731
+    return (f32(np.cos(inner)), f32(-np.sin(inner)), f32(np.cos(tw)),
+            f32(-np.sin(tw)), f32(np.cos(out)), f32(-np.sin(out)))
+
+
+def _stft_power_ct(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Power of windowed ``frames (B, T, n_fft)`` -> ``(B, T, n_bins)`` by
+    the Cooley-Tukey chain of :func:`_ct_basis` as fp32 matmuls (the JAX
+    package leaves it to XLA outside any kernel)."""
+    n2 = _CT_N2
+    n1 = n_fft // n2
+    cre, cim, twre, twim, ere, eim = (torch.from_numpy(m).to(frames.device)
+                                      for m in _ct_basis(n_fft))
+    fr = frames.reshape(*frames.shape[:-1], n2, n1)
+    b1re = torch.einsum("...nf,nk->...fk", fr, cre)
+    b1im = torch.einsum("...nf,nk->...fk", fr, cim)
+    c_re = b1re * twre - b1im * twim
+    c_im = b1re * twim + b1im * twre
+    xre = (torch.einsum("...fk,fl->...kl", c_re, ere)
+           - torch.einsum("...fk,fl->...kl", c_im, eim))
+    xim = (torch.einsum("...fk,fl->...kl", c_re, eim)
+           + torch.einsum("...fk,fl->...kl", c_im, ere))
+    power = xre * xre + xim * xim                    # [..., k2, k1]
+    k1 = n1 // 2 + 1
+    power = power.transpose(-1, -2).reshape(*frames.shape[:-1], k1 * n2)
+    return power[..., : n_fft // 2 + 1]
+
 
 def stft_power(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 512, *,
                window: np.ndarray | None = None, pad_mode: str = "constant",
@@ -82,49 +154,46 @@ def stft_power(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 512, *,
     """Power spectrogram ``|STFT|^2`` of shape ``(B, n_fft//2+1, n_frames)``,
     fp32.  The methods keep the JAX package's names:
 
-    * ``'ct_pallas'`` (and ``'auto'``): kernel 1 without its epilogue
+    * ``'ct_pallas'``: kernel 1 without its epilogue
       (:func:`tpuvae_torch.ops.stft.stft_power`), an fp32 FFT per frame;
     * ``'pallas'``: kernel 4, the dense-DFT products
       (:func:`tpuvae_torch.ops.stft.stft_power_dense`);
     * ``'fft'``: ``torch.fft.rfft`` on the framed signal;
     * ``'dft'``: two ``torch.matmul`` against the cos / sin bases, outside
       any kernel, as the JAX package computes it;
-    * ``'ct'``: the JAX package's XLA Cooley-Tukey lowering, not ported.
+    * ``'ct'``: the JAX package's two-stage Cooley-Tukey chain of fp32
+      matmuls (n_fft a multiple of 256);
+    * ``'auto'``: :func:`resolve_stft_method`.
 
     The two kernel methods run their plain versions on a CPU tensor.  They
     bake in the Hann window: a custom ``window=`` is only supported by
-    ``'fft'`` and ``'dft'``.
+    ``'fft'``, ``'dft'`` and ``'ct'``.
     """
-    if method not in STFT_METHODS:
-        raise ValueError(f"stft method must be one of {STFT_METHODS}, got "
-                         f"{method!r}")
-    if method == "auto":
-        method = "ct_pallas"
-    if method == "ct":
-        raise NotImplementedError(
-            "stft method 'ct' (the XLA Cooley-Tukey reference lowering) is "
-            "not ported to tpuvae_torch (ROADMAP.md, queue 1, item 9); use "
-            "'fft', 'dft', 'pallas' or 'ct_pallas'")
+    method = resolve_stft_method(method, n_fft, hop_length, window=window,
+                                 pad_mode=pad_mode)
     if method in ("pallas", "ct_pallas"):
         if window is not None:
             raise ValueError(
                 f"method={method!r} bakes in the hann window; custom "
-                f"window= is only supported by 'fft'/'dft'")
+                f"window= is only supported by 'fft'/'dft'/'ct'")
         from tpuvae_torch.ops import stft as ops_stft
 
         if method == "pallas":
             return ops_stft.stft_power_dense(y, n_fft, hop_length,
                                              pad_mode=pad_mode)
-        if pad_mode != "constant":
-            raise ValueError("method='ct_pallas' pads with zeros; "
-                             f"pad_mode={pad_mode!r} needs another method")
-        return ops_stft.stft_power(y, n_fft, hop_length)
+        return ops_stft.stft_power(y, n_fft, hop_length, pad_mode=pad_mode)
+    if method == "ct" and n_fft % (2 * _CT_N2):
+        raise ValueError(
+            f"method='ct' requires n_fft to be a multiple of "
+            f"{2 * _CT_N2}; got {n_fft} (use 'dft' or 'fft')")
     if window is None:
         window = hann_window(n_fft)
     frames = frame_signal(y, n_fft, hop_length, pad_mode=pad_mode)
     frames = frames * torch.from_numpy(
         np.asarray(window, np.float32)).to(y.device)
-    if method == "dft":
+    if method == "ct":
+        power = _stft_power_ct(frames, n_fft)
+    elif method == "dft":
         cos_b, sin_b = (torch.from_numpy(m).to(y.device)
                         for m in _dft_basis(n_fft))
         re = torch.matmul(frames, cos_b)

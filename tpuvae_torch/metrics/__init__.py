@@ -1,2 +1,22 @@
 """Clustering metrics (counterpart of ``tpuvae.metrics``): labels, the
-pairwise distances of kernel 5, and the internal quality scores."""
+pairwise distances of kernel 5, and the internal and external quality
+scores.  ``silhouette_sharded`` waits for the mesh item (ROADMAP.md)."""
+
+from tpuvae_torch.metrics.pairwise import (  # noqa: F401
+    squared_distances,
+    distances,
+    self_distances,
+)
+from tpuvae_torch.metrics.internal import (  # noqa: F401
+    silhouette_score,
+    silhouette_from_distances,
+    davies_bouldin_score,
+    calinski_harabasz_score,
+)
+from tpuvae_torch.metrics.external import (  # noqa: F401
+    contingency,
+    purity_score,
+    adjusted_rand_score,
+    normalized_mutual_info,
+)
+from tpuvae_torch.metrics.labels import compact_labels, encode_labels, one_hot_np  # noqa: F401

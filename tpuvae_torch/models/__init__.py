@@ -12,6 +12,7 @@ from tpuvae_torch.models.layers import (  # noqa: F401
     MLPBlock,
     Stride2Conv,
     Stride2ConvTranspose,
+    reparameterize,
 )
 from tpuvae_torch.models.simple_vae import (  # noqa: F401
     SimpleVAE,

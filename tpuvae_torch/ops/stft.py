@@ -19,7 +19,13 @@ Mosaic's DMA alignment and have no counterpart here.
 
 On a CUDA tensor the CUDA kernel ``csrc/stft_features.cu`` runs; on a CPU
 tensor the plain PyTorch version does (``torch.fft.rfft`` on framed input
-plus the staged features of :mod:`tpuvae_torch.dsp.features`).
+plus the staged features of :mod:`tpuvae_torch.dsp.features`).  Kernel 1
+takes the geometries of the JAX kernel (:func:`stft_kernel_supports`):
+every ``n_fft = 256 q``, ``q = 1 .. 23``, with any hop that divides it.
+``n_fft`` 2048 runs the radix-32 x 32 register plan; every other size a
+mixed-radix plan (:func:`_radix_plan`) in shared memory.  A non-constant
+``pad_mode`` is applied here, on the card, and the kernel reads the padded
+signal, as the JAX wrappers pad on the host.
 
 Kernel 4 (``csrc/stft_dense.cu``) is the counterpart of
 ``tpuvae/ops/stft.py``'s ``stft_power_pallas``: the same power spectrogram
@@ -39,15 +45,39 @@ import torch
 from tpuvae_torch.dsp import primitives as prim
 from tpuvae_torch.ops import _build
 
-KERNEL_N_FFT = (2048,)   # sizes the CUDA kernel is instantiated for
+KERNEL_MAX_N_FFT = 5888   # 256 x 23: the largest size of the JAX kernel
+_REGISTER_PLAN_N_FFT = 2048   # the radix-32 x 32 register plan's size
+_POW2_RADICES = (16, 8, 4, 2)
+_ODD_RADICES = (3, 5, 7, 11, 13, 17, 19, 23)   # the primes of q <= 23
 
 STFT_FEATURES = _build.Kernel(
     "stft_features", "stft_features", "tpuvae_stft_features",
-    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
+
+def stft_kernel_supports(n_fft: int, hop_length: int) -> bool:
+    """Geometry predicate of kernel 1, the counterpart of
+    ``tpuvae.ops.stft.ct_pallas_supports``: ``256 | n_fft`` with
+    ``n_fft <= 5888`` (the JAX kernel's largest size: its VMEM model takes
+    5888 at hops 1-8 and refuses every larger size) and ``hop | n_fft``.
+    Every hop is taken: a warp reads its frame from the waveform wherever
+    it starts, so only the shared-memory plan, which depends on ``n_fft``
+    alone, bounds it."""
+    return (256 <= n_fft <= KERNEL_MAX_N_FFT and n_fft % 256 == 0
+            and hop_length > 0 and n_fft % hop_length == 0)
+
+
+def _check_kernel_geometry(n_fft: int, hop_length: int) -> None:
+    if not stft_kernel_supports(n_fft, hop_length):
+        # the JAX wrappers' words (tpuvae/ops/stft.py:917-921)
+        raise ValueError(
+            f"ct_pallas requires 256 | n_fft and hop | n_fft; got "
+            f"n_fft={n_fft}, hop={hop_length}")
 
 
 class FusedFrontEnd(NamedTuple):
@@ -72,28 +102,36 @@ def _check_waveform(y: torch.Tensor) -> None:
         raise ValueError(f"y must be float32, got {y.dtype}")
 
 
-def stft_power_plain(y: torch.Tensor, n_fft: int = 2048,
-                     hop_length: int = 512) -> torch.Tensor:
-    """Plain STFT power ``(B, n_fft//2+1, T)`` fp32: centred, zero-padded,
-    periodic-Hann-windowed frames through ``torch.fft.rfft``."""
-    half = n_fft // 2
-    frames = torch.nn.functional.pad(y, (half, half)).unfold(-1, n_fft,
-                                                              hop_length)
-    window = torch.from_numpy(prim.hann_window(n_fft)).to(y.device)
+def _frame_power(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
+    window = torch.from_numpy(prim.hann_window(n_fft)).to(frames.device)
     spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)
     power = spec.real * spec.real + spec.imag * spec.imag
     return power.transpose(1, 2).contiguous()
 
 
+def stft_power_plain(y: torch.Tensor, n_fft: int = 2048,
+                     hop_length: int = 512, *,
+                     pad_mode: str = "constant") -> torch.Tensor:
+    """Plain STFT power ``(B, n_fft//2+1, T)`` fp32: centred frames
+    (padded by ``pad_mode``), periodic-Hann-windowed, through
+    ``torch.fft.rfft``."""
+    return _frame_power(
+        prim.frame_signal(y, n_fft, hop_length, pad_mode=pad_mode), n_fft)
+
+
 def stft_fused_features_plain(y: torch.Tensor, n_fft: int = 2048,
                               hop_length: int = 512, *, sr: float,
-                              n_mels: int, exact: bool = False
-                              ) -> FusedFrontEnd:
-    """Plain version of kernel 1 (same function, staged PyTorch ops)."""
+                              n_mels: int, exact: bool = False,
+                              pad_mode: str = "constant") -> FusedFrontEnd:
+    """Plain version of kernel 1 (same function, staged PyTorch ops).  The
+    power and rms come from the frames of the signal padded by
+    ``pad_mode`` (the JAX kernel reads the padded signal for both); zcr
+    keeps librosa's edge semantics whatever the mode."""
     from tpuvae_torch.dsp import features as feat
 
     _check_waveform(y)
-    power = stft_power_plain(y, n_fft, hop_length)
+    frames = prim.frame_signal(y, n_fft, hop_length, pad_mode=pad_mode)
+    power = _frame_power(frames, n_fft)
     s_mag = torch.sqrt(power)
     freqs = torch.from_numpy(prim.fft_frequencies(sr, n_fft)).to(y.device)
     cent = feat.spectral_centroid(s_mag, freqs)
@@ -104,9 +142,17 @@ def stft_fused_features_plain(y: torch.Tensor, n_fft: int = 2048,
         bandwidth=feat.spectral_bandwidth(s_mag, freqs, cent),
         rolloff=feat.spectral_rolloff(s_mag, freqs),
         zcr=feat.zero_crossing_rate(y, n_fft, hop_length),
-        rms=feat.rms(y, n_fft, hop_length),
+        rms=torch.sqrt(torch.sum(frames * frames, dim=-1) / n_fft),
         colmax=torch.amax(power, dim=1),
     )
+
+
+def _unit(ang: np.ndarray) -> np.ndarray:
+    """``exp(i ang)`` as ``(..., 2)`` fp32 (cos, sin), with the float64
+    values within 1e-12 of zero snapped to it."""
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    tw[np.abs(tw) < 1e-12] = 0.0
+    return tw.astype(np.float32)
 
 
 def _fft_tables(n_fft: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -118,22 +164,72 @@ def _fft_tables(n_fft: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     m = n_fft // 2
     if m != 32 * 32:
         raise ValueError(f"the radix-32 x 32 FFT takes n_fft 2048, got {n_fft}")
-
-    def unit(ang):
-        tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
-        tw[np.abs(tw) < 1e-12] = 0.0
-        return tw.astype(np.float32)
-
     k = np.arange(m + 1, dtype=np.float64)
     lk = np.outer(np.arange(32, dtype=np.float64), np.arange(32))
-    return (prim.hann_window(n_fft), unit(-2.0 * np.pi * k / n_fft),
-            unit(-2.0 * np.pi * lk / m))
+    return (prim.hann_window(n_fft), _unit(-2.0 * np.pi * k / n_fft),
+            _unit(-2.0 * np.pi * lk / m))
+
+
+def _radix_plan(m: int) -> tuple[int, ...]:
+    """The radices of the mixed-radix plan of an ``m``-point complex FFT,
+    ``m = 128 q``: the odd primes of ``m`` first (their first-stage
+    reads, at an odd stride, take 32 banks), then powers of two no larger
+    than 16 nor than ``m / 32``, so that every stage has a butterfly for
+    each lane."""
+    plan, rest = [], m
+    for p in _ODD_RADICES:
+        while rest % p == 0:
+            plan.append(p)
+            rest //= p
+    cap = max(r for r in _POW2_RADICES if r <= max(2, m // 32))
+    while rest > 1:
+        r = max(x for x in _POW2_RADICES if x <= cap and rest % x == 0)
+        plan.append(r)
+        rest //= r
+    if int(np.prod(plan)) != m:
+        raise ValueError(f"no radix plan for a {m}-point FFT")
+    return tuple(plan)
+
+
+def _digit_reversal(plan: tuple[int, ...]) -> np.ndarray:
+    """``perm[i]``: the input point that position ``i`` holds before the
+    in-place decimation-in-time stages of ``plan`` (last radix outermost:
+    position ``r L + i'`` holds point ``r + R perm_L[i']``)."""
+    perm = np.zeros(1, np.int64)
+    for radix in plan:
+        perm = (np.arange(radix)[:, None] + radix * perm[None, :]).reshape(-1)
+    return perm
+
+
+def _general_tables(n_fft: int):
+    """Host tables of kernel 1's mixed-radix plan (any size but 2048),
+    built in float64 and cast to fp32: the periodic Hann window; the split
+    twiddles ``exp(-2 pi i k / n_fft)``, ``k = 0 .. m``; the ``m``-point
+    twiddles ``exp(-2 pi i k / m)``, ``k < m`` (every stage's and every
+    odd radix's, by stride); the inverse digit reversal as int32 (point
+    ``n`` goes to position ``iperm[n]``); and the plan packed 6 bits a
+    radix, first stage lowest."""
+    m = n_fft // 2
+    plan = _radix_plan(m)
+    iperm = np.empty(m, np.int32)
+    iperm[_digit_reversal(plan)] = np.arange(m, dtype=np.int32)
+    code = sum(r << (6 * s) for s, r in enumerate(plan))
+    return (prim.hann_window(n_fft),
+            _unit(-2.0 * np.pi * np.arange(m + 1, dtype=np.float64) / n_fft),
+            _unit(-2.0 * np.pi * np.arange(m, dtype=np.float64) / m),
+            iperm, code)
 
 
 @functools.lru_cache(maxsize=8)
 def _fft_consts(device: str, n_fft: int):
-    """:func:`_fft_tables` on ``device``."""
-    return tuple(torch.from_numpy(t).to(device) for t in _fft_tables(n_fft))
+    """The kernel's tables for ``n_fft`` on ``device``: ``(window, split
+    twiddles, exchange or m-point twiddles, iperm or None, plan code)``."""
+    if n_fft == _REGISTER_PLAN_N_FFT:
+        tables = (*_fft_tables(n_fft), None, 0)
+    else:
+        tables = _general_tables(n_fft)
+    return tuple(torch.from_numpy(t).to(device) if isinstance(t, np.ndarray)
+                 else t for t in tables)
 
 
 def _mel_csr(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -164,20 +260,22 @@ def _epilogue_consts(device: str, sr: float, n_fft: int, n_mels: int):
 
 def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
             power_dtype: torch.dtype, sr: float | None = None,
-            n_mels: int = 0):
-    """Run kernel 1; with ``sr`` given also its epilogue (mel + stats)."""
+            n_mels: int = 0, pad_mode: str = "constant"):
+    """Run kernel 1; with ``sr`` given also its epilogue (mel + stats).
+    A non-constant ``pad_mode`` pads ``y`` here and hands the kernel the
+    padded rows with the offset of each row's first sample (``origin``);
+    the kernel's zcr counts only the pairs inside the true samples."""
     _check_waveform(y)
     if not y.is_contiguous():
         raise ValueError("y must be contiguous")
-    if n_fft not in KERNEL_N_FFT:
-        raise ValueError(f"the CUDA STFT kernel supports n_fft in "
-                         f"{KERNEL_N_FFT}, got {n_fft}")
-    if hop_length <= 0:
-        raise ValueError(f"hop_length must be positive, got {hop_length}")
     b, n_samples = y.shape
     t = prim.num_frames(n_samples, hop_length)
     dev = y.device
-    window, tw, xtw = _fft_consts(str(dev), n_fft)
+    if pad_mode == "constant":
+        buf, origin = y, 0
+    else:
+        buf, origin = prim.center_pad(y, n_fft, pad_mode).contiguous(), n_fft // 2
+    window, tw, xtw, iperm, plan = _fft_consts(str(dev), n_fft)
     power = torch.empty((b, n_fft // 2 + 1, t), dtype=power_dtype, device=dev)
     null = ctypes.c_void_p(None)
     freqs = mel_w = mel_meta = mel = stats = None
@@ -189,33 +287,38 @@ def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
         stats = torch.empty((6, b, t), dtype=torch.float32, device=dev)
     p = lambda x: null if x is None else _build.ptr(x)  # noqa: E731
     STFT_FEATURES(
-        _build.ptr(y), b, n_samples, n_fft, hop_length, t, p(window), p(tw),
-        p(xtw), p(freqs), p(mel_w), p(mel_meta), n_mels,
-        0 if mel_w is None else mel_w.numel(), p(power),
-        int(power_dtype == torch.bfloat16), p(mel), p(stats),
+        _build.ptr(buf), b, buf.shape[1], origin, n_samples, n_fft,
+        hop_length, t, p(window), p(tw), p(xtw), p(iperm), plan, p(freqs),
+        p(mel_w), p(mel_meta), n_mels, 0 if mel_w is None else mel_w.numel(),
+        p(power), int(power_dtype == torch.bfloat16), p(mel), p(stats),
         _build.stream_ptr(dev))
     return power, mel, stats
 
 
 def stft_fused_features(y: torch.Tensor, n_fft: int = 2048,
                         hop_length: int = 512, *, sr: float, n_mels: int,
-                        exact: bool = False) -> FusedFrontEnd:
+                        exact: bool = False,
+                        pad_mode: str = "constant") -> FusedFrontEnd:
     """STFT power with the spectral-feature epilogue fused in.
 
     A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
-    through :func:`stft_fused_features_plain`.  The kernel replaces
+    through :func:`stft_fused_features_plain`.  Either way the geometry
+    must satisfy :func:`stft_kernel_supports` (the JAX kernel's
+    ``ValueError`` otherwise).  The kernel replaces
     ``tpuvae/ops/stft.py:418`` (``_make_ct_kernel``); it is bound by the
     bytes it must move, and ``csrc/stft_features.cu`` says how its design
     keeps the frames and the fp32 power out of device memory.
     """
+    _check_kernel_geometry(n_fft, hop_length)
     if y.device.type == "cpu":
         return stft_fused_features_plain(y, n_fft, hop_length, sr=sr,
-                                         n_mels=n_mels, exact=exact)
+                                         n_mels=n_mels, exact=exact,
+                                         pad_mode=pad_mode)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
     power, mel, stats = _launch(
         y, n_fft, hop_length, torch.float32 if exact else torch.bfloat16,
-        sr=sr, n_mels=n_mels)
+        sr=sr, n_mels=n_mels, pad_mode=pad_mode)
     cent, bw, roll, zcr, rms, colmax = stats.unbind(dim=0)
     return FusedFrontEnd(power=power, mel_power=mel, centroid=cent,
                          bandwidth=bw, rolloff=roll, zcr=zcr, rms=rms,
@@ -223,15 +326,19 @@ def stft_fused_features(y: torch.Tensor, n_fft: int = 2048,
 
 
 def stft_power(y: torch.Tensor, n_fft: int = 2048,
-               hop_length: int = 512) -> torch.Tensor:
+               hop_length: int = 512, *,
+               pad_mode: str = "constant") -> torch.Tensor:
     """STFT power only ``(B, n_fft//2+1, T)`` fp32 — kernel 1 without its
-    epilogue on a CUDA tensor, :func:`stft_power_plain` on a CPU tensor."""
+    epilogue on a CUDA tensor, :func:`stft_power_plain` on a CPU tensor;
+    the geometry as :func:`stft_fused_features`."""
+    _check_kernel_geometry(n_fft, hop_length)
     if y.device.type == "cpu":
         _check_waveform(y)
-        return stft_power_plain(y, n_fft, hop_length)
+        return stft_power_plain(y, n_fft, hop_length, pad_mode=pad_mode)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
-    power, _, _ = _launch(y, n_fft, hop_length, torch.float32)
+    power, _, _ = _launch(y, n_fft, hop_length, torch.float32,
+                          pad_mode=pad_mode)
     return power
 
 
