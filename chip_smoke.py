@@ -2139,9 +2139,21 @@ def workflow_path(torch, dev, work: Path, data1: Path, data2: Path,
 
 # -- phase 17: kernel 1 at every geometry of the JAX kernel ------------------
 
-# the timed geometries (n_fft, hop) beside the main path's 2048 / 512
-TIMED_GEOMETRIES = ((256, 64), (1024, 256), (1536, 384), (4096, 1024),
-                    (5632, 512))
+# the timed geometries (n_fft, hop) beside the main path's 2048 / 512: every
+# size of the register plan at hop n_fft / 4, preprocess_advanced's 3072 /
+# 768 and the two largest shared-memory plans
+TIMED_GEOMETRIES = ((256, 64), (512, 128), (768, 192), (1024, 256),
+                    (1280, 320), (1536, 384), (1792, 448), (3072, 768),
+                    (4096, 1024), (5632, 512))
+
+
+def k1_plan(n_fft: int):
+    """The plan kernel 1 runs at ``n_fft`` (``ops.stft.kernel_plan``), with
+    the radices of the shared-memory plan."""
+    from tpuvae_torch.ops.stft import _radix_plan, kernel_plan
+
+    plan = kernel_plan(n_fft)
+    return [plan, list(_radix_plan(n_fft // 2))] if plan == "shared" else plan
 
 
 def k1_bytes(n_clips: int, n_samples: int, n_fft: int, hop: int,
@@ -2178,7 +2190,9 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
     (b) the timed geometries at 32 clips: kernel, plain, library
         (``torch.stft`` power + the mel ``torch.matmul``, TF32 off), byte
         bound, and the launches of ``extract_basic_features`` (``auto``)
-        there, counts set to 0 just before and read just after;
+        there, counts set to 0 just before and read just after, through
+        the library ``kernel_plan`` names (``stft_small`` for the register
+        plan of n_fft <= 1,792);
     (c) ``preprocess_basic`` at 1024 / 256 and ``preprocess_advanced`` at
         3072 / 768, both ``auto``, on the preprocess phase's 193 WAVs;
     (d) ``extract_basic_features(stft_method='ct')`` on 32 clips (kernel 3);
@@ -2196,7 +2210,8 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
     from tpuvae_torch.io.artifacts import load_advanced, load_basic
     from tpuvae_torch.io.normalize import load_normalizer
     from tpuvae_torch.ops.stft import (
-        _radix_plan,
+        STFT_SMALL,
+        kernel_plan,
         stft_fused_features,
         stft_fused_features_plain,
         stft_kernel_supports,
@@ -2225,8 +2240,7 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
                     "power_max_abs_err": err, "max_power": pmax,
                     "rolloff_max_err_hz": roll}
             out["geometries"][f"{n_fft}/{hop}"] = row
-    plans = {256 * q: list(_radix_plan(128 * q)) for q in range(1, 24)
-             if q != 8}
+    plans = {256 * q: k1_plan(256 * q) for q in range(1, 24)}
     for n_fft, hop in ((1024, 256), (2048, 512)):
         for exact in (True, False):
             check_stft_features(torch, y4, exact, n_fft, hop, "edge")
@@ -2266,6 +2280,9 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
         check(counts["stft_features"] == 1 and counts["tuning"] == 1
               and counts["masked_median_select"] == 0,
               f"extract_basic_features at {n_fft} / {hop}: {counts}")
+        check(STFT_SMALL.launches == int(kernel_plan(n_fft) == "register_r"),
+              f"{n_fft}: kernel_plan {kernel_plan(n_fft)} but the register "
+              f"plan's library launched {STFT_SMALL.launches} times")
         check(feats.shape == (BATCH, 370) and np.isfinite(feats).all(),
               f"features at {n_fft} / {hop}")
         nbytes = k1_bytes(BATCH, y.shape[1], n_fft, hop)
@@ -2282,10 +2299,10 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             "flops": nflops,
             "extract_basic_features_ms_host": extract_ms,
-            "plan": list(_radix_plan(n_fft // 2)) if n_fft != N_FFT
-            else "radix-32 x 32 registers"}
+            "plan": k1_plan(n_fft)}
         timed.append(row)
-        log(f"time stft_features at {n_fft} / {hop}: kernel {row['ms']:.4f} "
+        log(f"time stft_features at {n_fft} / {hop} ({row['plan']}): "
+            f"kernel {row['ms']:.4f} "
             f"ms, plain {row['plain_ms']:.4f}, library "
             f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); "
             f"extract_basic_features (auto, 32 clips) {extract_ms:.1f} ms "
@@ -2460,8 +2477,8 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------------
     build_s = _build.build_all()
     log(f"build: {build_s:.1f} s (0 = already built)")
-    for name in ("stft_features", "tuning", "select", "pairwise",
-                 "stft_dense", "fusedconv"):
+    for name in ("stft_features", "stft_small", "tuning", "select",
+                 "pairwise", "stft_dense", "fusedconv"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -3190,6 +3207,7 @@ def run(torch, dev, work: Path, card: str) -> int:
     # kernel 1 per geometry: the main path's 2048 / 512 row above, then the
     # timed geometries of phase 17 (launches: extract_basic_features there)
     k1 = next(k for k in kernels if k["name"] == "stft_features")
+    k1["plan"] = k1_plan(N_FFT)
     k1["launches_auto_hybrid_encode"] = (
         geom["hybrid_auto_encode"]["counts"]["stft_features"])
     k1["launches_preprocess_basic_1024"] = (
@@ -3199,7 +3217,9 @@ def run(torch, dev, work: Path, card: str) -> int:
     for row in geom["timed"]:
         kernels.append({
             "name": f"stft_features n_fft={row['n_fft']} hop={row['hop']}",
-            "route": "cuda", "source": "tpuvae_torch/csrc/stft_features.cu",
+            "route": "cuda", "source": "tpuvae_torch/csrc/" + (
+                "stft_small.cu" if row["plan"] == "register_r"
+                else "stft_features.cu"),
             "replaces": "tpuvae/ops/stft.py:418", "launches": row["launches"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

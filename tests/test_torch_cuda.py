@@ -6,8 +6,9 @@ import) when no card is present.  Run on a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: kernel 1 computes an fp32 radix-32 x 32 FFT in registers at
-n_fft 2048, and a mixed-radix FFT in shared memory at every other n_fft =
-256 q up to 5,888, where the plain version calls cuFFT — rtol 1e-4 / atol
+n_fft 2048, an r x 32 FFT in registers (a lane FFT by shuffles) at n_fft
+256 .. 1,792, and a mixed-radix FFT in shared memory at every larger n_fft
+= 256 q up to 5,888, where the plain version calls cuFFT — rtol 1e-4 / atol
 1e-6 x max power, rolloff within one bin (sr / n_fft; above 8 kHz the fp32
 frequency table's gaps are ~1e-3 Hz wider); bf16 power within one bf16
 step.  Kernels 2 and 3 equal;
@@ -1355,7 +1356,7 @@ def test_stft_features_kernel_at_every_n_fft(cuda, q, exact):
 
 
 @pytest.mark.parametrize("pad_mode", ["edge", "reflect"])
-@pytest.mark.parametrize("n_fft", [1024, 2048])
+@pytest.mark.parametrize("n_fft", [512, 1024, 1536, 2048])
 def test_stft_features_kernel_pad_modes(cuda, n_fft, pad_mode):
     from tpuvae_torch.dsp.primitives import stft_power
     from tpuvae_torch.ops.stft import (
@@ -1374,6 +1375,66 @@ def test_stft_features_kernel_pad_modes(cuda, n_fft, pad_mode):
     p = stft_power(y, n_fft, hop, pad_mode=pad_mode, method="ct_pallas")
     w = stft_power_plain(y, n_fft, hop, pad_mode=pad_mode)
     torch.testing.assert_close(p, w, rtol=1e-4, atol=1e-6 * w.max().item())
+
+
+@pytest.mark.parametrize("q", list(range(1, 8)))
+def test_stft_power_only_kernel_at_the_register_sizes(cuda, q):
+    """The power-only entry (``stft_power(..., method="ct_pallas")``) at
+    n_fft 256 .. 1,792, hop n_fft / 4."""
+    from tpuvae_torch.dsp.primitives import stft_power
+    from tpuvae_torch.ops.stft import stft_power_plain
+
+    n_fft = 256 * q
+    y = torch.from_numpy(_tones(2, SR + 101, 20 + q)).to(cuda)
+    got = stft_power(y, n_fft, n_fft // 4, method="ct_pallas")
+    want = stft_power_plain(y, n_fft, n_fft // 4)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-6 * want.max().item())
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("n_fft,hop", [(768, 3), (1280, 5), (1792, 7)])
+def test_stft_features_kernel_odd_hop_on_an_odd_length(cuda, n_fft, hop,
+                                                       exact):
+    """An odd hop on 0.2 s clips of an odd length: frames start on odd
+    samples, so the loader takes its 4-byte path."""
+    from tpuvae_torch.ops.stft import (
+        stft_fused_features,
+        stft_fused_features_plain,
+    )
+
+    n_samples = SR // 5 + 1
+    y = torch.from_numpy(_tones(2, n_samples, hop)).to(cuda)
+    got = stft_fused_features(y, n_fft, hop, sr=SR, n_mels=128, exact=exact)
+    want = stft_fused_features_plain(y, n_fft, hop, sr=SR, n_mels=128,
+                                     exact=exact)
+    torch.cuda.synchronize()
+    assert got.power.shape == (2, n_fft // 2 + 1, 1 + n_samples // hop)
+    _hold_kernel_1(got, want, n_fft, exact)
+
+
+def test_kernel_plan_is_the_plan_that_ran(cuda):
+    """Each size launches the library ``kernel_plan`` names: the register
+    plan of ``stft_small.cu`` at n_fft <= 1,792, ``stft_features.cu``
+    (register 32 x 32 or shared) above; both count as ``stft_features``."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.ops.stft import (
+        STFT_FEATURES,
+        STFT_SMALL,
+        kernel_plan,
+        stft_fused_features,
+    )
+
+    y = torch.from_numpy(_tones(1, SR // 2, 7)).to(cuda)
+    for q in range(1, 24):
+        n_fft = 256 * q
+        ops.reset_launch_counts()
+        stft_fused_features(y, n_fft, n_fft // 4, sr=SR, n_mels=128)
+        small = kernel_plan(n_fft) == "register_r"
+        assert (STFT_SMALL.launches, STFT_FEATURES.launches) == (
+            (1, 0) if small else (0, 1)), n_fft
+        assert ops.launch_counts()["stft_features"] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -11,10 +11,15 @@ what ``auto`` resolves to, against the JAX package.
   mode (an FFT against fp32 Cooley-Tukey dots, sums in another order),
   bf16 power within one bf16 step, and rolloff within one bin, sr / n_fft
   (two prefix sums may straddle the 85% threshold differently).
-* The kernel's mixed-radix plan (every size but 2048), emulated in float64
-  on the host tables the kernel reads, equals ``numpy.fft``: the digit
-  reversal, the in-place stages, the twiddle strides and the real-input
-  split.
+* The kernel's mixed-radix plan (every size from 2,304 on, and emulated at
+  every size but 2048), emulated in float64 on the host tables the kernel
+  reads, equals ``numpy.fft``: the digit reversal, the in-place stages, the
+  twiddle strides and the real-input split.
+* Its register plan of n_fft 256 .. 1,792 (``csrc/stft_small.cu``),
+  emulated in float64 on its host tables and the literal roots of its
+  source, equals ``numpy.fft``: the lanes' points, the r-point DFT, the
+  W_m twiddles, the five lane stages, the partners of the split and the
+  placement in the shared power row; ``kernel_plan`` routes each size.
 * ``ct`` against the JAX ``ct`` (fp32 matmuls both; rtol 1e-4 / atol 1e-6
   x max power), with a custom window and edge padding.
 * ``ct_pallas`` with a non-constant ``pad_mode`` against the JAX kernel.
@@ -287,6 +292,138 @@ def test_mixed_radix_plan_with_the_kernel_tables_equals_rfft(q):
     # power; a wrong index or twiddle would be off by its order
     np.testing.assert_allclose(_emulate_general_plan(x, n_fft), want,
                                rtol=1e-5, atol=1e-6 * want.max())
+
+
+# -- the register plan of n_fft 256 .. 1,792 -----------------------------------
+
+def _source_roots() -> dict:
+    """The literal roots ``cos, sin (2 pi e / R)`` of ``csrc/stft_small.cu``
+    (its r-point DFTs' twiddles and odd factors), by R, as fp32."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "tpuvae_torch" / "csrc"
+           / "stft_small.cu").read_text()
+    roots = {}
+    for name, size, body in re.findall(
+            r"constexpr float (kC|kS)\[(\d+)\] = \{([^}]*)\};", src):
+        vals = np.array([float(v.strip().rstrip("f")) for v in body.split(",")],
+                        np.float32)
+        assert vals.size == int(size)
+        roots.setdefault(int(size), {})[name] = vals
+    return {r: (v["kC"], v["kS"]) for r, v in roots.items()}
+
+
+def _brev(k: int, bits: int) -> int:
+    return int(f"{k:0{bits}b}"[::-1], 2) if bits else 0
+
+
+def _emulate_register_plan(x: np.ndarray, n_fft: int) -> np.ndarray:
+    """``csrc/stft_small.cu`` in float64 on its own tables: lane l takes
+    points l + 32 j (j < r); the r-point DFT as the kernel factors it (r =
+    P S, P-point DFTs over j = S jp + js, twiddles W_r^(js kp) and the
+    paired S-point DFT from the source's roots, output k1 = kp + P ks); the
+    W_m^(l k1) twiddle from the host table; the five lane stages (lane l
+    with l ^ d: the lower keeps p + v, the upper takes (p - v) times its
+    lane twiddle); the split with each partner where the kernel shuffles it
+    from (register r - k1 of lane l ^ 31, or register 0 of lane
+    brev5((32 - brev5(l)) & 31)); the powers at pad32(k) of the warp's
+    row, read back in bin order."""
+    from tpuvae_torch.ops.stft import _register_tables
+
+    window, split_tw, xtw = _register_tables(n_fft)
+    m = n_fft // 2
+    r = m // 32
+    big_p = r & -r
+    big_s = r // big_p
+    cplx = lambda t: t[..., 0].astype(np.float64) + 1j * t[..., 1]  # noqa: E731
+    split_tw, xtw = cplx(split_tw), cplx(xtw)
+    xw = x * window
+    z = xw[0::2] + 1j * xw[1::2]
+    v = z.reshape(r, 32)                       # v[j, l] = z[l + 32 j]
+    # P-point DFTs over jp for each js: a[kp, js, l]
+    a = np.einsum("pk,psl->ksl",
+                  np.exp(-2j * np.pi * np.outer(np.arange(big_p),
+                                                np.arange(big_p)) / big_p),
+                  v.reshape(big_p, big_s, 32))
+    y = np.empty((r, 32), complex)
+    if big_s == 1:
+        y[:] = a[:, 0]
+    else:
+        cos_t, sin_t = (t.astype(np.float64) for t in _source_roots()[r])
+        root = lambda e: cos_t[e % r] - 1j * sin_t[e % r]  # noqa: E731
+        for kp in range(big_p):
+            b = np.stack([a[kp, js] * root(js * kp) for js in range(big_s)])
+            for ks in range(big_s):
+                y[kp + big_p * ks] = sum(
+                    b[t] * root(((t * ks) % big_s) * (r // big_s))
+                    for t in range(big_s))
+    y *= xtw[:r]                               # W_m^(l k1), row k1 = 0 is 1
+    lane = np.arange(32)
+    for s in range(5):
+        d = 16 >> s
+        partner = y[:, lane ^ d]
+        sign = np.where(lane & d, -1.0, 1.0)
+        y = (partner + sign * y) * xtw[r + s]
+    brl = np.array([_brev(int(q), 5) for q in lane])
+    src0 = np.array([_brev(int((32 - b) & 31), 5) for b in brl])
+    pad32 = lambda i: i + (i >> 5)             # noqa: E731
+    row = np.full(pad32(m) + 1, np.nan)
+    for k1 in range(r):
+        zm = y[0, src0] if k1 == 0 else y[r - k1, lane ^ 31]
+        k = k1 + r * brl
+        zk = y[k1]
+        even = 0.5 * (zk + np.conj(zm))
+        odd = -0.5j * (zk - np.conj(zm))
+        assert np.isnan(row[pad32(k)]).all()  # each bin written once
+        row[pad32(k)] = np.abs(even + split_tw[k] * odd) ** 2
+    zn = y[0, 0]                               # the Nyquist bin from Z[0]
+    row[pad32(m)] = np.abs(0.5 * (zn + np.conj(zn)) + split_tw[m] * (
+        -0.5j * (zn - np.conj(zn)))) ** 2
+    return row[pad32(np.arange(m + 1))]
+
+
+@pytest.mark.parametrize("q", range(1, 8))
+def test_register_plan_with_the_kernel_tables_equals_rfft(q):
+    from tpuvae_torch.dsp.primitives import hann_window
+    from tpuvae_torch.ops.stft import _register_tables
+
+    n_fft = 256 * q
+    _, _, xtw = _register_tables(n_fft)
+    assert xtw.shape == (4 * q + 5, 32, 2) and xtw.dtype == np.float32
+    x = np.random.default_rng(100 + q).standard_normal(n_fft)
+    want = np.abs(np.fft.rfft(x * hann_window(n_fft))) ** 2
+    # float64 arithmetic on fp32 tables and roots, as the mixed-radix test
+    np.testing.assert_allclose(_emulate_register_plan(x, n_fft), want,
+                               rtol=1e-5, atol=1e-6 * want.max())
+
+
+def test_register_plan_roots_are_cos_and_sin_in_fp32():
+    roots = _source_roots()
+    assert sorted(roots) == [12, 20, 24, 28]
+    for r, (cos_t, sin_t) in roots.items():
+        ang = 2.0 * np.pi * np.arange(r) / r
+        np.testing.assert_allclose(cos_t, np.cos(ang), rtol=0, atol=6e-8)
+        np.testing.assert_allclose(sin_t, np.sin(ang), rtol=0, atol=6e-8)
+
+
+@pytest.mark.parametrize("q", range(1, 24))
+def test_kernel_plan_routes_each_size(q):
+    from tpuvae_torch.ops.stft import (
+        STFT_FEATURES,
+        STFT_SMALL,
+        kernel_plan,
+    )
+
+    want = "register_r" if q <= 7 else (
+        "register32x32" if q == 8 else "shared")
+    assert kernel_plan(256 * q) == want
+    # both libraries count as kernel 1; only the register plan's is its own
+    assert STFT_SMALL.name == STFT_FEATURES.name == "stft_features"
+    assert STFT_SMALL.library == "stft_small"
+    for bad in (0, 128, 1000, 6144):
+        with pytest.raises(ValueError, match="no plan"):
+            kernel_plan(bad)
 
 
 # -- the ct method ------------------------------------------------------------

@@ -53,8 +53,9 @@
 // * The power-only entry (stats == nullptr) is the same kernel without the
 //   epilogue.
 //
-// Every other size runs the general plan (stft_general_kernel), a simple
-// kernel that is right first:
+// n_fft 256 .. 1,792 run the register plan of csrc/stft_small.cu.  Every
+// larger size runs the general plan (stft_general_kernel), a simple kernel
+// that is right first:
 // * Still one warp per frame, but the frame's m = n_fft / 2 complex points
 //   live in the warp's shared memory (two planes, one pad word per 32), not
 //   in registers: m = 128 q holds an odd factor up to 23 and reaches 2,944
@@ -75,94 +76,21 @@
 //   much and leaves the rest of the SM's 256 KB to L1 for the tables.
 // * Two instantiations by register class: radices up to 16 at 128 registers
 //   (two CTAs an SM), and the plans with an odd prime of 11 .. 23 at 255.
-#include <cfloat>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "stft_frame.cuh"
 
 namespace {
 
 constexpr int kN = 2048;             // n_fft
 constexpr int kM = kN / 2;           // complex FFT length, 32 x 32
 constexpr int kNB = kM + 1;          // real bins
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRow = kNB + 1;        // tile row stride, elements
 constexpr int kXbuf = 32 * 33;       // floats per warp: exchange / power row
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr float kTiny = 1.17549435e-38f;  // np.finfo(np.float32).tiny
-constexpr float kRollPercent = 0.85f;
-constexpr float kZcrThreshold = 1e-10f;
 
 static_assert(kXbuf >= kNB, "a frame's power row fits its exchange buffer");
-
-template <typename TOut>
-struct Tile;
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int kFrames = 32;
-  static __device__ __forceinline__ __nv_bfloat16 cast(float v) {
-    return __float2bfloat16(v);
-  }
-};
-template <>
-struct Tile<float> {
-  static constexpr int kFrames = 16;
-  static __device__ __forceinline__ float cast(float v) { return v; }
-};
 
 constexpr size_t kTileBytes = static_cast<size_t>(32) * kRow * 2;
 static_assert(kTileBytes == static_cast<size_t>(16) * kRow * 4, "one size");
 static_assert(kTileBytes % 16 == 0, "exchange buffers stay aligned");
-
-struct Params {
-  const float* y;          // (B, n_samples) waveform, or its padded rows
-  const float* window;     // (n_fft,) periodic Hann
-  const float2* twiddle;   // (m + 1,) exp(-2 pi i k / n_fft): the split
-  const float2* xtw;       // 2048: (32, 32) [k1][l] exp(-2 pi i l k1 / 1024);
-                           // general: (m,) exp(-2 pi i k / m)
-  const int* iperm;        // general: (m,) position of point n
-  const float* freqs;      // (n_bins,) bin centre frequencies
-  const float* mel_w;      // (mel_nnz,) each filter's non-zero weights
-  const int* mel_meta;     // (n_mels, 3) first bin, one past last, offset
-  void* power;             // (B, n_bins, n_frames) bf16 or fp32
-  float* mel;              // (B, n_mels, n_frames) or null (power only)
-  float* stats;            // (6, B, n_frames): centroid, bandwidth,
-                           // rolloff, zcr, rms, colmax; or null
-  long long n_samples;     // samples a row of y holds (padded or not)
-  long long origin;        // where a row's first true sample sits
-  long long n_true;        // true samples a row (zcr's range)
-  int n_frames;
-  int hop;
-  int n_mels;
-  int mel_nnz;
-  int vec2;                // frames start 8-byte aligned
-  // the general plan
-  int m;                   // complex points, n_fft / 2
-  int frames;              // frames a CTA (a power of two <= 32)
-  long long plan;          // the radices, 6 bits each, first stage lowest
-};
-
-__device__ __forceinline__ bool zcr_sign(float x) {
-  return signbit(fabsf(x) <= kZcrThreshold ? 0.0f : x);
-}
-
-__device__ __forceinline__ float warp_sum_f(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max_f(float v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  }
-  return v;
-}
-
-__host__ __device__ constexpr int brev5(int k) {
-  return ((k & 1) << 4) | ((k & 2) << 2) | (k & 4) | ((k & 8) >> 2) |
-         ((k & 16) >> 4);
-}
 
 // One radix-2 decimation-in-frequency stage of a 32-point FFT held in
 // registers.  Every index and twiddle is a compile-time constant after
@@ -511,76 +439,7 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 
-// ---- the general plan: every other n_fft = 256 q, q <= 22 ------------------
-
-__host__ __device__ constexpr int brev_bits(int k, int bits) {
-  int r = 0;
-  for (int i = 0; i < bits; ++i) r |= ((k >> i) & 1) << (bits - 1 - i);
-  return r;
-}
-
-template <int R>
-struct Log2 {
-  static constexpr int value = 1 + Log2<R / 2>::value;
-};
-template <>
-struct Log2<1> {
-  static constexpr int value = 0;
-};
-
-// A frame's points sit one word of padding per 32 apart, so that the
-// first stage's reads at a stride of the radix spread over the 32 banks.
-__device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
-
-// fft32_stage for any power-of-two R <= 32: W_R^t = W_32^(t 32 / R).
-// After stages 0 .. log2(R) - 1 register i holds X[brev(i)].
-template <int R, int S>
-__device__ __forceinline__ void fftp2_stage(float (&re)[R], float (&im)[R]) {
-  constexpr float kC[16] = {
-      1.0f, 0.98078528040323043f, 0.92387953251128674f, 0.83146961230254524f,
-      0.70710678118654752f, 0.55557023301960218f, 0.38268343236508978f,
-      0.19509032201612825f, 0.0f, -0.19509032201612825f,
-      -0.38268343236508978f, -0.55557023301960218f, -0.70710678118654752f,
-      -0.83146961230254524f, -0.92387953251128674f, -0.98078528040323043f};
-  constexpr float kS[16] = {
-      0.0f, 0.19509032201612825f, 0.38268343236508978f, 0.55557023301960218f,
-      0.70710678118654752f, 0.83146961230254524f, 0.92387953251128674f,
-      0.98078528040323043f, 1.0f, 0.98078528040323043f, 0.92387953251128674f,
-      0.83146961230254524f, 0.70710678118654752f, 0.55557023301960218f,
-      0.38268343236508978f, 0.19509032201612825f};
-  constexpr int half = (R / 2) >> S;
-#pragma unroll
-  for (int g = 0; g < (1 << S); ++g) {
-#pragma unroll
-    for (int q = 0; q < half; ++q) {
-      const int i0 = g * 2 * half + q;
-      const int i1 = i0 + half;
-      const int t = (q << S) * (32 / R);
-      const float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
-      const float dr = ar - br, di = ai - bi;
-      re[i0] = ar + br;
-      im[i0] = ai + bi;
-      if (t == 0) {
-        re[i1] = dr;
-        im[i1] = di;
-      } else if (t == 8) {
-        re[i1] = di;
-        im[i1] = -dr;
-      } else {
-        re[i1] = dr * kC[t] + di * kS[t];
-        im[i1] = di * kC[t] - dr * kS[t];
-      }
-    }
-  }
-}
-
-template <int R, int S = 0>
-__device__ __forceinline__ void fftp2(float (&re)[R], float (&im)[R]) {
-  if constexpr ((1 << S) < R) {
-    fftp2_stage<R, S>(re, im);
-    fftp2<R, S + 1>(re, im);
-  }
-}
+// ---- the general plan: n_fft = 256 q, 9 <= q <= 23 -------------------------
 
 // A direct R-point DFT for odd R, the points r and R - r paired:
 // v_r W^(rk) + v_(R-r) W^(-rk) = c (v_r + v_(R-r)) + i s (v_r - v_(R-r))
@@ -729,19 +588,6 @@ __device__ __forceinline__ void gen_fft(float* bre, float* bim,
   }
 }
 
-// Power of bin k of the real-input split from Z[k] and its partner
-// Z[m - k]: X[k] = E[k] + W_N^k O[k] (the register plan's arithmetic).
-__device__ __forceinline__ float split_power(float zkr, float zki, float zmr,
-                                             float zmi, float2 w) {
-  const float er = 0.5f * (zkr + zmr);
-  const float ei = 0.5f * (zki - zmi);
-  const float orr = 0.5f * (zki + zmi);
-  const float oi = -0.5f * (zkr - zmr);
-  const float xr = er + (w.x * orr - w.y * oi);
-  const float xi = ei + (w.x * oi + w.y * orr);
-  return xr * xr + xi * xi;
-}
-
 template <typename TOut, bool kLarge>
 __global__ void __launch_bounds__(kThreads, kLarge ? 1 : 2)
 stft_general_kernel(Params p) {
@@ -787,64 +633,16 @@ stft_general_kernel(Params p) {
     const long long start_t = start - p.origin;
 
     // ---- load point n = lane + 32 it (coalesced), zcr / rms, window, and
-    //      scatter to its digit-reversed position --------------------------
-    // four points a lane in flight at once: m / 32 = 4 q
-    float sumsq = 0.0f;
-    int crossings = 0, prev_sign = 0;
-    for (int it0 = 0; it0 < m / 32; it0 += 4) {
-      float av[4], cv[4];
-      float2 wv[4];
-      int posv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int n = lane + 32 * (it0 + u);
-        const long long s0 = start + 2 * n;
-        if (interior && p.vec2) {
-          const float2 v = __ldg(reinterpret_cast<const float2*>(y + s0));
-          av[u] = v.x;
-          cv[u] = v.y;
-        } else {
-          av[u] = (s0 >= 0 && s0 < n_s) ? __ldg(y + s0) : 0.0f;
-          cv[u] = (s0 + 1 >= 0 && s0 + 1 < n_s) ? __ldg(y + s0 + 1) : 0.0f;
-        }
-        wv[u] = __ldg(win2 + n);
-        posv[u] = pad32(__ldg(p.iperm + n));
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int it = it0 + u;
-        const int n = lane + 32 * it;
-        const float a = av[u], c = cv[u];
-        if (fused) {
-          // pairs (s, s + 1) count only inside the true samples
-          sumsq += a * a + c * c;
-          const int sa = zcr_sign(a), sc = zcr_sign(c);
-          const long long st = start_t + 2 * n;
-          crossings += sa != sc && st >= 0 && st + 1 <= last_t;
-          const int next = __shfl_down_sync(kFull, sa, 1);
-          const int first = __shfl_sync(kFull, sa, 0);
-          if (lane < 31) {
-            crossings += sc != next && st + 1 >= 0 && st + 2 <= last_t;
-          } else if (it > 0) {
-            // the pair after lane 31's previous point: lane 0's first sample
-            const long long sp = st - 63;
-            crossings += prev_sign != first && sp >= 0 && sp + 1 <= last_t;
-          }
-          prev_sign = sc;
-        }
-        bre[posv[u]] = a * wv[u].x;
-        bim[posv[u]] = c * wv[u].y;
-      }
-    }
-    float zcr = 0.0f, rms = 0.0f;
-    if (fused) {
-      sumsq = warp_sum_f(sumsq);
-      for (int o = 16; o > 0; o >>= 1) {
-        crossings += __shfl_xor_sync(kFull, crossings, o);
-      }
-      zcr = static_cast<float>(crossings) / static_cast<float>(2 * m);
-      rms = sqrtf(sumsq / static_cast<float>(2 * m));
-    }
+    //      scatter to its digit-reversed position
+    float zcr, rms;
+    load_frame(
+        p, y, n_s, win2, start, start_t, last_t, interior, m, lane, fused,
+        [&](int n) { return pad32(__ldg(p.iperm + n)); },
+        [&](int, int pos, float a, float c) {
+          bre[pos] = a;
+          bim[pos] = c;
+        },
+        zcr, rms);
     __syncwarp();
     gen_fft<kLarge>(bre, bim, p, lane);
 
@@ -892,115 +690,12 @@ stft_general_kernel(Params p) {
     }
     __syncwarp();
     if (!fused) continue;
-
-    // ---- magnitude statistics from the fp32 power row ---------------------
-    float den = 0.0f, num = 0.0f, cmax = 0.0f;
-#pragma unroll 4
-    for (int k = lane; k < nb; k += 32) {
-      const float pwk = pw[pad32(k)];
-      const float mg = sqrtf(pwk);
-      den += mg;
-      num += mg * __ldg(p.freqs + k);
-      cmax = fmaxf(cmax, pwk);
-    }
-    den = warp_sum_f(den);
-    num = warp_sum_f(num);
-    cmax = warp_max_f(cmax);
-    const float cent = num / fmaxf(den, kTiny);
-    float dev2 = 0.0f;
-#pragma unroll 4
-    for (int k = lane; k < nb; k += 32) {
-      const float dev = fabsf(__ldg(p.freqs + k) - cent);
-      dev2 += sqrtf(pw[pad32(k)]) * dev * dev;
-    }
-    dev2 = warp_sum_f(dev2);
-    const float bw = sqrtf(dev2 / fmaxf(den, kTiny));
-
-    // ---- mel projection over each filter's non-zero bins ------------------
-    const long long mbase =
-        static_cast<long long>(b) * p.n_mels * p.n_frames + f;
-    for (int mi = lane; mi < p.n_mels; mi += 32) {
-      const int k0 = __ldg(p.mel_meta + 3 * mi);
-      const int k1 = __ldg(p.mel_meta + 3 * mi + 1);
-      const int off = __ldg(p.mel_meta + 3 * mi + 2) - k0;
-      float acc = 0.0f;
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) acc += melw[off + k] * pw[pad32(k)];
-      p.mel[mbase + static_cast<long long>(mi) * p.n_frames] = acc;
-    }
-    __syncwarp();
-
-    // ---- rolloff: magnitudes replace the powers; a contiguous chunk per
-    //      lane, then a warp scan ------------------------------------------
-    for (int k0 = lane; k0 < nb; k0 += 128) {
-      float v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + 32 * u;
-        v[u] = k < nb ? pw[pad32(k)] : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + 32 * u;
-        if (k < nb) pw[pad32(k)] = sqrtf(v[u]);
-      }
-    }
-    __syncwarp();
-    const int chunk = (nb + 31) / 32;
-    const int kb = lane * chunk;
-    float csum = 0.0f;
-#pragma unroll 4
-    for (int i = 0; i < chunk; ++i) {
-      csum += kb + i < nb ? pw[pad32(kb + i)] : 0.0f;
-    }
-    float incl = csum;
-    for (int o = 1; o < 32; o <<= 1) {
-      const float up = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += up;
-    }
-    const float thresh = kRollPercent * den;
-    float run = incl - csum;
-    int found = nb;
-#pragma unroll 4
-    for (int i = 0; i < chunk; ++i) {
-      const bool in = kb + i < nb;
-      run += in ? pw[pad32(kb + i)] : 0.0f;
-      if (found == nb && in && run >= thresh) found = kb + i;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      found = min(found, __shfl_xor_sync(kFull, found, o));
-    }
-    if (lane == 0) {
-      float* st = p.stats + static_cast<long long>(b) * p.n_frames + f;
-      st[0] = cent;
-      st[plane] = bw;
-      st[2 * plane] = found < nb ? __ldg(p.freqs + found) : FLT_MAX;
-      st[3 * plane] = zcr;
-      st[4 * plane] = rms;
-      st[5 * plane] = cmax;
-    }
-    __syncwarp();
+    frame_epilogue(pw, nb, p, melw, b, f, zcr, rms, lane, plane);
   }
   __syncthreads();
-
-  // ---- power store, T-contiguous: a warp instruction writes `frames`
-  //      consecutive frames of 32 / frames bins -------------------------------
-  const int n_valid = min(frames, p.n_frames - f0);
-  const int lf = lane % frames;
-  const int bins = 32 / frames;
-  TOut* out = static_cast<TOut*>(p.power) +
-              static_cast<long long>(b) * nb * p.n_frames + f0 + lf;
-  if (lf < n_valid) {
-    for (int k = warp * bins + lane / frames; k < nb; k += n_warps * bins) {
-      out[static_cast<long long>(k) * p.n_frames] =
-          tile[static_cast<size_t>(lf) * row + k];
-    }
-  }
+  store_power_tile<TOut>(tile, frames, row, nb, p, b, f0, warp, n_warps,
+                         lane);
 }
-
-constexpr size_t kSmemPerSm = 233472;         // 228 KB of shared memory
-constexpr size_t kSmemPerCta = 232448;        // 227 KB, one CTA an SM
-constexpr size_t kSmemTwoCtas = 115712;       // (228 KB - 2 x 1 KB) / 2
 
 size_t general_smem(const Params& p, int frames, int warps, size_t out_size) {
   const size_t tile = (static_cast<size_t>(frames) * (p.m + 2) * out_size +
@@ -1038,20 +733,11 @@ int launch_general(Params p, int batch, cudaStream_t stream) {
   const size_t smem = general_smem(p, frames, warps, sizeof(TOut));
   p.frames = frames;
   const auto kernel = stft_general_kernel<TOut, kLarge>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // ask for the shared memory the resident CTAs take and no more: the
-  // rest of the SM's 256 KB stays L1 for the tables the kernel reads
-  // through the read-only path (twiddles, window, digit reversal, freqs)
+  // the shared memory the resident CTAs take and no more: the rest stays L1
+  // for the twiddles, window, digit reversal and freqs
   const size_t resident = (warps == kWarps && smem <= kSmemTwoCtas ? 2 : 1) *
                           (smem + 1024);
-  const int carveout = static_cast<int>(
-      (resident * 100 + kSmemPerSm - 1) / kSmemPerSm);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             carveout < 100 ? carveout : 100);
+  const cudaError_t err = set_smem(kernel, smem, resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.n_frames + frames - 1) / frames, batch);
   kernel<<<grid, 32 * warps, smem, stream>>>(p);
@@ -1074,7 +760,8 @@ bool radix_supported(int r) {
 // true samples from `origin` on (n_true of them); window (n_fft,), twiddle
 // (m + 1, 2) fp32 with m = n_fft / 2; xtw (32, 32, 2) for the register plan
 // (n_fft 2048), else (m, 2) with iperm (m,) int32 and the radices packed 6
-// bits each in `plan`; freqs (m + 1,) fp32; mel_w (mel_nnz,) fp32 with
+// bits each in `plan` (any other size; n_fft <= 1,792 runs
+// tpuvae_stft_small); freqs (m + 1,) fp32; mel_w (mel_nnz,) fp32 with
 // mel_meta (n_mels, 3) int32 = first bin, one past the last, offset into
 // mel_w; power (batch, m + 1, n_frames) bf16 or fp32; mel (batch, n_mels,
 // n_frames) and stats (6, batch, n_frames) fp32, both null for the
@@ -1087,35 +774,12 @@ extern "C" int tpuvae_stft_features(
     int mel_nnz, void* power, int power_bf16, void* mel, void* stats,
     void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
-  if (batch > 65535 || hop <= 0 || mel_nnz < 0 || mel_nnz > 16384 ||
-      n_fft < 256 || n_fft > 5888 || n_fft % 256 != 0 || origin < 0 ||
-      n_true <= 0 || origin + n_true > n_samples) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Params p;
-  p.y = static_cast<const float*>(y);
-  p.window = static_cast<const float*>(window);
-  p.twiddle = static_cast<const float2*>(twiddle);
-  p.xtw = static_cast<const float2*>(xtw);
-  p.iperm = static_cast<const int*>(iperm);
-  p.freqs = static_cast<const float*>(freqs);
-  p.mel_w = static_cast<const float*>(mel_w);
-  p.mel_meta = static_cast<const int*>(mel_meta);
-  p.power = power;
-  p.mel = static_cast<float*>(mel);
-  p.stats = static_cast<float*>(stats);
-  p.n_samples = n_samples;
-  p.origin = origin;
-  p.n_true = n_true;
-  p.n_frames = n_frames;
-  p.hop = hop;
-  p.n_mels = stats != nullptr ? n_mels : 0;
-  p.mel_nnz = stats != nullptr ? mel_nnz : 0;
-  p.vec2 = ((n_samples | hop | origin) & 1) == 0 &&
-           reinterpret_cast<uintptr_t>(y) % 8 == 0;
-  p.m = n_fft / 2;
-  p.frames = 0;
-  p.plan = plan;
+  const int bad = make_params(p, y, batch, n_samples, origin, n_true, n_fft,
+                              hop, n_frames, window, twiddle, xtw, iperm,
+                              plan, freqs, mel_w, mel_meta, n_mels, mel_nnz,
+                              power, mel, stats);
+  if (bad != 0) return bad;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_fft == kN) {
     return power_bf16 ? launch<__nv_bfloat16>(p, static_cast<int>(batch), s)

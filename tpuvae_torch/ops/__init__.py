@@ -31,7 +31,12 @@ from tpuvae_torch.ops import (  # noqa: F401
 
 
 def launch_counts() -> dict[str, int]:
-    return {k.name: k.launches for k in _build.kernels()}
+    """Launches by kernel name; a kernel built as more than one library
+    (kernel 1's plans) counts under one name."""
+    counts: dict[str, int] = {}
+    for k in _build.kernels():
+        counts[k.name] = counts.get(k.name, 0) + k.launches
+    return counts
 
 
 def reset_launch_counts() -> None:

@@ -34,6 +34,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # contraction into FMA, so each multiply and add rounds on its own
 _EXTRA_FLAGS = {
     "stft_features": [],
+    "stft_small": [],
     "tuning": ["-fmad=false"],
     "select": ["-fmad=false"],
     "pairwise": [],

@@ -22,8 +22,10 @@ tensor the plain PyTorch version does (``torch.fft.rfft`` on framed input
 plus the staged features of :mod:`tpuvae_torch.dsp.features`).  Kernel 1
 takes the geometries of the JAX kernel (:func:`stft_kernel_supports`):
 every ``n_fft = 256 q``, ``q = 1 .. 23``, with any hop that divides it.
-``n_fft`` 2048 runs the radix-32 x 32 register plan; every other size a
-mixed-radix plan (:func:`_radix_plan`) in shared memory.  A non-constant
+:func:`kernel_plan` names the plan a size runs: n_fft 256 .. 1,792 a
+register plan of ``m = 32 r`` points (``csrc/stft_small.cu``), 2048 the
+radix-32 x 32 register plan, every larger size a mixed-radix plan
+(:func:`_radix_plan`) in shared memory.  A non-constant
 ``pad_mode`` is applied here, on the card, and the kernel reads the padded
 signal, as the JAX wrappers pad on the host.
 
@@ -47,6 +49,7 @@ from tpuvae_torch.ops import _build
 
 KERNEL_MAX_N_FFT = 5888   # 256 x 23: the largest size of the JAX kernel
 _REGISTER_PLAN_N_FFT = 2048   # the radix-32 x 32 register plan's size
+_REGISTER_R_MAX_N_FFT = 1792  # r = m / 32 <= 28: one warp's registers
 _POW2_RADICES = (16, 8, 4, 2)
 _ODD_RADICES = (3, 5, 7, 11, 13, 17, 19, 23)   # the primes of q <= 23
 
@@ -58,6 +61,23 @@ STFT_FEATURES = _build.Kernel(
      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+# the register plan of n_fft 256 .. 1,792 (its own library, built in
+# parallel): the same C signature, counted under the same name
+STFT_SMALL = _build.Kernel("stft_features", "stft_small", "tpuvae_stft_small",
+                           STFT_FEATURES.argtypes)
+
+
+def kernel_plan(n_fft: int) -> str:
+    """The plan kernel 1 runs at ``n_fft`` (one of
+    :func:`stft_kernel_supports`'s sizes): ``"register_r"`` for n_fft =
+    256 q, q <= 7 (``m = 32 r`` points, ``r = 4 q`` a lane, a lane FFT by
+    shuffles); ``"register32x32"`` for 2048; ``"shared"`` (the mixed-radix
+    plan in shared memory) for every larger size."""
+    if not 256 <= n_fft <= KERNEL_MAX_N_FFT or n_fft % 256:
+        raise ValueError(f"kernel 1 has no plan for n_fft {n_fft}")
+    if n_fft == _REGISTER_PLAN_N_FFT:
+        return "register32x32"
+    return "register_r" if n_fft <= _REGISTER_R_MAX_N_FFT else "shared"
 
 
 def stft_kernel_supports(n_fft: int, hop_length: int) -> bool:
@@ -202,7 +222,7 @@ def _digit_reversal(plan: tuple[int, ...]) -> np.ndarray:
 
 
 def _general_tables(n_fft: int):
-    """Host tables of kernel 1's mixed-radix plan (any size but 2048),
+    """Host tables of kernel 1's mixed-radix plan (n_fft 2,304 and up),
     built in float64 and cast to fp32: the periodic Hann window; the split
     twiddles ``exp(-2 pi i k / n_fft)``, ``k = 0 .. m``; the ``m``-point
     twiddles ``exp(-2 pi i k / m)``, ``k < m`` (every stage's and every
@@ -220,12 +240,46 @@ def _general_tables(n_fft: int):
             iperm, code)
 
 
+def _lane_angles() -> np.ndarray:
+    """``(5, 32)``: the twiddle angle of lane ``l`` at stage ``s`` of a
+    radix-2 decimation-in-frequency FFT over the warp's 32 lanes.  At
+    stage ``s`` lane ``l`` pairs with ``l ^ d``, ``d = 16 >> s``; the lower
+    lane keeps the sum (angle 0), the upper one takes the difference times
+    ``W_(2d)^(l mod d)``."""
+    lane = np.arange(32)
+    d = (16 >> np.arange(5))[:, None]
+    return np.where(lane & d, -2.0 * np.pi * (lane % d) / (2 * d), 0.0)
+
+
+def _register_tables(n_fft: int):
+    """Host tables of kernel 1's register plan of ``m = n_fft / 2 = 32 r``
+    points (n_fft 256 .. 1,792), built in float64 and cast to fp32: the
+    periodic Hann window; the split twiddles ``exp(-2 pi i k / n_fft)``,
+    ``k = 0 .. m``; and ``(r + 5, 32, 2)``: rows ``k1 < r`` the twiddles
+    ``exp(-2 pi i l k1 / m)`` of lane ``l`` between its r-point DFT and the
+    32-point DFT over the lanes, rows ``r .. r + 4`` the lane twiddles of
+    that DFT's five stages (:func:`_lane_angles`)."""
+    m = n_fft // 2
+    r = m // 32
+    if kernel_plan(n_fft) != "register_r":
+        raise ValueError(f"the register plan takes n_fft 256 .. "
+                         f"{_REGISTER_R_MAX_N_FFT}, got {n_fft}")
+    lk = np.outer(np.arange(r, dtype=np.float64), np.arange(32))
+    xtw = _unit(np.concatenate([-2.0 * np.pi * lk / m, _lane_angles()]))
+    k = np.arange(m + 1, dtype=np.float64)
+    return prim.hann_window(n_fft), _unit(-2.0 * np.pi * k / n_fft), xtw
+
+
 @functools.lru_cache(maxsize=8)
 def _fft_consts(device: str, n_fft: int):
     """The kernel's tables for ``n_fft`` on ``device``: ``(window, split
-    twiddles, exchange or m-point twiddles, iperm or None, plan code)``."""
-    if n_fft == _REGISTER_PLAN_N_FFT:
+    twiddles, exchange, register-plan or m-point twiddles, iperm or None,
+    plan code)``."""
+    plan = kernel_plan(n_fft)
+    if plan == "register32x32":
         tables = (*_fft_tables(n_fft), None, 0)
+    elif plan == "register_r":
+        tables = (*_register_tables(n_fft), None, 0)
     else:
         tables = _general_tables(n_fft)
     return tuple(torch.from_numpy(t).to(device) if isinstance(t, np.ndarray)
@@ -286,7 +340,8 @@ def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
         # one contiguous (B, T) plane per statistic
         stats = torch.empty((6, b, t), dtype=torch.float32, device=dev)
     p = lambda x: null if x is None else _build.ptr(x)  # noqa: E731
-    STFT_FEATURES(
+    kernel = STFT_SMALL if kernel_plan(n_fft) == "register_r" else STFT_FEATURES
+    kernel(
         _build.ptr(buf), b, buf.shape[1], origin, n_samples, n_fft,
         hop_length, t, p(window), p(tw), p(xtw), p(iperm), plan, p(freqs),
         p(mel_w), p(mel_meta), n_mels, 0 if mel_w is None else mel_w.numel(),
