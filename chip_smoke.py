@@ -476,11 +476,11 @@ def all_valid_keys(torch, dev, n_cols: int):
 def check_stft_features(torch, y, exact: bool, n_fft: int = N_FFT,
                         hop: int = HOP, pad_mode: str = "constant"):
     """Kernel 1 against its plain version on ``y``.  It computes an fp32
-    FFT (the radix-32 x 32 register plan at n_fft 2048, a mixed-radix plan
-    in shared memory at every other size) where the plain version calls
-    cuFFT: power, mel power and column maxima within rtol 1e-4 / atol 1e-6
-    x max power (bf16 power in fast mode within one bf16 step, rtol 2^-7);
-    centroid, bandwidth, zcr and rms within rtol 1e-4 / atol 1e-6; rolloff
+    FFT (a register plan at every size: ``ops.stft.kernel_plan``) where the
+    plain version calls cuFFT: power, mel power and column maxima within
+    rtol 1e-4 / atol 1e-6 x max power (bf16 power in fast mode within one
+    bf16 step, rtol 2^-7); centroid, bandwidth, zcr and rms within rtol
+    1e-4 / atol 1e-6; rolloff
     within one bin, sr / n_fft (a prefix sum in another order).  Returns
     ``(kernel, plain, max power, power max abs err, rolloff max err)``."""
     from tpuvae_torch.ops.stft import (
@@ -2140,20 +2140,10 @@ def workflow_path(torch, dev, work: Path, data1: Path, data2: Path,
 # -- phase 17: kernel 1 at every geometry of the JAX kernel ------------------
 
 # the timed geometries (n_fft, hop) beside the main path's 2048 / 512: every
-# size of the register plan at hop n_fft / 4, preprocess_advanced's 3072 /
-# 768 and the two largest shared-memory plans
-TIMED_GEOMETRIES = ((256, 64), (512, 128), (768, 192), (1024, 256),
-                    (1280, 320), (1536, 384), (1792, 448), (3072, 768),
-                    (4096, 1024), (5632, 512))
-
-
-def k1_plan(n_fft: int):
-    """The plan kernel 1 runs at ``n_fft`` (``ops.stft.kernel_plan``), with
-    the radices of the shared-memory plan."""
-    from tpuvae_torch.ops.stft import _radix_plan, kernel_plan
-
-    plan = kernel_plan(n_fft)
-    return [plan, list(_radix_plan(n_fft // 2))] if plan == "shared" else plan
+# other size at hop n_fft / 4 (preprocess_advanced's 3072 / 768 among them)
+# and 5632 / 512
+TIMED_GEOMETRIES = tuple((256 * q, 64 * q) for q in range(1, 24) if q != 8) + (
+    (5632, 512),)
 
 
 def k1_bytes(n_clips: int, n_samples: int, n_fft: int, hop: int,
@@ -2191,8 +2181,9 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
         (``torch.stft`` power + the mel ``torch.matmul``, TF32 off), byte
         bound, and the launches of ``extract_basic_features`` (``auto``)
         there, counts set to 0 just before and read just after, through
-        the library ``kernel_plan`` names (``stft_small`` for the register
-        plan of n_fft <= 1,792);
+        the library ``ops.stft.plan_kernel`` names for ``kernel_plan``'s
+        plan (``stft_small`` for n_fft <= 1,792, ``stft_large_a`` .. ``_c``
+        for 2,304 .. 5,888, ``stft_features`` for 2048);
     (c) ``preprocess_basic`` at 1024 / 256 and ``preprocess_advanced`` at
         3072 / 768, both ``auto``, on the preprocess phase's 193 WAVs;
     (d) ``extract_basic_features(stft_method='ct')`` on 32 clips (kernel 3);
@@ -2210,8 +2201,11 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
     from tpuvae_torch.io.artifacts import load_advanced, load_basic
     from tpuvae_torch.io.normalize import load_normalizer
     from tpuvae_torch.ops.stft import (
+        STFT_FEATURES,
+        STFT_LARGE,
         STFT_SMALL,
         kernel_plan,
+        plan_kernel,
         stft_fused_features,
         stft_fused_features_plain,
         stft_kernel_supports,
@@ -2240,7 +2234,7 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
                     "power_max_abs_err": err, "max_power": pmax,
                     "rolloff_max_err_hz": roll}
             out["geometries"][f"{n_fft}/{hop}"] = row
-    plans = {256 * q: k1_plan(256 * q) for q in range(1, 24)}
+    plans = {256 * q: kernel_plan(256 * q) for q in range(1, 24)}
     for n_fft, hop in ((1024, 256), (2048, 512)):
         for exact in (True, False):
             check_stft_features(torch, y4, exact, n_fft, hop, "edge")
@@ -2280,9 +2274,10 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
         check(counts["stft_features"] == 1 and counts["tuning"] == 1
               and counts["masked_median_select"] == 0,
               f"extract_basic_features at {n_fft} / {hop}: {counts}")
-        check(STFT_SMALL.launches == int(kernel_plan(n_fft) == "register_r"),
-              f"{n_fft}: kernel_plan {kernel_plan(n_fft)} but the register "
-              f"plan's library launched {STFT_SMALL.launches} times")
+        for lib in (STFT_FEATURES, STFT_SMALL, *STFT_LARGE.values()):
+            check(lib.launches == int(lib is plan_kernel(n_fft)),
+                  f"{n_fft}: kernel_plan {kernel_plan(n_fft)} but library "
+                  f"{lib.library} launched {lib.launches} times")
         check(feats.shape == (BATCH, 370) and np.isfinite(feats).all(),
               f"features at {n_fft} / {hop}")
         nbytes = k1_bytes(BATCH, y.shape[1], n_fft, hop)
@@ -2299,7 +2294,7 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             "flops": nflops,
             "extract_basic_features_ms_host": extract_ms,
-            "plan": k1_plan(n_fft)}
+            "plan": kernel_plan(n_fft), "library": plan_kernel(n_fft).library}
         timed.append(row)
         log(f"time stft_features at {n_fft} / {hop} ({row['plan']}): "
             f"kernel {row['ms']:.4f} "
@@ -2477,7 +2472,8 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------------
     build_s = _build.build_all()
     log(f"build: {build_s:.1f} s (0 = already built)")
-    for name in ("stft_features", "stft_small", "tuning", "select",
+    for name in ("stft_features", "stft_small", "stft_large_a",
+                 "stft_large_b", "stft_large_c", "tuning", "select",
                  "pairwise", "stft_dense", "fusedconv"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -2517,6 +2513,7 @@ def run(torch, dev, work: Path, card: str) -> int:
     )
     from tpuvae_torch.ops.stft import (
         _folded_basis,
+        kernel_plan,
         stft_fused_features,
         stft_fused_features_plain,
         stft_power,
@@ -3207,7 +3204,7 @@ def run(torch, dev, work: Path, card: str) -> int:
     # kernel 1 per geometry: the main path's 2048 / 512 row above, then the
     # timed geometries of phase 17 (launches: extract_basic_features there)
     k1 = next(k for k in kernels if k["name"] == "stft_features")
-    k1["plan"] = k1_plan(N_FFT)
+    k1["plan"] = kernel_plan(N_FFT)
     k1["launches_auto_hybrid_encode"] = (
         geom["hybrid_auto_encode"]["counts"]["stft_features"])
     k1["launches_preprocess_basic_1024"] = (
@@ -3217,9 +3214,8 @@ def run(torch, dev, work: Path, card: str) -> int:
     for row in geom["timed"]:
         kernels.append({
             "name": f"stft_features n_fft={row['n_fft']} hop={row['hop']}",
-            "route": "cuda", "source": "tpuvae_torch/csrc/" + (
-                "stft_small.cu" if row["plan"] == "register_r"
-                else "stft_features.cu"),
+            "route": "cuda",
+            "source": f"tpuvae_torch/csrc/{row['library']}.cu",
             "replaces": "tpuvae/ops/stft.py:418", "launches": row["launches"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -7,8 +7,9 @@ import) when no card is present.  Run on a machine with an H100:
 
 Tolerances: kernel 1 computes an fp32 radix-32 x 32 FFT in registers at
 n_fft 2048, an r x 32 FFT in registers (a lane FFT by shuffles) at n_fft
-256 .. 1,792, and a mixed-radix FFT in shared memory at every larger n_fft
-= 256 q up to 5,888, where the plain version calls cuFFT — rtol 1e-4 / atol
+256 .. 1,792, and a q x 128 FFT in the registers of four warps at every
+larger n_fft = 256 q up to 5,888, where the plain version calls cuFFT —
+rtol 1e-4 / atol
 1e-6 x max power, rolloff within one bin (sr / n_fft; above 8 kHz the fp32
 frequency table's gaps are ~1e-3 Hz wider); bf16 power within one bf16
 step.  Kernels 2 and 3 equal;
@@ -1335,9 +1336,8 @@ def _hold_kernel_1(got, want, n_fft, exact):
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
 @pytest.mark.parametrize("q", list(range(1, 24)))
 def test_stft_features_kernel_at_every_n_fft(cuda, q, exact):
-    """n_fft = 256 q (the register plan at 2048, the mixed-radix plan
-    elsewhere) at hop n_fft / 4 and n_fft, on a clip length that is not a
-    multiple of either."""
+    """n_fft = 256 q (the plan ``kernel_plan`` names) at hop n_fft / 4 and
+    n_fft, on a clip length that is not a multiple of either."""
     from tpuvae_torch.ops.stft import (
         stft_fused_features,
         stft_fused_features_plain,
@@ -1356,7 +1356,7 @@ def test_stft_features_kernel_at_every_n_fft(cuda, q, exact):
 
 
 @pytest.mark.parametrize("pad_mode", ["edge", "reflect"])
-@pytest.mark.parametrize("n_fft", [512, 1024, 1536, 2048])
+@pytest.mark.parametrize("n_fft", [512, 1024, 1536, 2048, 3072, 5632])
 def test_stft_features_kernel_pad_modes(cuda, n_fft, pad_mode):
     from tpuvae_torch.dsp.primitives import stft_power
     from tpuvae_torch.ops.stft import (
@@ -1393,8 +1393,25 @@ def test_stft_power_only_kernel_at_the_register_sizes(cuda, q):
                                atol=1e-6 * want.max().item())
 
 
+@pytest.mark.parametrize("q", list(range(9, 24)))
+def test_stft_power_only_kernel_at_the_group_sizes(cuda, q):
+    """The power-only entry at n_fft 2,304 .. 5,888 (the group register
+    plan), hop n_fft / 4."""
+    from tpuvae_torch.dsp.primitives import stft_power
+    from tpuvae_torch.ops.stft import stft_power_plain
+
+    n_fft = 256 * q
+    y = torch.from_numpy(_tones(2, SR + 101, 20 + q)).to(cuda)
+    got = stft_power(y, n_fft, n_fft // 4, method="ct_pallas")
+    want = stft_power_plain(y, n_fft, n_fft // 4)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-6 * want.max().item())
+
+
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
-@pytest.mark.parametrize("n_fft,hop", [(768, 3), (1280, 5), (1792, 7)])
+@pytest.mark.parametrize("n_fft,hop", [(768, 3), (1280, 5), (1792, 7),
+                                       (2304, 9), (2816, 11), (5888, 23)])
 def test_stft_features_kernel_odd_hop_on_an_odd_length(cuda, n_fft, hop,
                                                        exact):
     """An odd hop on 0.2 s clips of an odd length: frames start on odd
@@ -1415,25 +1432,33 @@ def test_stft_features_kernel_odd_hop_on_an_odd_length(cuda, n_fft, hop,
 
 
 def test_kernel_plan_is_the_plan_that_ran(cuda):
-    """Each size launches the library ``kernel_plan`` names: the register
-    plan of ``stft_small.cu`` at n_fft <= 1,792, ``stft_features.cu``
-    (register 32 x 32 or shared) above; both count as ``stft_features``."""
+    """Each size launches the library of the plan ``kernel_plan`` names: the
+    register plan of ``stft_small.cu`` at n_fft <= 1,792, ``stft_features.cu``
+    at 2048, the group register plan of ``stft_large_{a,b,c}.cu`` at 2,304
+    .. 5,888; all count as ``stft_features``."""
     from tpuvae_torch import ops
     from tpuvae_torch.ops.stft import (
         STFT_FEATURES,
+        STFT_LARGE,
         STFT_SMALL,
         kernel_plan,
+        plan_kernel,
         stft_fused_features,
     )
 
     y = torch.from_numpy(_tones(1, SR // 2, 7)).to(cuda)
+    libs = {"stft_features": STFT_FEATURES, "stft_small": STFT_SMALL}
+    libs.update({k.library: k for k in STFT_LARGE.values()})
     for q in range(1, 24):
         n_fft = 256 * q
         ops.reset_launch_counts()
         stft_fused_features(y, n_fft, n_fft // 4, sr=SR, n_mels=128)
-        small = kernel_plan(n_fft) == "register_r"
-        assert (STFT_SMALL.launches, STFT_FEATURES.launches) == (
-            (1, 0) if small else (0, 1)), n_fft
+        want = plan_kernel(n_fft).library
+        assert want == {"register_r": "stft_small",
+                        "register32x32": "stft_features"}.get(
+            kernel_plan(n_fft), "stft_large_" + "abc"[(q - 9) // 5])
+        assert {name: k.launches for name, k in libs.items()} == {
+            name: int(name == want) for name in libs}, n_fft
         assert ops.launch_counts()["stft_features"] == 1
 
 

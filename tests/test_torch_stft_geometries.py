@@ -11,15 +11,20 @@ what ``auto`` resolves to, against the JAX package.
   mode (an FFT against fp32 Cooley-Tukey dots, sums in another order),
   bf16 power within one bf16 step, and rolloff within one bin, sr / n_fft
   (two prefix sums may straddle the 85% threshold differently).
-* The kernel's mixed-radix plan (every size from 2,304 on, and emulated at
-  every size but 2048), emulated in float64 on the host tables the kernel
-  reads, equals ``numpy.fft``: the digit reversal, the in-place stages, the
-  twiddle strides and the real-input split.
+* The kernel's mixed-radix plan in shared memory (kept in the tree; no
+  size runs it), emulated in float64 on the host tables the kernel reads at
+  every size but 2048, equals ``numpy.fft``: the digit reversal, the
+  in-place stages, the twiddle strides and the real-input split.
 * Its register plan of n_fft 256 .. 1,792 (``csrc/stft_small.cu``),
   emulated in float64 on its host tables and the literal roots of its
   source, equals ``numpy.fft``: the lanes' points, the r-point DFT, the
   W_m twiddles, the five lane stages, the partners of the split and the
   placement in the shared power row; ``kernel_plan`` routes each size.
+* Its group register plan of n_fft 2,304 .. 5,888
+  (``csrc/stft_large.cuh``), emulated the same way: the threads' points,
+  the q-point DFT, the W_m twiddles, the plane's rows, pass B's 4-point
+  DFT, W_128 twiddles and lane stages, the bins in natural order and the
+  split.
 * ``ct`` against the JAX ``ct`` (fp32 matmuls both; rtol 1e-4 / atol 1e-6
   x max power), with a custom window and edge padding.
 * ``ct_pallas`` with a non-constant ``pad_mode`` against the JAX kernel.
@@ -411,19 +416,142 @@ def test_register_plan_roots_are_cos_and_sin_in_fp32():
 def test_kernel_plan_routes_each_size(q):
     from tpuvae_torch.ops.stft import (
         STFT_FEATURES,
+        STFT_LARGE,
         STFT_SMALL,
         kernel_plan,
+        plan_kernel,
     )
 
     want = "register_r" if q <= 7 else (
-        "register32x32" if q == 8 else "shared")
+        "register32x32" if q == 8 else "register_w")
     assert kernel_plan(256 * q) == want
-    # both libraries count as kernel 1; only the register plan's is its own
+    # every library counts as kernel 1; each register plan has its own
     assert STFT_SMALL.name == STFT_FEATURES.name == "stft_features"
     assert STFT_SMALL.library == "stft_small"
+    lib = plan_kernel(256 * q)
+    assert lib.name == "stft_features"
+    assert lib.library == ("stft_small" if q <= 7 else "stft_features"
+                           if q == 8 else "stft_large_" + "abc"[(q - 9) // 5])
+    assert lib in (STFT_FEATURES, STFT_SMALL, *STFT_LARGE.values())
     for bad in (0, 128, 1000, 6144):
         with pytest.raises(ValueError, match="no plan"):
             kernel_plan(bad)
+
+
+# -- the group register plan of n_fft 2,304 .. 5,888 ---------------------------
+
+def _group_source_roots() -> dict:
+    """The literal roots ``cos, sin (2 pi e / Q)`` of ``csrc/stft_large.cuh``
+    (its q-point DFTs' twiddles and odd factors), by Q, as fp32."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "tpuvae_torch" / "csrc"
+           / "stft_large.cuh").read_text()
+    roots = {}
+    for name, size, body in re.findall(
+            r"constexpr float (kC|kS)\[(\d+)\] = \{([^}]*)\};", src):
+        vals = np.array([float(v.strip().rstrip("f")) for v in body.split(",")],
+                        np.float32)
+        assert vals.size == int(size)
+        roots.setdefault(int(size), {})[name] = vals
+    return {q: (v["kC"], v["kS"]) for q, v in roots.items()}
+
+
+def _emulate_group_plan(x: np.ndarray, n_fft: int) -> np.ndarray:
+    """``csrc/stft_large.cuh`` in float64 on its own tables: thread t of
+    the group takes points t + 128 j (j < q); pass A's q-point DFT as the
+    kernel factors it (q = P S, P-point DFTs over j = S jp + js, twiddles
+    W_q^(js kp) and the paired S-point DFT from the source's roots, output
+    k1 = kp + P ks), times W_m^(t k1) from the host table, to row k1,
+    column t of the plane; pass B over each row: lane l takes t = l + 32 a,
+    the 4-point DFT over a, W_128^(l c) from the table, the five lane
+    stages (lane l with l ^ d: the lower keeps p + v, the upper takes (p -
+    v) times its lane twiddle), and lane l's register c to bin k1 + q (c +
+    4 brev5(l)) in natural order; then the split of bin k with its partner
+    m - k and the Nyquist bin from Z[0]."""
+    from tpuvae_torch.ops.stft import _group_tables
+
+    window, split_tw, xtw = _group_tables(n_fft)
+    m = n_fft // 2
+    q = m // 128
+    big_p = q & -q
+    big_s = q // big_p
+    cplx = lambda t: t[..., 0].astype(np.float64) + 1j * t[..., 1]  # noqa: E731
+    split_tw, xtw = cplx(split_tw), cplx(xtw)
+    tw_a = xtw[:128 * q].reshape(q, 128)
+    tw_b = xtw[128 * q:128 * q + 128].reshape(4, 32)
+    tw_lane = xtw[128 * q + 128:].reshape(5, 32)
+    xw = x * window
+    z = xw[0::2] + 1j * xw[1::2]
+    v = z.reshape(q, 128)                      # v[j, t] = z[t + 128 j]
+    a = np.einsum("pk,psl->ksl",
+                  np.exp(-2j * np.pi * np.outer(np.arange(big_p),
+                                                np.arange(big_p)) / big_p),
+                  v.reshape(big_p, big_s, 128))
+    y = np.empty((q, 128), complex)
+    if big_s == 1:
+        y[:] = a[:, 0]
+    else:
+        cos_t, sin_t = (t.astype(np.float64) for t in _group_source_roots()[q])
+        root = lambda e: cos_t[e % q] - 1j * sin_t[e % q]  # noqa: E731
+        for kp in range(big_p):
+            b = np.stack([a[kp, js] * root(js * kp) for js in range(big_s)])
+            for ks in range(big_s):
+                y[kp + big_p * ks] = sum(
+                    b[t] * root(((t * ks) % big_s) * (q // big_s))
+                    for t in range(big_s))
+    y *= tw_a                                  # W_m^(t k1), row k1 = 0 is 1
+    lane = np.arange(32)
+    brl = np.array([_brev(int(v_), 5) for v_ in lane])
+    plane = np.full(m, np.nan + 0j)
+    for k1 in range(q):
+        pts = y[k1].reshape(4, 32)             # pts[a, l] = row[l + 32 a]
+        four = np.exp(-2j * np.pi * np.outer(np.arange(4), np.arange(4)) / 4)
+        w = (four @ pts) * tw_b                # w[c, l], W_128^(l c)
+        for s in range(5):
+            d = 16 >> s
+            sign = np.where(lane & d, -1.0, 1.0)
+            w = (w[:, lane ^ d] + sign * w) * tw_lane[s]
+        for c in range(4):
+            k = k1 + q * (c + 4 * brl)
+            assert np.isnan(plane[k]).all()    # each bin written once
+            plane[k] = w[c]
+    k = np.arange(m // 2 + 1)
+    zk, zm = plane[k], plane[(m - k) % m]
+    power = np.empty(m + 1)
+    for kk, zz, mm in ((k, zk, zm), (m - k[1:], zm[1:], zk[1:])):
+        even = 0.5 * (zz + np.conj(mm))
+        odd = -0.5j * (zz - np.conj(mm))
+        power[kk] = np.abs(even + split_tw[kk] * odd) ** 2
+    zn = plane[0]                              # the Nyquist bin from Z[0]
+    power[m] = np.abs(0.5 * (zn + np.conj(zn)) + split_tw[m] * (
+        -0.5j * (zn - np.conj(zn)))) ** 2
+    return power
+
+
+@pytest.mark.parametrize("q", range(9, 24))
+def test_group_register_plan_with_the_kernel_tables_equals_rfft(q):
+    from tpuvae_torch.dsp.primitives import hann_window
+    from tpuvae_torch.ops.stft import _group_tables
+
+    n_fft = 256 * q
+    _, _, xtw = _group_tables(n_fft)
+    assert xtw.shape == (128 * q + 288, 2) and xtw.dtype == np.float32
+    x = np.random.default_rng(200 + q).standard_normal(n_fft)
+    want = np.abs(np.fft.rfft(x * hann_window(n_fft))) ** 2
+    # float64 arithmetic on fp32 tables and roots, as the mixed-radix test
+    np.testing.assert_allclose(_emulate_group_plan(x, n_fft), want,
+                               rtol=1e-5, atol=1e-6 * want.max())
+
+
+def test_group_register_plan_roots_are_cos_and_sin_in_fp32():
+    roots = _group_source_roots()
+    assert sorted(roots) == [q for q in range(9, 24) if q != 16]
+    for q, (cos_t, sin_t) in roots.items():
+        ang = 2.0 * np.pi * np.arange(q) / q
+        np.testing.assert_allclose(cos_t, np.cos(ang), rtol=0, atol=6e-8)
+        np.testing.assert_allclose(sin_t, np.sin(ang), rtol=0, atol=6e-8)
 
 
 # -- the ct method ------------------------------------------------------------

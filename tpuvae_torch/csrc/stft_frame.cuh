@@ -1,9 +1,11 @@
-// What kernel 1's plans share (csrc/stft_features.cu, csrc/stft_small.cu):
+// What kernel 1's plans share (csrc/stft_features.cu, csrc/stft_small.cu,
+// csrc/stft_large.cuh):
 // the parameters, the stored-type tile, the warp reductions, the
 // power-of-two FFT in registers, the real-input split's arithmetic, the
 // frame loader of the plans that take n_fft / 2 = 32 n points (zcr, rms,
-// window), the per-frame epilogue (statistics, mel projection, rolloff) over
-// a warp's fp32 power row and the T-contiguous power store.
+// window), the 32-point DFT across a warp's lanes, the per-frame epilogue
+// (statistics, mel projection, rolloff) over a warp's or a group's fp32
+// power row and the T-contiguous power store.
 #pragma once
 
 #include <cfloat>
@@ -230,31 +232,62 @@ __device__ __forceinline__ float split_power(float zkr, float zki, float zmr,
   return xr * xr + xi * xi;
 }
 
+// The 32-point DFT over the lanes of each of a lane's R values: radix-2
+// decimation in frequency, stage s pairing lane l with l ^ d, d = 16 >> s;
+// the lower lane keeps the sum, the upper one the difference times
+// ltw[s][l] (1 for the lower).  Lane l ends holding X[brev5(l)].
+template <int R>
+__device__ __forceinline__ void lane_fft32(float (&re)[R], float (&im)[R],
+                                           const float2* __restrict__ ltw,
+                                           int lane) {
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int d = 16 >> s;
+    const float2 w = __ldg(ltw + 32 * s + lane);
+    const float sg = (lane & d) ? -1.0f : 1.0f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float pr = __shfl_xor_sync(kFull, re[k], d);
+      const float pi = __shfl_xor_sync(kFull, im[k], d);
+      const float tr = pr + sg * re[k];
+      const float ti = pi + sg * im[k];
+      re[k] = tr * w.x - ti * w.y;
+      im[k] = tr * w.y + ti * w.x;
+    }
+  }
+}
+
 // Loads the frame of clip row y (n_s samples) that starts at sample
-// `start`: lane `lane` takes the complex points n = lane + 32 it, it < m / 32
-// (samples 2 n and 2 n + 1), coalesced, four a lane in flight; `interior`:
-// the frame lies inside the row.  With the epilogue it counts the zero
-// crossings (pairs inside the true samples, which start at start_t and
-// end at last_t: librosa's edges) and sums the squares for rms.  Each
-// windowed point goes to put(it, pos(n), re, im); pos is read with the
-// loads.  The loop unrolls where m is a compile-time constant (the points
-// then stay in registers) and not at all where it is not, as the
-// shared-memory plan's own loop did.
-template <typename Pos, typename Put>
+// `start` over the kStride threads of the frame (a warp, or the group of four
+// warps of the register plan of csrc/stft_large.cuh): thread `thread` takes
+// the complex points n = thread + kStride it, it < m / kStride (samples 2 n
+// and 2 n + 1), coalesced, four a thread in flight; `interior`: the frame
+// lies inside the row.  With the epilogue it counts the zero crossings
+// (pairs inside the true samples, which start at start_t and end at
+// last_t: librosa's edges) and sums the squares for rms.  Each windowed
+// point goes to put(it, pos(n), re, im); pos is read with the loads.  The
+// loop unrolls where m is a compile-time constant (the points then stay in
+// registers) and not at all where it is not, as the shared-memory plan's
+// own loop did.  A warp's frame gets zcr and rms; a group's frame gets its
+// warp's crossings and sum of squares, which the group adds up.
+template <int kStride = 32, typename Pos, typename Put>
 __device__ __forceinline__ void load_frame(
     const Params& p, const float* y, long long n_s, const float2* win2,
     long long start, long long start_t, long long last_t, bool interior,
-    int m, int lane, bool fused, Pos pos, Put put, float& zcr, float& rms) {
+    int m, int thread, bool fused, Pos pos, Put put, float& zcr,
+    float& rms) {
+  const int lane = kStride == 32 ? thread : (thread & 31);
   float sumsq = 0.0f;
   int crossings = 0, prev_sign = 0;
 #pragma unroll
-  for (int it0 = 0; it0 < m / 32; it0 += 4) {
+  for (int it0 = 0; it0 < m / kStride; it0 += 4) {
     float av[4], cv[4];
     float2 wv[4];
     int posv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int n = lane + 32 * (it0 + u);
+      if (kStride != 32 && it0 + u >= m / kStride) break;
+      const int n = thread + kStride * (it0 + u);
       const long long s0 = start + 2 * n;
       if (interior && p.vec2) {
         const float2 v = __ldg(reinterpret_cast<const float2*>(y + s0));
@@ -270,7 +303,8 @@ __device__ __forceinline__ void load_frame(
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int it = it0 + u;
-      const int n = lane + 32 * it;
+      if (kStride != 32 && it >= m / kStride) break;
+      const int n = thread + kStride * it;
       const float a = av[u], c = cv[u];
       if (fused) {
         // pairs (s, s + 1) count only inside the true samples
@@ -279,15 +313,27 @@ __device__ __forceinline__ void load_frame(
         const long long st = start_t + 2 * n;
         crossings += sa != sc && st >= 0 && st + 1 <= last_t;
         const int next = __shfl_down_sync(kFull, sa, 1);
-        const int first = __shfl_sync(kFull, sa, 0);
-        if (lane < 31) {
-          crossings += sc != next && st + 1 >= 0 && st + 2 <= last_t;
-        } else if (it > 0) {
-          // the pair after lane 31's previous point: lane 0's first sample
-          const long long sp = st - 63;
-          crossings += prev_sign != first && sp >= 0 && sp + 1 <= last_t;
+        if constexpr (kStride == 32) {
+          const int first = __shfl_sync(kFull, sa, 0);
+          if (lane < 31) {
+            crossings += sc != next && st + 1 >= 0 && st + 2 <= last_t;
+          } else if (it > 0) {
+            // the pair after lane 31's previous point: lane 0's first sample
+            const long long sp = st - 63;
+            crossings += prev_sign != first && sp >= 0 && sp + 1 <= last_t;
+          }
+          prev_sign = sc;
+        } else {
+          if (lane < 31) {
+            crossings += sc != next && st + 1 >= 0 && st + 2 <= last_t;
+          } else if (n + 1 < m) {
+            // point n + 1 is another warp's: its first sample read again
+            const long long s2 = start + 2 * n + 2;
+            const float a2 = (s2 >= 0 && s2 < n_s) ? __ldg(y + s2) : 0.0f;
+            crossings +=
+                sc != zcr_sign(a2) && st + 1 >= 0 && st + 2 <= last_t;
+          }
         }
-        prev_sign = sc;
       }
       put(it, posv[u], a * wv[u].x, c * wv[u].y);
     }
@@ -299,8 +345,13 @@ __device__ __forceinline__ void load_frame(
     for (int o = 16; o > 0; o >>= 1) {
       crossings += __shfl_xor_sync(kFull, crossings, o);
     }
-    zcr = static_cast<float>(crossings) / static_cast<float>(2 * m);
-    rms = sqrtf(sumsq / static_cast<float>(2 * m));
+    if constexpr (kStride == 32) {
+      zcr = static_cast<float>(crossings) / static_cast<float>(2 * m);
+      rms = sqrtf(sumsq / static_cast<float>(2 * m));
+    } else {
+      zcr = static_cast<float>(crossings);
+      rms = sumsq;
+    }
   }
 }
 
@@ -401,6 +452,132 @@ __device__ __forceinline__ void frame_epilogue(float* pw, int nb,
     st[5 * plane] = cmax;
   }
   __syncwarp();
+}
+
+// ---- a frame over a group of four warps (csrc/stft_large.cuh) -------------
+
+constexpr int kGroupThreads = 128;
+// shared words a group reduces through: per warp its magnitude total, mel
+// numerator, colmax, crossings, sum of squares, bandwidth sum, rolloff bin
+constexpr int kGroupRed = 32;
+
+// The group's named barrier: its 128 threads, not the CTA's.
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kGroupThreads) : "memory");
+}
+
+// The epilogue of frame f of clip b over the group's 128 threads from its
+// fp32 power row pw (bin k at pad32(k), NB bins); red: the group's
+// kGroupRed shared words, of which the loader's per-warp crossings and sums
+// of squares already sit in red[12 + w] and red[16 + w]; bar: the group's
+// barrier, gw: the warp in the group.  Thread t takes the contiguous chunk
+// of bins t C .. t C + C - 1 and keeps their magnitudes in registers: one
+// pass gives the centroid's sums, colmax and the chunk sums of the rolloff
+// scan (a warp scan, then the warps' offsets); the mel is one filter a
+// thread; a second pass over the registers gives the bandwidth and the
+// rolloff bin.  Two group barriers; thread 0 writes the six statistics.
+template <int NB>
+__device__ __forceinline__ void group_epilogue(const float* pw,
+                                               const Params& p,
+                                               const float* melw, float* red,
+                                               int b, int f, int gt, int gw,
+                                               int bar, long long plane) {
+  constexpr int C = (NB + kGroupThreads - 1) / kGroupThreads;
+  const int lane = gt & 31;
+  const int kb = gt * C;
+  float mg[C];
+  float csum = 0.0f, num = 0.0f, cmax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int k = kb + i;
+    const bool in = k < NB;
+    const float pwk = in ? pw[pad32(k)] : 0.0f;
+    mg[i] = sqrtf(pwk);
+    csum += mg[i];
+    num += in ? mg[i] * __ldg(p.freqs + k) : 0.0f;
+    cmax = fmaxf(cmax, pwk);
+  }
+  float incl = csum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += up;
+  }
+  num = warp_sum_f(num);
+  cmax = warp_max_f(cmax);
+  if (lane == 31) {
+    red[gw] = incl;
+    red[4 + gw] = num;
+    red[8 + gw] = cmax;
+  }
+
+  // ---- mel projection, one filter a thread ---------------------------------
+  const long long mbase =
+      static_cast<long long>(b) * p.n_mels * p.n_frames + f;
+  for (int mi = gt; mi < p.n_mels; mi += kGroupThreads) {
+    const int k0 = __ldg(p.mel_meta + 3 * mi);
+    const int k1 = __ldg(p.mel_meta + 3 * mi + 1);
+    const int off = __ldg(p.mel_meta + 3 * mi + 2) - k0;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) acc += melw[off + k] * pw[pad32(k)];
+    p.mel[mbase + static_cast<long long>(mi) * p.n_frames] = acc;
+  }
+  group_sync(bar);
+
+  float den = 0.0f, before = 0.0f;
+  num = 0.0f;
+  cmax = 0.0f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    den += red[w];
+    num += red[4 + w];
+    cmax = fmaxf(cmax, red[8 + w]);
+    if (w < gw) before += red[w];
+  }
+  const float cent = num / fmaxf(den, kTiny);
+  const float thresh = kRollPercent * den;
+  float run = before + (incl - csum);
+  int found = NB;
+  float dev2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int k = kb + i;
+    const bool in = k < NB;
+    run += mg[i];
+    if (found == NB && in && run >= thresh) found = k;
+    if (in) {
+      const float dev = fabsf(__ldg(p.freqs + k) - cent);
+      dev2 += mg[i] * dev * dev;
+    }
+  }
+  dev2 = warp_sum_f(dev2);
+  for (int o = 16; o > 0; o >>= 1) {
+    found = min(found, __shfl_xor_sync(kFull, found, o));
+  }
+  if (lane == 0) {
+    red[20 + gw] = dev2;
+    red[24 + gw] = __int_as_float(found);
+  }
+  group_sync(bar);
+  if (gt == 0) {
+    float crossings = 0.0f, sumsq = 0.0f;
+    dev2 = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      crossings += red[12 + w];
+      sumsq += red[16 + w];
+      dev2 += red[20 + w];
+      found = min(found, __float_as_int(red[24 + w]));
+    }
+    constexpr float n_fft = static_cast<float>(2 * (NB - 1));
+    float* st = p.stats + static_cast<long long>(b) * p.n_frames + f;
+    st[0] = cent;
+    st[plane] = sqrtf(dev2 / fmaxf(den, kTiny));
+    st[2 * plane] = found < NB ? __ldg(p.freqs + found) : FLT_MAX;
+    st[3 * plane] = crossings / n_fft;
+    st[4 * plane] = sqrtf(sumsq / n_fft);
+    st[5 * plane] = cmax;
+  }
 }
 
 // The power store, T-contiguous: a warp instruction writes `frames`

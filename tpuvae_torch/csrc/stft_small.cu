@@ -212,31 +212,6 @@ __device__ __forceinline__ void fft_points(float (&re)[R], float (&im)[R]) {
   }
 }
 
-// The 32-point DFT over the lanes of each of a lane's R values: radix-2
-// decimation in frequency, stage s pairing lane l with l ^ d, d = 16 >> s;
-// the lower lane keeps the sum, the upper one the difference times
-// ltw[s][l] (1 for the lower).  Lane l ends holding X[brev5(l)].
-template <int R>
-__device__ __forceinline__ void lane_fft32(float (&re)[R], float (&im)[R],
-                                           const float2* __restrict__ ltw,
-                                           int lane) {
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int d = 16 >> s;
-    const float2 w = __ldg(ltw + 32 * s + lane);
-    const float sg = (lane & d) ? -1.0f : 1.0f;
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const float pr = __shfl_xor_sync(kFull, re[k], d);
-      const float pi = __shfl_xor_sync(kFull, im[k], d);
-      const float tr = pr + sg * re[k];
-      const float ti = pi + sg * im[k];
-      re[k] = tr * w.x - ti * w.y;
-      im[k] = tr * w.y + ti * w.x;
-    }
-  }
-}
-
 template <typename TOut, int R>
 __host__ __device__ constexpr size_t register_tile_bytes() {
   return (static_cast<size_t>(Tile<TOut>::kFrames) * (32 * R + 2) *

@@ -35,6 +35,9 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _EXTRA_FLAGS = {
     "stft_features": [],
     "stft_small": [],
+    "stft_large_a": [],
+    "stft_large_b": [],
+    "stft_large_c": [],
     "tuning": ["-fmad=false"],
     "select": ["-fmad=false"],
     "pairwise": [],

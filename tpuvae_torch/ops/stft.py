@@ -24,8 +24,11 @@ takes the geometries of the JAX kernel (:func:`stft_kernel_supports`):
 every ``n_fft = 256 q``, ``q = 1 .. 23``, with any hop that divides it.
 :func:`kernel_plan` names the plan a size runs: n_fft 256 .. 1,792 a
 register plan of ``m = 32 r`` points (``csrc/stft_small.cu``), 2048 the
-radix-32 x 32 register plan, every larger size a mixed-radix plan
-(:func:`_radix_plan`) in shared memory.  A non-constant
+radix-32 x 32 register plan, every larger size a register plan of ``m =
+128 q`` points over a group of four warps (``csrc/stft_large.cuh``).  The
+mixed-radix plan in shared memory that ran those sizes before
+(:func:`_radix_plan`, :func:`_general_tables`) stays in the tree, run by no
+size.  A non-constant
 ``pad_mode`` is applied here, on the card, and the kernel reads the padded
 signal, as the JAX wrappers pad on the host.
 
@@ -65,19 +68,38 @@ STFT_FEATURES = _build.Kernel(
 # parallel): the same C signature, counted under the same name
 STFT_SMALL = _build.Kernel("stft_features", "stft_small", "tpuvae_stft_small",
                            STFT_FEATURES.argtypes)
+# the group register plan of n_fft 2,304 .. 5,888 (csrc/stft_large.cuh), in
+# three libraries of five sizes each, built in parallel: the same C
+# signature, counted under the same name; keyed by the first q of each
+STFT_LARGE = {
+    q0: _build.Kernel("stft_features", f"stft_large_{part}",
+                      f"tpuvae_stft_large_{part}", STFT_FEATURES.argtypes)
+    for q0, part in ((9, "a"), (14, "b"), (19, "c"))}
 
 
 def kernel_plan(n_fft: int) -> str:
     """The plan kernel 1 runs at ``n_fft`` (one of
     :func:`stft_kernel_supports`'s sizes): ``"register_r"`` for n_fft =
     256 q, q <= 7 (``m = 32 r`` points, ``r = 4 q`` a lane, a lane FFT by
-    shuffles); ``"register32x32"`` for 2048; ``"shared"`` (the mixed-radix
-    plan in shared memory) for every larger size."""
+    shuffles); ``"register32x32"`` for 2048; ``"register_w"`` for q >= 9
+    (``m = 128 q`` points in the registers of a group of four warps, ``q`` a
+    thread, one exchange through shared memory)."""
     if not 256 <= n_fft <= KERNEL_MAX_N_FFT or n_fft % 256:
         raise ValueError(f"kernel 1 has no plan for n_fft {n_fft}")
     if n_fft == _REGISTER_PLAN_N_FFT:
         return "register32x32"
-    return "register_r" if n_fft <= _REGISTER_R_MAX_N_FFT else "shared"
+    return "register_r" if n_fft <= _REGISTER_R_MAX_N_FFT else "register_w"
+
+
+def plan_kernel(n_fft: int) -> _build.Kernel:
+    """The library entry that runs kernel 1 at ``n_fft`` (:func:`kernel_plan`);
+    every one is counted as ``stft_features``."""
+    plan = kernel_plan(n_fft)
+    if plan == "register_r":
+        return STFT_SMALL
+    if plan == "register32x32":
+        return STFT_FEATURES
+    return STFT_LARGE[max(q0 for q0 in STFT_LARGE if q0 <= n_fft // 256)]
 
 
 def stft_kernel_supports(n_fft: int, hop_length: int) -> bool:
@@ -222,8 +244,9 @@ def _digit_reversal(plan: tuple[int, ...]) -> np.ndarray:
 
 
 def _general_tables(n_fft: int):
-    """Host tables of kernel 1's mixed-radix plan (n_fft 2,304 and up),
-    built in float64 and cast to fp32: the periodic Hann window; the split
+    """Host tables of kernel 1's mixed-radix plan in shared memory (which no
+    size runs; its emulation test holds it), built in float64 and cast to
+    fp32: the periodic Hann window; the split
     twiddles ``exp(-2 pi i k / n_fft)``, ``k = 0 .. m``; the ``m``-point
     twiddles ``exp(-2 pi i k / m)``, ``k < m`` (every stage's and every
     odd radix's, by stride); the inverse digit reversal as int32 (point
@@ -270,20 +293,41 @@ def _register_tables(n_fft: int):
     return prim.hann_window(n_fft), _unit(-2.0 * np.pi * k / n_fft), xtw
 
 
+def _group_tables(n_fft: int):
+    """Host tables of kernel 1's group register plan of ``m = n_fft / 2 =
+    128 q`` points (n_fft 2,304 .. 5,888), built in float64 and cast to
+    fp32: the periodic Hann window; the split twiddles ``exp(-2 pi i k /
+    n_fft)``, ``k = 0 .. m``; and ``(128 q + 288, 2)``: rows ``k1 < q`` of
+    128 the twiddles ``exp(-2 pi i t k1 / m)`` of thread ``t`` after its
+    q-point DFT, then ``(4, 32)`` ``exp(-2 pi i l c / 128)`` of lane ``l``
+    after the 4-point DFT of pass B, then the ``(5, 32)`` lane twiddles of
+    its 32-point DFT's five stages (:func:`_lane_angles`)."""
+    m = n_fft // 2
+    q = m // 128
+    if kernel_plan(n_fft) != "register_w":
+        raise ValueError(f"the group register plan takes n_fft 256 q, "
+                         f"q = 9 .. 23, got {n_fft}")
+    tk = np.outer(np.arange(q, dtype=np.float64), np.arange(128)).reshape(-1)
+    lc = np.outer(np.arange(4, dtype=np.float64), np.arange(32)).reshape(-1)
+    xtw = _unit(np.concatenate([-2.0 * np.pi * tk / m,
+                                -2.0 * np.pi * lc / 128,
+                                _lane_angles().reshape(-1)]))
+    k = np.arange(m + 1, dtype=np.float64)
+    return prim.hann_window(n_fft), _unit(-2.0 * np.pi * k / n_fft), xtw
+
+
 @functools.lru_cache(maxsize=8)
 def _fft_consts(device: str, n_fft: int):
-    """The kernel's tables for ``n_fft`` on ``device``: ``(window, split
-    twiddles, exchange, register-plan or m-point twiddles, iperm or None,
-    plan code)``."""
+    """The tables of the plan kernel 1 runs at ``n_fft``, on ``device``:
+    ``(window, split twiddles, the plan's twiddles)``."""
     plan = kernel_plan(n_fft)
     if plan == "register32x32":
-        tables = (*_fft_tables(n_fft), None, 0)
+        tables = _fft_tables(n_fft)
     elif plan == "register_r":
-        tables = (*_register_tables(n_fft), None, 0)
+        tables = _register_tables(n_fft)
     else:
-        tables = _general_tables(n_fft)
-    return tuple(torch.from_numpy(t).to(device) if isinstance(t, np.ndarray)
-                 else t for t in tables)
+        tables = _group_tables(n_fft)
+    return tuple(torch.from_numpy(t).to(device) for t in tables)
 
 
 def _mel_csr(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -329,7 +373,7 @@ def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
         buf, origin = y, 0
     else:
         buf, origin = prim.center_pad(y, n_fft, pad_mode).contiguous(), n_fft // 2
-    window, tw, xtw, iperm, plan = _fft_consts(str(dev), n_fft)
+    window, tw, xtw = _fft_consts(str(dev), n_fft)
     power = torch.empty((b, n_fft // 2 + 1, t), dtype=power_dtype, device=dev)
     null = ctypes.c_void_p(None)
     freqs = mel_w = mel_meta = mel = stats = None
@@ -340,10 +384,9 @@ def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
         # one contiguous (B, T) plane per statistic
         stats = torch.empty((6, b, t), dtype=torch.float32, device=dev)
     p = lambda x: null if x is None else _build.ptr(x)  # noqa: E731
-    kernel = STFT_SMALL if kernel_plan(n_fft) == "register_r" else STFT_FEATURES
-    kernel(
+    plan_kernel(n_fft)(
         _build.ptr(buf), b, buf.shape[1], origin, n_samples, n_fft,
-        hop_length, t, p(window), p(tw), p(xtw), p(iperm), plan, p(freqs),
+        hop_length, t, p(window), p(tw), p(xtw), null, 0, p(freqs),
         p(mel_w), p(mel_meta), n_mels, 0 if mel_w is None else mel_w.numel(),
         p(power), int(power_dtype == torch.bfloat16), p(mel), p(stats),
         _build.stream_ptr(dev))
