@@ -146,7 +146,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     optimizer, with the cost of the fused pair's backward; one more step
     under ``torch.profiler``: the pair's kernel time, launches and span
     inside it;
-19. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
+19. bf16 conv models: ``run_conditional_vae`` and ``run_hybrid_vae`` with
+    ``compute_dtype="bfloat16"`` at full width (mel 128 x 1024, text 768,
+    batch 32, 3 epochs, 186 clips) on phase 7's ``processed_data2``, launch
+    counters set to 0 before each run and read after (kernel 6: 0
+    launches, the trunk's library route as the JAX trunk's; kernel 5 once
+    per metric row, as in phases 10 and 11); the rows, the bundle meta and
+    the latents file's ``'<V2'`` header; both bf16 bundles served on 32
+    clips with lyrics, card against CPU within the bf16 contract of
+    ``tests/test_torch_bf16.py`` (relative L2 at most the same bundle's
+    fp32 distance, the largest error at most 3 x it), cluster ids equal
+    but where the latents' move may cross a centre's margin (their count
+    printed); a full-width bf16 forward of each model on 4 clips in both
+    modes, card against CPU; the bf16 and fp32 training steps split into
+    forward, backward and Adam with their peak memory, in alternating
+    rounds in this process;
+20. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
     then the ``ok`` line last.
 """
 
@@ -1469,6 +1484,344 @@ def serve_conv_bundles(torch, dev, work: Path, dataset_root: Path) -> dict:
     log("hybrid /encode of one 30 s clip with lyrics, ms: " + json.dumps(
         {k: v for k, v in out.items() if k.startswith("hybrid_encode")}))
     return out
+
+
+# -- phase 19: bf16 compute for the conv models -----------------------------------
+
+# the bf16 contract of tests/test_torch_bf16.py: a bf16 result's relative L2
+# distance to another bf16 implementation's at most fp32's distance to it,
+# its largest element error at most 3 x fp32's
+BF16_SPREAD_L2 = 1.0
+BF16_SPREAD_MAX = 3.0
+
+
+def bf16_within_spread(name: str, got: np.ndarray, want: np.ndarray,
+                       ref32: np.ndarray) -> dict:
+    """``got`` (bf16 on the card) against ``want`` (bf16 on the CPU), with
+    ``ref32`` (the same weights at fp32) as the yardstick; fails outside
+    the contract.  Returns both distances."""
+    got, want, ref32 = (np.asarray(a, np.float64) for a in (got, want, ref32))
+    scale_max, scale_l2 = np.abs(ref32).max(), np.linalg.norm(ref32)
+    out = {"l2": float(np.linalg.norm(got - want) / scale_l2),
+           "max": float(np.abs(got - want).max() / scale_max),
+           "spread_l2": float(np.linalg.norm(want - ref32) / scale_l2),
+           "spread_max": float(np.abs(want - ref32).max() / scale_max)}
+    check(np.isfinite(got).all(), f"{name}: not finite")
+    check(out["l2"] <= BF16_SPREAD_L2 * out["spread_l2"]
+          and out["max"] <= BF16_SPREAD_MAX * out["spread_max"],
+          f"{name} outside the bf16 contract: {out}")
+    return out
+
+
+def flipped_ids_within_contract(latents: np.ndarray, ref: np.ndarray,
+                                centers: np.ndarray, got_ids: np.ndarray,
+                                want_ids: np.ndarray) -> int:
+    """The number of cluster ids that differ between two encoders; fails
+    unless each lies where the latents' difference could move it: the
+    reference's nearest and second nearest centres closer in distance
+    than twice the latent's move (the triangle inequality)."""
+    differ = np.flatnonzero(got_ids != want_ids)
+    c = centers[~np.isnan(centers).any(axis=1)]
+    for i in differ:
+        d = np.sort(np.linalg.norm(c - ref[i], axis=1))
+        move = float(np.linalg.norm(latents[i] - ref[i]))
+        check(d[1] - d[0] <= 2 * move, f"clip {i}: cluster id moved by a "
+              f"latent move of {move} across a margin of {d[1] - d[0]}")
+    return int(differ.size)
+
+
+def step_parts_ms(torch, model, loss_of, inputs, g, opt, steps: int) -> dict:
+    """Forward (loss included), backward and Adam of ``steps`` training
+    steps, CUDA events, medians; peak device memory of the steps."""
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = loss_of(model(*inputs, generator=g), inputs)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        ev[3].synchronize()
+        for k, a, b in zip(parts, ev[:-1], ev[1:]):
+            parts[k].append(a.elapsed_time(b))
+    out = {f"{k}_ms": statistics.median(v) for k, v in parts.items()}
+    out["step_ms"] = sum(out.values())
+    out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def step_device_profile(torch, one_step, top: int = 8) -> dict:
+    """``one_step()`` once under ``torch.profiler``: its device kernels'
+    count and summed time, the span from the first kernel's start to the
+    last one's end, and the ``top`` kernels by summed time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in device:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.end - e.time_range.start)
+    return {"kernels": len(device), "kernels_us": sum(by_name.values()),
+            "span_us": (max(e.time_range.end for e in device)
+                        - min(e.time_range.start for e in device)),
+            "top_us": [[name[:90], us] for name, us in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:top]]}
+
+
+def time_bf16_steps(torch, dev) -> dict:
+    """The full-width CVAE and Hybrid training steps at batch 32 in bf16
+    and fp32, in alternating rounds in this process (fp32, bf16, bf16,
+    fp32, twice; 5 steps each after 3 of warm-up): forward, backward, Adam
+    and peak device memory, medians over the rounds; then one step of each
+    under the profiler (:func:`step_device_profile`)."""
+    from tpuvae_torch.models import (
+        ConditionalVAE,
+        HybridVAE,
+        cvae_loss,
+        hybrid_loss,
+    )
+    from tpuvae_torch.train.state import create_state
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    audio = torch.randn((BATCH, *MEL_HW, 1), generator=g, device=dev)
+    text = torch.randn((BATCH, 768), generator=g, device=dev)
+    cond = torch.eye(3, device=dev)[torch.arange(BATCH, device=dev) % 3]
+    builds = {
+        "cvae": (lambda dt: ConditionalVAE(
+            num_classes=3, input_hw=MEL_HW, dtype=dt,
+            generator=torch.Generator().manual_seed(SEED)),
+            (audio, text, cond),
+            lambda o, i: cvae_loss(o[0], i[0], o[1], i[1], o[2], o[3])[0]),
+        "hybrid": (lambda dt: HybridVAE(
+            input_hw=MEL_HW, dtype=dt,
+            generator=torch.Generator().manual_seed(SEED)),
+            (audio, text),
+            lambda o, i: hybrid_loss(o[0], i[0], o[1], i[1], o[2], o[3])[0]),
+    }
+    out = {}
+    for arch, (build, inputs, loss_of) in builds.items():
+        runs = {"float32": [], "bfloat16": []}
+        made = {}
+        for name in runs:                   # build, then 3 warm-up steps
+            model = build(getattr(torch, name)).to(dev).train()
+            opt = create_state(model, 1e-4).optimizer
+            made[name] = (model, opt)
+            step_parts_ms(torch, model, loss_of, inputs, g, opt, steps=3)
+        for name in ("float32", "bfloat16", "bfloat16", "float32") * 2:
+            model, opt = made[name]
+            runs[name].append(step_parts_ms(torch, model, loss_of, inputs, g,
+                                            opt, steps=5))
+        out[arch] = {name: {k: statistics.median(r[k] for r in rs)
+                            for k in rs[0]} for name, rs in runs.items()}
+        out[arch]["bf16_over_fp32_step"] = (out[arch]["bfloat16"]["step_ms"]
+                                            / out[arch]["float32"]["step_ms"])
+        for name, (model, opt) in made.items():
+            def one_step(model=model, opt=opt):
+                opt.zero_grad(set_to_none=True)
+                loss_of(model(*inputs, generator=g), inputs).backward()
+                opt.step()
+
+            out[arch][name]["profile"] = step_device_profile(torch, one_step)
+        del made
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_conv_models(torch, dev, work: Path, data2: Path,
+                     fp32_counts: dict) -> dict:
+    """``run_conditional_vae`` and ``run_hybrid_vae`` with
+    ``compute_dtype="bfloat16"`` at full width on phase 7's
+    ``processed_data2`` (launch counters set to 0 before each run and read
+    after: kernel 6 never, kernel 5 as in the fp32 runs), their rows, bundle
+    meta and latents file; both bf16 bundles served on 32 clips with lyrics,
+    card against CPU within the bf16 contract; a full-width bf16 forward of
+    each model on 4 clips, card against CPU; the bf16 and fp32 training
+    steps timed in alternating rounds."""
+    import dataclasses
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import (
+        ClusterConfig,
+        ConditionalVAEConfig,
+        HybridVAEConfig,
+    )
+    from tpuvae_torch.convert import from_flax
+    from tpuvae_torch.infer import ClipEncoder, _build_model
+    from tpuvae_torch.io.artifacts import load_advanced, load_latents
+    from tpuvae_torch.metrics.labels import encode_labels, one_hot_np
+    from tpuvae_torch.pipelines import run_conditional_vae, run_hybrid_vae
+    from tpuvae_torch.train.checkpoint import load_checkpoint
+    from tpuvae_torch.utils.logging import RunLogger
+
+    out = {}
+    runs = (("cvae", run_conditional_vae,
+             ConditionalVAEConfig(epochs=CVAE_EPOCHS, batch_size=BATCH,
+                                  compute_dtype="bfloat16"),
+             "Conditional_VAE"),
+            ("hybrid", run_hybrid_vae,
+             HybridVAEConfig(epochs=HYBRID_EPOCHS, batch_size=BATCH,
+                             compute_dtype="bfloat16"),
+             "Convolutional_VAE"))
+    for arch, run_fn, cfg, subdir in runs:
+        results = work / f"{arch}_bf16"
+        log_path = work / f"{arch}_bf16.jsonl"
+        logger = RunLogger(log_path, echo=False)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            df = run_fn(str(data2), str(results), cfg, ClusterConfig(), logger,
+                        make_plots=False, device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            logger.close()
+        counts = ops.launch_counts()
+        ev = {rec["event"]: rec for rec in (
+            json.loads(line) for line in log_path.read_text().splitlines())}
+        fit = ev["fit"]
+        check(counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == 0,
+              f"{arch} bf16: kernel 6 launched {counts}")
+        if arch == "cvae":
+            want_k5 = 4
+            cols = ["Silhouette", "NMI", "ARI", "Purity"]
+        else:
+            want_k5 = 4 + int((df["n_clusters"] > 1).sum())
+            cols = ["Silhouette", "Davies-Bouldin", "ARI"]
+        check(counts["pairwise"] == want_k5,
+              f"{arch} bf16: kernel 5 launched {counts['pairwise']} times, "
+              f"{want_k5} expected (fp32 run: {fp32_counts[arch]['pairwise']})")
+        check(len(df) == 4 and np.isfinite(df[cols].to_numpy()).all(),
+              f"{arch} bf16 rows {df.to_dict('records')}")
+        check(all(np.isfinite(fit["train_loss"] + fit["val_loss"])),
+              f"{arch} bf16 losses not finite")
+        serving = results / subdir / "serving"
+        flat, meta = load_checkpoint(serving / "model")
+        check(meta["compute_dtype"] == "bfloat16"
+              and tuple(meta["input_hw"]) == MEL_HW
+              and all(v.dtype == np.float32 for v in flat.values()),
+              f"{arch} bf16 bundle meta {meta}")
+        n = ev["fit_start"]["n_train"] + ev["fit_start"]["n_val"]
+        info = {"launches": counts, "run_s": wall_s,
+                "fp32_kernel5_launches": fp32_counts[arch]["pairwise"],
+                "fit_s": fit["seconds"], "epoch_s": fit["epoch_seconds"],
+                "train_loss": fit["train_loss"], "val_loss": fit["val_loss"],
+                "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
+                "metrics": df.to_dict("records")}
+        if arch == "hybrid":
+            path = results / subdir / "hybrid_latent_features.npy"
+            header = path.read_bytes()[:128]
+            lat = load_latents(path)
+            check(b"'descr': '<V2'" in header and lat.shape == (
+                n, HYBRID_LATENT) and np.isfinite(lat).all(),
+                f"hybrid bf16 latents file {header[:80]!r} {lat.shape}")
+            info["latents_header"] = header.split(b"\n")[0][10:].decode().strip()
+        out[arch] = info
+        log(f"{arch} bf16: run in {wall_s:.2f} s (fit {fit['seconds']:.2f} s), "
+            f"launch counts {counts}; rows {df.to_dict('records')}")
+
+    # the two bf16 bundles served on 32 clips with lyrics, card vs CPU; the
+    # same bundle at fp32 on the card is the contract's yardstick
+    wavs = sorted(p for p in (work / "Datasets").rglob("*.wav")
+                  if "truncated" not in p.name)[:N_SERVE]
+    lyrics = [f"{p.stem.replace('_', ' ')} la la la" for p in wavs]
+    genres = [p.parent.name for p in wavs]
+    for arch, _, _, _ in runs:
+        res = str(work / f"{arch}_bf16")
+        enc = ClipEncoder.load(arch, results_dir=res)
+        check(enc.model.audio_encoder.dtype == torch.bfloat16,
+              f"{arch} bf16 bundle served at {enc.model.audio_encoder.dtype}")
+        kw = {"lyrics": lyrics}
+        if arch == "cvae":
+            kw["genres"] = genres
+        waves = enc.load_waveforms(wavs)
+        enc.encode_waveforms(waves[:1], **{k: v[:1] for k, v in kw.items()})
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = enc.encode_waveforms(waves, **kw)
+        encode_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(counts["stft_dense"] == 1 and counts["fusedconv_conv1"] == 0,
+              f"{arch} bf16 encode launches {counts}")
+        cpu = ClipEncoder.load(arch, results_dir=res, device="cpu")
+        want = cpu.encode_waveforms(waves, **kw)
+        m32 = _build_model(arch, {**enc.meta, "compute_dtype": "float32"})
+        m32.load_state_dict(enc.model.state_dict())
+        enc32 = dataclasses.replace(enc, model=m32.to(dev).eval())
+        ref32 = enc32.encode_waveforms(waves, **kw)
+        dist = bf16_within_spread(f"{arch} bf16 latents, card vs CPU",
+                                  got.latents, want.latents, ref32.latents)
+        flips = flipped_ids_within_contract(got.latents, want.latents,
+                                            enc.centers, got.clusters,
+                                            want.clusters)
+        out[arch]["serving"] = {"launches": counts, "encode_s": encode_s,
+                                "latents_vs_cpu": dist,
+                                "cluster_ids_differ": flips,
+                                "fp32_ids_differ": int(
+                                    (ref32.clusters != want.clusters).sum())}
+        log(f"{arch} bf16 serving: {N_SERVE} clips in {encode_s * 1e3:.1f} ms, "
+            f"launches {counts}; latents card vs CPU {json.dumps(dist)}; "
+            f"{flips} cluster ids differ")
+
+    # one full-width bf16 forward of each model on 4 clips, card vs CPU, in
+    # both modes; the same weights at fp32 on the card as the yardstick
+    data = load_advanced(data2)
+    y_genre, _ = encode_labels(data["metadata"]["genre"].values)
+    mel4 = np.asarray(data["mel"][:4], np.float32)[..., None]
+    text4 = np.asarray(data["text"][:4], np.float32)
+    for arch, _, _, subdir in runs:
+        flat, meta = load_checkpoint(work / f"{arch}_bf16" / subdir
+                                     / "serving" / "model")
+        inputs = [mel4, text4]
+        if arch == "cvae":
+            inputs.append(one_hot_np(y_genre)[:4])
+        eps = torch.randn((4, meta["latent_dim"]),
+                          generator=torch.Generator().manual_seed(SEED))
+        models = {}
+        for tag, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
+            m = _build_model(arch, {**meta, "compute_dtype": dt})
+            m.load_state_dict(from_flax(flat))
+            models[tag] = m
+        fwd = {}
+        for mode in ("eval", "train"):
+            for tag, model, where in (("card", models["bf16"], dev),
+                                      ("cpu", models["bf16"], "cpu"),
+                                      ("fp32", models["fp32"], dev)):
+                m = copy_to(model, where, mode == "train")
+                with torch.no_grad():
+                    o = m(*[torch.from_numpy(a).to(where) for a in inputs],
+                          eps.to(where))
+                fwd[tag] = [t.float().cpu().numpy() for t in o]
+            names = ("recon_audio", "recon_text", "mu", "logvar")
+            out[arch][f"forward_{mode}"] = {
+                nm: bf16_within_spread(f"{arch} bf16 {mode} {nm}", c, p, r)
+                for nm, c, p, r in zip(names, fwd["card"], fwd["cpu"],
+                                       fwd["fp32"])}
+        log(f"{arch} bf16 forward at full width, card vs CPU: "
+            + json.dumps({k: out[arch][k] for k in ("forward_eval",
+                                                     "forward_train")}))
+    out["steps"] = time_bf16_steps(torch, dev)
+    log("bf16 and fp32 training steps at full width (alternating rounds): "
+        + json.dumps(out["steps"]))
+    return out
+
+
+def copy_to(model, where, train: bool):
+    """A deep copy of ``model`` on ``where`` in training or eval mode."""
+    import copy
+
+    return copy.deepcopy(model).to(where).train(train)
 
 
 # -- phases 14 and 15: the lyrics encoder at full width, the front end ----------
@@ -3113,6 +3466,7 @@ def run(torch, dev, work: Path, card: str) -> int:
         "launches_per_conv_encode": {
             arch: conv_serving[arch]["launches_per_encode"]["fusedconv_conv1"]
             for arch in ("hybrid", "cvae")}})
+    fusedconv_row = kernels[-1]
     log(f"time fusedconv: pair {k6_ms:.4f} ms (conv0 {halves[0]['ms']:.4f}, "
         f"conv1 {halves[1]['ms']:.4f}; the earlier design as PERF.md records "
         f"it, not timed here: {EARLIER_DESIGN_MS['fusedconv']} = "
@@ -3189,6 +3543,21 @@ def run(torch, dev, work: Path, card: str) -> int:
         + json.dumps({k: round(v, 4) for k, v in at128.items()}))
     del y128, fe128, keys128
 
+    # ---- 19. bf16 compute for the conv models ----------------------------
+    bf16 = bf16_conv_models(torch, dev, work, data2,
+                            {"cvae": cvae["counts"],
+                             "hybrid": hybrid["counts"]})
+    # kernel 6 under bf16: never (the trunk's library route, as the JAX
+    # trunk's); kernel 5 on the bf16 runs' latents
+    fusedconv_row["launches_bf16_runs"] = {
+        arch: bf16[arch]["launches"]["fusedconv_conv1"]
+        for arch in ("cvae", "hybrid")}
+    fusedconv_row["launches_bf16_per_encode"] = {
+        arch: bf16[arch]["serving"]["launches"]["fusedconv_conv1"]
+        for arch in ("cvae", "hybrid")}
+    k5["launches_bf16_runs"] = {arch: bf16[arch]["launches"]["pairwise"]
+                                for arch in ("cvae", "hybrid")}
+
     log("preprocess path: " + json.dumps(pre))
     log("encode latency: " + json.dumps(encode_ms))
     log("training path: " + json.dumps(train["stages"]))
@@ -3201,6 +3570,7 @@ def run(torch, dev, work: Path, card: str) -> int:
     log("geometries: " + json.dumps(geom))
     log("tsne at the reference's N: " + json.dumps(tsne_ref))
     log("workflow: " + json.dumps(flow))
+    log("bf16 conv models: " + json.dumps(bf16))
     # kernel 1 per geometry: the main path's 2048 / 512 row above, then the
     # timed geometries of phase 17 (launches: extract_basic_features there)
     k1 = next(k for k in kernels if k["name"] == "stft_features")

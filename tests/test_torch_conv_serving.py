@@ -45,6 +45,12 @@ N_CLIPS = 12
 def bundles(tmp_path_factory):
     """WAVs + lyrics + genres, a JAX-written ``processed_data2`` and the
     serving bundles of the JAX hybrid and cvae pipelines."""
+    return write_jax_bundles(tmp_path_factory.mktemp("conv_serving"))
+
+
+def write_jax_bundles(root, compute_dtype: str = "float32") -> dict:
+    """The corpus of this module under ``root`` and the bundles of one-epoch
+    JAX hybrid and cvae runs on it at ``compute_dtype``."""
     from tpuvae.config import AdvancedPreprocessConfig, ClusterConfig
     from tpuvae.config import ConditionalVAEConfig, HybridVAEConfig
     from tpuvae.dsp.features import extract_mel_image
@@ -55,7 +61,6 @@ def bundles(tmp_path_factory):
     from tpuvae.text import embed_lyrics
     from tpuvae.utils import RunLogger
 
-    root = tmp_path_factory.mktemp("conv_serving")
     rng = np.random.default_rng(21)
     t = np.arange(int(DURATION * SR)) / SR
     g = np.arange(N_CLIPS) % len(GENRES)
@@ -95,10 +100,12 @@ def bundles(tmp_path_factory):
     results = root / "results"
     quiet = RunLogger(echo=False)
     run_hybrid_vae(str(data), str(results),
-                   HybridVAEConfig(epochs=1, batch_size=8), ClusterConfig(),
-                   quiet, make_plots=False)
+                   HybridVAEConfig(epochs=1, batch_size=8,
+                                   compute_dtype=compute_dtype),
+                   ClusterConfig(), quiet, make_plots=False)
     run_conditional_vae(str(data), str(results),
-                        ConditionalVAEConfig(epochs=1, batch_size=8),
+                        ConditionalVAEConfig(epochs=1, batch_size=8,
+                                             compute_dtype=compute_dtype),
                         ClusterConfig(), quiet, make_plots=False)
     return {"root": root, "paths": paths, "lyrics": lyrics, "genres": genres,
             "results": results, "data": data, "backend": backend}

@@ -1543,3 +1543,125 @@ def test_ct_method_on_the_card_matches_the_cpu(cuda):
                       pad_mode="edge", method="ct")
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
                                atol=1e-6 * want.max().item())
+
+
+# -- bf16 compute of the conv models ----------------------------------------------
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """bfloat16's spacing at |x|: 2^(floor(log2 |x|) - 7)."""
+    _, e = torch.frexp(x.abs().float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       torch.where(x == 0, -125, e) - 8)
+
+
+def test_resolve_device_pins_full_precision_reductions(cuda):
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("layer", ["dense", "conv", "conv_transpose",
+                                   "bn1d_train", "bn1d_eval", "bn2d_train",
+                                   "bn2d_eval"])
+def test_bf16_layers_on_the_card_match_the_cpu(cuda, layer):
+    """One ulp at each rounding point (``tests/test_torch_bf16.py``'s
+    contract against flax): the card's bf16 products (float32 sums) and
+    the CPU's float32 products of the same bf16 operands; BatchNorm's
+    float32 statistics in two reduction orders."""
+    import copy
+
+    from tpuvae_torch.models import layers
+
+    g = torch.Generator().manual_seed(11)
+    if layer == "dense":
+        mod, x = layers.Dense(2048, 64, torch.bfloat16), torch.randn((32, 2048), generator=g)
+    elif layer.startswith("conv"):
+        cls = layers.Stride2Conv if layer == "conv" else layers.Stride2ConvTranspose
+        mod, x = cls(64, 128, torch.bfloat16), torch.randn((8, 64, 32, 2), generator=g)
+    else:
+        cls = layers.BatchNorm1d if layer.startswith("bn1d") else layers.BatchNorm2d
+        mod = cls(64, torch.bfloat16)
+        shape = (32, 64) if layer.startswith("bn1d") else (8, 64, 16, 8)
+        x = 3.0 * torch.randn(shape, generator=g) + 1.0
+        with torch.no_grad():
+            mod.weight.uniform_(0.5, 1.5, generator=g)
+            mod.running_var.uniform_(0.5, 1.5, generator=g)
+            mod.running_mean.normal_(0, 0.1, generator=g)
+    if not layer.startswith("bn"):
+        layers.lecun_init_(mod, g)
+    with torch.no_grad():
+        mod.bias.normal_(0, 0.1, generator=g)
+    mod.train(layer.endswith("train"))
+    card = copy.deepcopy(mod).to(cuda)
+    x = x.bfloat16()
+    with torch.no_grad():
+        want, got = mod(x), card(x.to(cuda)).cpu()
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs())
+    shift = mod.bias.detach().bfloat16().float().view(
+        (1, -1) + (1,) * (want.dim() - 2))
+    terms = torch.maximum(big, (want - shift).abs())
+    err = (got - want).abs()
+    bound = _bf16_ulp(terms) + (0 if layer.startswith("bn") else _bf16_ulp(big))
+    assert bool((err <= bound).all()), float((err / _bf16_ulp(big)).max())
+    for a, c in zip(mod.buffers(), card.buffers()):
+        torch.testing.assert_close(c.cpu(), a, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel6_launches_by_compute_dtype(cuda, dtype):
+    """The fp32 trunk launches kernel 6 once per forward; the bf16 trunk
+    never (its layers 0-1 are library convolutions, as the JAX trunk's)."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.models.layers import ConvEncoderTrunk, lecun_init_
+
+    trunk = lecun_init_(ConvEncoderTrunk(dtype=dtype),
+                        torch.Generator().manual_seed(1)).to(cuda)
+    x = torch.randn((4, 64, 128, 1), device=cuda)
+    ops.reset_launch_counts()
+    out = trunk.train()(x)
+    out.float().sum().backward()
+    with torch.no_grad():
+        trunk.eval()(x)
+    counts = ops.launch_counts()
+    want = 2 if dtype == "float32" else 0
+    assert counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == want
+    assert out.dtype == getattr(torch, dtype)
+
+
+@pytest.mark.parametrize("arch", ["cvae", "hybrid"])
+def test_bf16_models_on_the_card_match_the_cpu(cuda, arch):
+    """A bf16 model's forward in both modes, card against CPU, within the
+    bf16 contract: relative L2 at most the fp32 model's distance on the
+    same weights, the largest error at most 3 x it."""
+    import copy
+
+    from tpuvae_torch.models import ConditionalVAE, HybridVAE
+    from tpuvae_torch.models.layers import lecun_init_
+
+    hw = (128, 128)
+    g = torch.Generator().manual_seed(3)
+    inputs = [torch.randn((4, *hw, 1), generator=g),
+              torch.randn((4, 768), generator=g)]
+    if arch == "cvae":
+        build = lambda dt: ConditionalVAE(num_classes=3, input_hw=hw, dtype=dt)  # noqa: E731
+        inputs.append(torch.eye(3)[[0, 1, 2, 0]])
+    else:
+        build = lambda dt: HybridVAE(input_hw=hw, dtype=dt)  # noqa: E731
+    bf = lecun_init_(build(torch.bfloat16), torch.Generator().manual_seed(4))
+    f32 = build(torch.float32)
+    f32.load_state_dict(bf.state_dict())
+    eps = torch.randn((4, 64 if arch == "cvae" else 128), generator=g)
+    for train in (False, True):
+        outs = []
+        for model, dev in ((bf, cuda), (bf, "cpu"), (f32, cuda)):
+            m = copy.deepcopy(model).to(dev).train(train)
+            with torch.no_grad():
+                outs.append([o.float().cpu() for o in m(
+                    *[a.to(dev) for a in inputs], eps.to(dev))])
+        for got, want, ref in zip(*outs):
+            d = got - want
+            s = want - ref
+            assert float(d.norm()) <= float(s.norm()), (train, d.norm(), s.norm())
+            assert float(d.abs().max()) <= 3.0 * float(s.abs().max())

@@ -286,11 +286,16 @@ def test_cli_train_cvae_on_cpu_with_host_stream(trained, capsys):
 
 
 @pytest.mark.parametrize("what", ["bfloat16", "make_plots", "trunk_bfloat16"])
-def test_what_waits_raises_naming_its_roadmap_item(what, tmp_path, trained):
-    """bf16 still waits (item 5).  ``make_plots``, ported: the three
-    figures of the JAX pipeline are drawn under ``Conditional_VAE/``."""
+def test_what_waits_raises_naming_its_roadmap_item(what, tmp_path, trained,
+                                                   monkeypatch):
+    """Once waiting, now ported.  ``bfloat16``: a 1-epoch run in bf16
+    writes ``compute_dtype: "bfloat16"`` in the bundle's meta and finite
+    rows.  ``trunk_bfloat16``: the bf16 trunk returns bf16 in both modes
+    without calling kernel 6's wrapper.  ``make_plots``: the three figures
+    of the JAX pipeline are drawn under ``Conditional_VAE/``."""
     from tpuvae_torch import pipelines
     from tpuvae_torch.config import ConditionalVAEConfig
+    from tpuvae_torch.train.checkpoint import load_checkpoint
     from tpuvae_torch.utils.logging import RunLogger
 
     if what == "make_plots":
@@ -303,17 +308,33 @@ def test_what_waits_raises_naming_its_roadmap_item(what, tmp_path, trained):
                     "cluster_lang_distribution.png"):
             assert (out / png).stat().st_size > 0, png
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md") as err:
-        if what == "bfloat16":
-            pipelines.run_conditional_vae(
-                str(tmp_path), str(tmp_path),
-                ConditionalVAEConfig(compute_dtype="bfloat16"), device="cpu")
-        else:
-            from tpuvae_torch.models.layers import ConvEncoderTrunk
+    from tpuvae_torch.models import layers
 
-            ConvEncoderTrunk()(torch.zeros((1, 64, 64, 1), dtype=torch.bfloat16))
-    assert "item 5" in str(err.value)
-    assert not any(tmp_path.iterdir())
+    def no_kernel6(*args, **kwargs):
+        raise AssertionError("kernel 6 called under bfloat16")
+
+    monkeypatch.setattr(layers, "fused_trunk2", no_kernel6)
+    if what == "bfloat16":
+        df = pipelines.run_conditional_vae(
+            str(trained["data"]), str(tmp_path / "r"),
+            ConditionalVAEConfig(epochs=1, batch_size=8,
+                                 compute_dtype="bfloat16"),
+            logger=RunLogger(echo=False), make_plots=False, device="cpu")
+        _, meta = load_checkpoint(tmp_path / "r" / "Conditional_VAE"
+                                  / "serving" / "model")
+        assert meta["compute_dtype"] == "bfloat16"
+        assert df["Method"].tolist()[0] == "CVAE (Multi-Modal)"
+        assert np.isfinite(df[["Silhouette", "NMI", "ARI",
+                               "Purity"]].to_numpy()).all()
+        return
+    gen = torch.Generator().manual_seed(0)
+    trunk = layers.lecun_init_(layers.ConvEncoderTrunk(dtype=torch.bfloat16),
+                               gen)
+    x = torch.randn((2, 64, 64, 1), generator=gen)
+    for mode in (True, False):
+        out = trunk.train(mode)(x)
+        assert out.dtype == torch.bfloat16 and out.shape == (2, 512)
+        assert bool(torch.isfinite(out.float()).all())
 
 
 def test_conv_configs_match_jax_defaults():

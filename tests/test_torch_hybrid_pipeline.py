@@ -274,21 +274,35 @@ def test_cli_train_hybrid_on_cpu_with_host_stream(runs, capsys):
 
 @pytest.mark.parametrize("what", ["make_plots", "bfloat16", "checkpoint_every"])
 def test_what_waits_raises_naming_its_roadmap_item(runs, what, tmp_path):
-    """bf16 still waits (item 5).  Ported: ``make_plots`` draws the loss
-    curve and the t-SNE triptych; ``checkpoint_every`` writes rotating
-    checkpoints under ``Convolutional_VAE/checkpoints``."""
+    """Once waiting, now ported.  ``bfloat16``: a 1-epoch run in bf16
+    writes ``compute_dtype: "bfloat16"`` in the bundle's meta, finite rows
+    and a latents file of raw bf16 bits (``'<V2'``, as the JAX
+    pipeline's).  ``make_plots`` draws the loss curve and the t-SNE
+    triptych; ``checkpoint_every`` writes rotating checkpoints under
+    ``Convolutional_VAE/checkpoints``."""
     from tpuvae_torch.config import HybridVAEConfig
+    from tpuvae_torch.io.artifacts import load_latents
     from tpuvae_torch.pipelines import run_hybrid_vae
+    from tpuvae_torch.train.checkpoint import load_checkpoint
     from tpuvae_torch.utils.logging import RunLogger
 
     out = tmp_path / "r" / "Convolutional_VAE"
     if what == "bfloat16":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md") as err:
-            run_hybrid_vae(str(runs["data"]), str(tmp_path / "r"),
-                           HybridVAEConfig(compute_dtype="bfloat16"),
-                           device="cpu")
-        assert "item 5" in str(err.value)
-        assert not (tmp_path / "r").exists()
+        df = run_hybrid_vae(str(runs["data"]), str(tmp_path / "r"),
+                            HybridVAEConfig(epochs=1, batch_size=8,
+                                            compute_dtype="bfloat16"),
+                            logger=RunLogger(echo=False), make_plots=False,
+                            device="cpu")
+        _, meta = load_checkpoint(out / "serving" / "model")
+        assert meta["compute_dtype"] == "bfloat16"
+        vals = df[["Silhouette", "Davies-Bouldin", "ARI"]].to_numpy()
+        assert len(df) == 4 and np.isfinite(vals).all()
+        path = out / "hybrid_latent_features.npy"
+        assert b"'descr': '<V2'" in path.read_bytes()[:128]
+        lat = load_latents(path)
+        f32 = np.load(runs["results"] / "Convolutional_VAE"
+                      / "hybrid_latent_features.npy")
+        assert lat.shape == f32.shape and np.isfinite(lat).all()
         return
     plots = what == "make_plots"
     run_hybrid_vae(str(runs["data"]), str(tmp_path / "r"),

@@ -170,8 +170,8 @@ class ConditionalVAEConfig(_ConfigBase):
     latent_dim: int = 64
     text_dim: int = 768
     num_classes: int = 10
-    # the port computes in float32 only: 'bfloat16' raises (kernel 6 has no
-    # bf16 form; ROADMAP.md, queue 1, item 5)
+    # 'bfloat16' computes every layer in bf16 with float32 weights, as the
+    # JAX package (models.layers.Dense / Stride2Conv / BatchNorm*)
     compute_dtype: str = "float32"
     learning_rate: float = 1e-4
     batch_size: int = 32
@@ -217,8 +217,9 @@ class HybridVAEConfig(_ConfigBase):
 @dataclass(frozen=True)
 class TrainConfig(_ConfigBase):
     """Cross-cutting training/runtime options (``tpuvae/config.py:239``).
-    The port reads none of them yet: the mesh item takes ``mesh_*``, the
-    bf16 item ``compute_dtype``; the rest are the JAX package's knobs."""
+    The port reads none of them, as the JAX pipelines read none (their
+    models take ``compute_dtype`` from the model configs); the mesh item
+    takes ``mesh_*``."""
 
     mesh_shape: tuple = (-1,)        # -1 = all devices on the 'data' axis
     mesh_axes: tuple = ("data",)

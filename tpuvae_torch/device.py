@@ -19,7 +19,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     (``allow_tf32 = False`` for both cuBLAS and cuDNN): the large plain
     matmuls of the path — the MFCC DCT, the chroma projection and the
     VAE's Linear layers — are held to the JAX reference at fp32
-    tolerances, which TF32's ~10-bit mantissa would break.
+    tolerances, which TF32's ~10-bit mantissa would break.  It also turns
+    off cuBLAS's reduced-precision reductions for bfloat16 products
+    (``allow_bf16_reduced_precision_reduction``, on by default), which may
+    sum split-K partials in bfloat16: XLA sums a bfloat16 dot in float32,
+    and the bfloat16 models are held to it.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -30,6 +34,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "PyTorch versions of the kernels on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev

@@ -44,6 +44,7 @@ from tpuvae_torch.dsp.features import (
 from tpuvae_torch.io.normalize import load_normalizer
 from tpuvae_torch.io.wav import load_audio
 from tpuvae_torch.models import ConditionalVAE, HybridVAE, SimpleVAE
+from tpuvae_torch.models.layers import compute_dtype
 from tpuvae_torch.text.embedder import embed_lyrics
 from tpuvae_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tpuvae_torch.utils.batching import batched_apply
@@ -80,20 +81,16 @@ def _build_model(arch: str, meta: dict) -> torch.nn.Module:
         return SimpleVAE(
             input_dim=meta["input_dim"], hidden_dims=tuple(meta["hidden_dims"]),
             latent_dim=meta["latent_dim"], dropout=meta["dropout"])
-    dtype = meta.get("compute_dtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"a bundle trained with compute_dtype={dtype!r} is not served by "
-            f"tpuvae_torch: the conv trunk's fused kernel computes in float32 "
-            f"only (ROADMAP.md, queue 1, item 5: bfloat16)")
+    # the compute dtype the bundle was trained with (tpuvae/infer.py:164)
+    dtype = compute_dtype(meta.get("compute_dtype", "float32"))
     if arch == "hybrid":
         return HybridVAE(latent_dim=meta["latent_dim"],
                          text_dim=meta["text_dim"],
-                         input_hw=tuple(meta["input_hw"]))
+                         input_hw=tuple(meta["input_hw"]), dtype=dtype)
     return ConditionalVAE(latent_dim=meta["latent_dim"],
                           text_dim=meta["text_dim"],
                           num_classes=meta["num_classes"],
-                          input_hw=tuple(meta["input_hw"]))
+                          input_hw=tuple(meta["input_hw"]), dtype=dtype)
 
 
 @dataclasses.dataclass
@@ -190,10 +187,11 @@ class ClipEncoder:
         return flat.reshape(raw.shape).astype(np.float32)[..., None]
 
     def apply_latent(self, *inputs: np.ndarray) -> torch.Tensor:
-        """Encoder means of one batch of model inputs."""
+        """Encoder means of one batch of model inputs, in float32: a
+        bfloat16 bundle's are widened exactly (``tpuvae/infer.py:283``)."""
         with torch.no_grad():
             return self.model.latent(
-                *(torch.as_tensor(a).to(self.device) for a in inputs))
+                *(torch.as_tensor(a).to(self.device) for a in inputs)).float()
 
     def _embed_texts(self, lyrics, n: int) -> np.ndarray:
         if lyrics is None:

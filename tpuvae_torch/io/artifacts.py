@@ -101,3 +101,41 @@ def load_advanced(data_dir, mmap: bool = False) -> dict:
         "labels": np.load(d / "labels.npy", allow_pickle=True),
         "metadata": pd.read_csv(d / "metadata.csv"),
     }
+
+
+def save_latents(path, latents: np.ndarray, dtype: str = "float32") -> None:
+    """Write latents as the JAX pipeline's ``np.save`` does for its compute
+    dtype.  Under ``"bfloat16"`` that is an ml_dtypes array: a ``.npy``
+    whose header says ``'descr': '<V2'`` and whose data are the raw
+    bfloat16 bits.  ``latents`` holds bfloat16 values in float32 there, so
+    the narrowing is exact (numpy has no bfloat16 and ``np.save`` of a
+    ``'V2'`` view would write ``'|V2'``)."""
+    import torch
+
+    if dtype == "float32":
+        np.save(path, np.asarray(latents, np.float32))
+        return
+    if dtype != "bfloat16":
+        raise ValueError(f"latents dtype must be float32 or bfloat16, got "
+                         f"{dtype!r}")
+    wide = torch.from_numpy(np.ascontiguousarray(latents, np.float32))
+    narrow = wide.to(torch.bfloat16)
+    if not torch.equal(narrow.float(), wide):
+        raise ValueError("latents are not bfloat16 values")
+    bits = narrow.view(torch.int16).numpy().astype("<i2")
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": bits.shape})
+        f.write(bits.tobytes())
+
+
+def load_latents(path) -> np.ndarray:
+    """float32 latents of a file :func:`save_latents` (or the JAX
+    pipeline) wrote; a ``V2`` file's bfloat16 bits are widened exactly."""
+    import torch
+
+    arr = np.load(path)
+    if arr.dtype.kind != "V":
+        return np.asarray(arr, np.float32)
+    bits = torch.from_numpy(np.ascontiguousarray(arr).view("<i2"))
+    return bits.view(torch.bfloat16).float().numpy()

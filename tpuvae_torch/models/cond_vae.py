@@ -6,7 +6,13 @@ decoder concatenates [z | condition], projects to 16384 + 256, splits, and
 runs the transposed-conv audio decoder and a 256 -> 512 -> 768 text decoder.
 Audio is ``(B, H, W, 1)`` NHWC as in the JAX package; ``train()`` /
 ``eval()`` select batch or running BatchNorm statistics.  The trunk's
-first two layers run through kernel 6 (``ops/fusedconv.py``).
+first two layers run through kernel 6 (``ops/fusedconv.py``) in float32.
+
+``dtype="bfloat16"`` computes as the JAX model's ``dtype=jnp.bfloat16``:
+the weights stay float32, every layer casts its input and weight to
+bfloat16 (``layers.Dense``, ``Stride2Conv``, ``BatchNorm*``), and the
+one-hot condition, float32, promotes the concatenations it joins to
+float32, which the next layer casts back.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from tpuvae_torch.models.layers import (
     BatchNorm1d,
     ConvDecoderTrunk,
     ConvEncoderTrunk,
+    Dense,
     lecun_init_,
     reparameterize,
 )
@@ -35,7 +42,7 @@ def check_input_hw(input_hw) -> tuple[int, int]:
 
 def draw_eps(mu: torch.Tensor, eps, generator) -> torch.Tensor:
     """The reparameterisation noise: ``eps`` when given, else drawn from
-    ``generator`` on ``mu``'s device."""
+    ``generator`` on ``mu``'s device, in ``mu``'s dtype."""
     if eps is not None:
         return eps
     return torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
@@ -45,23 +52,25 @@ def draw_eps(mu: torch.Tensor, eps, generator) -> torch.Tensor:
 class ConditionalVAE(nn.Module):
     def __init__(self, latent_dim: int = 64, text_dim: int = 768,
                  num_classes: int = 10, input_hw: tuple = (128, 1024),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype=torch.float32):
         super().__init__()
         h, w = check_input_hw(input_hw)
         self.input_hw = (h, w)
         self.audio_flat = 512 * (h // 64) * (w // 64)
-        self.audio_encoder = ConvEncoderTrunk()
-        self.text_fc = nn.Linear(text_dim, 256)
-        self.text_bn = BatchNorm1d(256)
+        self.audio_encoder = ConvEncoderTrunk(dtype=dtype)
+        self.text_fc = Dense(text_dim, 256, dtype)
+        self.text_bn = BatchNorm1d(256, dtype)
         fused = self.audio_flat + 256 + num_classes
-        self.fc_mu = nn.Linear(fused, latent_dim)
-        self.fc_logvar = nn.Linear(fused, latent_dim)
-        self.decoder_fc = nn.Linear(latent_dim + num_classes,
-                                    self.audio_flat + 256)
-        self.audio_decoder = ConvDecoderTrunk(feature_hw=(h // 64, w // 64))
-        self.text_dec_fc1 = nn.Linear(256, 512)
-        self.text_dec_bn = BatchNorm1d(512)
-        self.text_dec_fc2 = nn.Linear(512, text_dim)
+        self.fc_mu = Dense(fused, latent_dim, dtype)
+        self.fc_logvar = Dense(fused, latent_dim, dtype)
+        self.decoder_fc = Dense(latent_dim + num_classes,
+                                self.audio_flat + 256, dtype)
+        self.audio_decoder = ConvDecoderTrunk(feature_hw=(h // 64, w // 64),
+                                              dtype=dtype)
+        self.text_dec_fc1 = Dense(256, 512, dtype)
+        self.text_dec_bn = BatchNorm1d(512, dtype)
+        self.text_dec_fc2 = Dense(512, text_dim, dtype)
         lecun_init_(self, generator)
 
     def encode(self, audio, text, condition):

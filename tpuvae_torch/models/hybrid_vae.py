@@ -5,7 +5,8 @@ Audio trunk -> 16384 -> Linear 1024; text MLP 768 -> 256 -> 128
 Decoder: z -> 512(+ReLU) -> split-Linear 1024 + 128(+ReLU); audio
 1024 -> 16384(+ReLU) -> transposed convs; text 128 -> 256(+BN+LeakyReLU)
 -> 768.  Trained by ``pipelines.run_hybrid_vae`` and served by
-``infer.ClipEncoder`` (``arch="hybrid"``).
+``infer.ClipEncoder`` (``arch="hybrid"``).  ``dtype`` is the compute dtype,
+as ``ConditionalVAE``'s.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from tpuvae_torch.models.layers import (
     BatchNorm1d,
     ConvDecoderTrunk,
     ConvEncoderTrunk,
+    Dense,
     lecun_init_,
     reparameterize,
 )
@@ -32,27 +34,29 @@ from tpuvae_torch.ops.fusedconv import LEAKY_SLOPE
 class HybridVAE(nn.Module):
     def __init__(self, latent_dim: int = 128, text_dim: int = 768,
                  input_hw: tuple = (128, 1024),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype=torch.float32):
         super().__init__()
         h, w = check_input_hw(input_hw)
         self.input_hw = (h, w)
         self.audio_flat = 512 * (h // 64) * (w // 64)
-        self.audio_encoder = ConvEncoderTrunk()
-        self.audio_fc = nn.Linear(self.audio_flat, 1024)
-        self.text_fc1 = nn.Linear(text_dim, 256)
-        self.text_bn1 = BatchNorm1d(256)
-        self.text_fc2 = nn.Linear(256, 128)
-        self.text_bn2 = BatchNorm1d(128)
-        self.fc_fusion = nn.Linear(1024 + 128, 512)
-        self.fc_mu = nn.Linear(512, latent_dim)
-        self.fc_logvar = nn.Linear(512, latent_dim)
-        self.decoder_input = nn.Linear(latent_dim, 512)
-        self.decoder_split = nn.Linear(512, 1024 + 128)
-        self.audio_decoder_fc = nn.Linear(1024, self.audio_flat)
-        self.audio_decoder = ConvDecoderTrunk(feature_hw=(h // 64, w // 64))
-        self.text_dec_fc1 = nn.Linear(128, 256)
-        self.text_dec_bn = BatchNorm1d(256)
-        self.text_dec_fc2 = nn.Linear(256, text_dim)
+        self.audio_encoder = ConvEncoderTrunk(dtype=dtype)
+        self.audio_fc = Dense(self.audio_flat, 1024, dtype)
+        self.text_fc1 = Dense(text_dim, 256, dtype)
+        self.text_bn1 = BatchNorm1d(256, dtype)
+        self.text_fc2 = Dense(256, 128, dtype)
+        self.text_bn2 = BatchNorm1d(128, dtype)
+        self.fc_fusion = Dense(1024 + 128, 512, dtype)
+        self.fc_mu = Dense(512, latent_dim, dtype)
+        self.fc_logvar = Dense(512, latent_dim, dtype)
+        self.decoder_input = Dense(latent_dim, 512, dtype)
+        self.decoder_split = Dense(512, 1024 + 128, dtype)
+        self.audio_decoder_fc = Dense(1024, self.audio_flat, dtype)
+        self.audio_decoder = ConvDecoderTrunk(feature_hw=(h // 64, w // 64),
+                                              dtype=dtype)
+        self.text_dec_fc1 = Dense(128, 256, dtype)
+        self.text_dec_bn = BatchNorm1d(256, dtype)
+        self.text_dec_fc2 = Dense(256, text_dim, dtype)
         lecun_init_(self, generator)
 
     def encode(self, audio, text):

@@ -5,7 +5,9 @@ heads of 32, mirrored decoder ending in a plain Linear back to the input
 dim.  ``train()`` / ``eval()`` select batch or running BatchNorm statistics
 and dropout, as flax's ``train=`` flag does.  Weights start from flax's
 initialisation (``layers.lecun_init_``), drawn from the ``generator`` given
-to the constructor.
+to the constructor.  ``dtype`` is the compute dtype (float32 or bfloat16),
+as the JAX model's: the weights stay float32 and each layer computes in
+``dtype`` (``layers.Dense``, ``layers.BatchNorm1d``).
 """
 
 from __future__ import annotations
@@ -15,22 +17,28 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from tpuvae_torch.models.layers import MLPBlock, lecun_init_, reparameterize
+from tpuvae_torch.models.layers import (
+    Dense,
+    MLPBlock,
+    lecun_init_,
+    reparameterize,
+)
 
 
 class SimpleVAE(nn.Module):
     def __init__(self, input_dim: int = 370,
                  hidden_dims: Sequence[int] = (128, 64, 32),
                  latent_dim: int = 32, dropout: float = 0.2,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype=torch.float32):
         super().__init__()
         hidden_dims = tuple(hidden_dims)
-        self.encoder = MLPBlock(input_dim, hidden_dims, dropout)
-        self.fc_mu = nn.Linear(hidden_dims[-1], latent_dim)
-        self.fc_logvar = nn.Linear(hidden_dims[-1], latent_dim)
+        self.encoder = MLPBlock(input_dim, hidden_dims, dropout, dtype)
+        self.fc_mu = Dense(hidden_dims[-1], latent_dim, dtype)
+        self.fc_logvar = Dense(hidden_dims[-1], latent_dim, dtype)
         self.decoder = MLPBlock(latent_dim, tuple(reversed(hidden_dims)),
-                                dropout)
-        self.out = nn.Linear(hidden_dims[0], input_dim)
+                                dropout, dtype)
+        self.out = Dense(hidden_dims[0], input_dim, dtype)
         lecun_init_(self, generator)
 
     def encode(self, x: torch.Tensor,

@@ -68,6 +68,7 @@ from tpuvae_torch.io.artifacts import (
     load_basic,
     save_advanced,
     save_basic,
+    save_latents,
 )
 from tpuvae_torch.io import native_loader
 from tpuvae_torch.io.catalog import collect_audio_files
@@ -97,6 +98,7 @@ from tpuvae_torch.models import (
     SimpleAutoencoder,
     SimpleVAE,
 )
+from tpuvae_torch.models.layers import compute_dtype
 from tpuvae_torch.train.checkpoint import save_checkpoint
 from tpuvae_torch.train.loop import FitConfig, fit, train_val_split
 from tpuvae_torch.train.objectives import (
@@ -695,20 +697,15 @@ def _batched_latents(fn, arrays, batch_size: int,
                      device: torch.device) -> np.ndarray:
     """``fn`` over host ``arrays`` in batches on ``device`` (the reference
     encodes all N mel images in one tensor, ``Conditional_VAE.py:398-402``);
-    returns the host result."""
+    returns the host result in float32.  A bfloat16 model's latents are
+    widened exactly: their values stay bfloat16 values, which the
+    clustering reads in float32 as the JAX package's does
+    (``tpuvae/cluster/kmeans.py:139``)."""
     with torch.no_grad():
         return batched_apply(
             lambda *chunk: fn(*(torch.from_numpy(np.array(c))
-                                .to(device) for c in chunk)),
+                                .to(device) for c in chunk)).float(),
             arrays, batch_size)
-
-
-def _reject_unported_conv(cfg) -> None:
-    if str(cfg.compute_dtype) != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported to "
-            f"tpuvae_torch: the conv trunk's fused kernel computes in "
-            f"float32 only (ROADMAP.md, queue 1, item 5: bfloat16)")
 
 
 def _mel_nhwc(data, stream: bool):
@@ -751,12 +748,14 @@ def run_conditional_vae(
     rows.
 
     ``device`` defaults to CUDA and raises without a card.  On the card
-    every trunk forward launches kernel 6, every ``evaluate_clustering``
-    kernel 5, and the t-SNE kernel 5 1,001 times.  ``compute_dtype=
-    "bfloat16"`` is not ported and raises; with ``make_plots`` a missing
-    matplotlib raises before any training.
+    every float32 trunk forward launches kernel 6, every
+    ``evaluate_clustering`` kernel 5, and the t-SNE kernel 5 1,001 times.
+    ``cfg.compute_dtype="bfloat16"`` trains and encodes in bfloat16 as the
+    JAX pipeline does (``layers.ConvEncoderTrunk``: no kernel 6 there);
+    the weights and the optimizer stay float32.  With ``make_plots`` a
+    missing matplotlib raises before any training.
     """
-    _reject_unported_conv(cfg)
+    dtype = compute_dtype(cfg.compute_dtype)
     dev = resolve_device(device)
     if make_plots:
         pyplot()
@@ -774,7 +773,7 @@ def run_conditional_vae(
     model = ConditionalVAE(
         latent_dim=cfg.latent_dim, text_dim=text.shape[1],
         num_classes=n_classes, input_hw=(mel.shape[1], mel.shape[2]),
-        generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+        generator=torch.Generator().manual_seed(cfg.seed), dtype=dtype).to(dev)
     state = create_state(model, cfg.learning_rate)
     tr, va = train_val_split(len(mel), cfg.val_fraction, cfg.seed)
     fit_cfg = FitConfig(
@@ -868,7 +867,7 @@ def run_conditional_vae(
             recon, _, _, _ = model(*first, generator=torch.Generator(
                 device=dev).manual_seed(cfg.seed))
         reconstruction_pair(np.array(mel[:1])[0, :, :, 0],
-                            recon.cpu().numpy()[0, :, :, 0],
+                            recon.float().cpu().numpy()[0, :, :, 0],
                             f"{out}/reconstruction.png")
         xy = tsne(z_cvae, perplexity=ccfg.tsne_perplexity, seed=ccfg.seed,
                   device=dev)
@@ -908,10 +907,12 @@ def run_hybrid_vae(
     and raises without a card.  On the card every trunk forward launches
     kernel 6; each sweep and the rows launch kernel 5 once, and each row's
     Davies-Bouldin once more (its centroid distances), and the t-SNE 1,001
-    times.  ``compute_dtype="bfloat16"`` is not ported and raises; with
-    ``make_plots`` a missing matplotlib raises before any training.
+    times.  ``cfg.compute_dtype="bfloat16"`` computes in bfloat16 as
+    :func:`run_conditional_vae`'s, and writes the latents file as the JAX
+    pipeline's (raw bfloat16 bits, ``'<V2'``); with ``make_plots`` a
+    missing matplotlib raises before any training.
     """
-    _reject_unported_conv(cfg)
+    dtype = compute_dtype(cfg.compute_dtype)
     dev = resolve_device(device)
     if make_plots:
         pyplot()
@@ -927,7 +928,7 @@ def run_hybrid_vae(
     model = HybridVAE(
         latent_dim=cfg.latent_dim, text_dim=text.shape[1],
         input_hw=(mel.shape[1], mel.shape[2]),
-        generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+        generator=torch.Generator().manual_seed(cfg.seed), dtype=dtype).to(dev)
     state = create_state(model, cfg.learning_rate)
     tr, va = train_val_split(len(mel), cfg.val_fraction, cfg.seed)
     fit_cfg = FitConfig(
@@ -961,7 +962,8 @@ def run_hybrid_vae(
     # (Convolutional_VAE.py:303), so it is not gated on plotting
     out = Path(results_dir) / "Convolutional_VAE"
     out.mkdir(parents=True, exist_ok=True)
-    np.save(out / "hybrid_latent_features.npy", latents)
+    save_latents(out / "hybrid_latent_features.npy", latents,
+                 str(cfg.compute_dtype))
     logger.log("latents", shape=list(latents.shape),
                seconds=time.perf_counter() - t0)
 
