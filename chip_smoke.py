@@ -161,7 +161,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     modes, card against CPU; the bf16 and fp32 training steps split into
     forward, backward and Adam with their peak memory, in alternating
     rounds in this process;
-20. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
+20. the mesh over ``torch.distributed``, each world in fresh rank
+    processes with their own timeout (a dead rank fails the phase): NCCL at
+    world size 1 on a localhost store — one ``make_dp_epoch`` of the Hybrid
+    VAE at ``HybridVAEConfig()``'s widths on 256 rows (batch 32,
+    ``loss_reduction="sum"``, kernel 6 once per step) against the same
+    steps without the mesh, ``silhouette_sharded`` at N = 1,336 x 128
+    against ``silhouette_score`` (within 1e-5), and the frame-sharded power
+    and mel of 4 clips x 600 s at 2048 / 512 against ``stft_power(fft)``
+    and its mel (within 1e-5 of the max); gloo at world size 2, both ranks
+    on ``cuda:0`` — the autoencoder's full-batch data-parallel ``fit``
+    against the single-rank fit, the replicas' parameters equal, the
+    silhouette equal on both ranks, and one sharded
+    ``extract_basic_features`` batch of 8 clips (kernels 1 + 2 in each
+    rank) against the unsharded batch; one line with the backends, world
+    sizes, each check's time and the card;
+21. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
     then the ``ok`` line last.
 """
 
@@ -1490,7 +1505,13 @@ def serve_conv_bundles(torch, dev, work: Path, dataset_root: Path) -> dict:
 
 # the bf16 contract of tests/test_torch_bf16.py: a bf16 result's relative L2
 # distance to another bf16 implementation's at most fp32's distance to it,
-# its largest element error at most 3 x fp32's
+# its largest element error at most 3 x fp32's.  3.0 (first 1.5) because
+# the Hybrid's training-mode logvar measures 1.87 here, card against CPU:
+# cuDNN's bf16 convolutions differ from float32 sums of exact products by
+# up to 13 ulps per rounding point, the Dense layers after the trunk mix
+# those differences into every output (each bit-equal to the CPU given the
+# same input), and that output's fp32 yardstick is the forward's smallest
+# (tools/bf16_op_trace.py, SPREAD_MAX in tests/test_torch_bf16.py)
 BF16_SPREAD_L2 = 1.0
 BF16_SPREAD_MAX = 3.0
 
@@ -2796,6 +2817,345 @@ def geometry_path(torch, dev, work: Path, waves: np.ndarray, flush) -> dict:
     return out
 
 
+# -- phase 20: the mesh over torch.distributed ----------------------------------
+
+MESH_ROWS = 256           # rows of the Hybrid VAE's data-parallel epoch
+LONG_CLIPS = 4
+LONG_SECONDS = 600.0      # 13,230,000 samples: 25,840 frames at 2048 / 512
+MESH_EXTRACT_CLIPS = 8    # the sharded extraction batch of the gloo ranks
+MESH_CHILD_TIMEOUT_S = 300
+MESH_AE_ROWS = 64
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_ranks(repo: Path, work: Path, backend: str,
+               world_size: int) -> list[dict]:
+    """Start ``world_size`` rank processes (fresh interpreters running
+    :func:`mesh_child`) joined by a ``backend`` group on a localhost TCP
+    store, all on the one card.  Each has its own timeout; a rank that
+    fails, or outlives it, fails the phase and the others are killed.
+    Returns each rank's result."""
+    port = free_port()
+    out = work / f"mesh_{backend}_{world_size}"
+    out.mkdir(parents=True, exist_ok=True)
+    procs, logs = [], []
+    for rank in range(world_size):
+        logs.append(out / f"rank{rank}.log")
+        with open(logs[-1], "wb") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.mesh_child(*sys.argv[1:]))",
+                 backend, str(rank), str(world_size), str(port), str(out)],
+                cwd=repo, stdout=fh, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited with {procs[bad[0]].returncode}"
+            elif time.monotonic() > deadline:
+                failed = f"ranks still running after {MESH_CHILD_TIMEOUT_S} s"
+            else:
+                time.sleep(0.1)
+        bad = [r for r, p in enumerate(procs) if p.returncode not in (None, 0)]
+        if failed is None and bad:
+            failed = f"rank {bad[0]} exited with {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+    for r, path in enumerate(logs):
+        lines = path.read_text(errors="replace").splitlines()
+        for line in lines[-60:] if failed else lines[-8:]:
+            log(f"  [{backend} rank {r}/{world_size}] {line}")
+    check(failed is None, f"mesh {backend} x {world_size}: {failed}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world_size)]
+
+
+def mesh_child(backend: str, rank: str, world_size: str, port: str,
+               out: str) -> int:
+    """One rank of phase 20: joins the group on ``tcp://localhost:port``,
+    builds its ``MeshContext`` on the card (``cuda:0`` for every rank of a
+    one-card machine) and runs the checks of its world size; writes its
+    result as ``<out>/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    rank, world_size = int(rank), int(world_size)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from tpuvae_torch.parallel import MeshContext
+
+        t0 = time.perf_counter()
+        ctx = MeshContext.create(device="cuda")
+        res = {"backend": dist.get_backend(), "rank": rank,
+               "world_size": world_size, "device": str(ctx.device),
+               "mesh_s": time.perf_counter() - t0}
+        checks = mesh_nccl_checks if world_size == 1 else mesh_gloo_checks
+        res.update(checks(torch, ctx))
+        Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def synced_s(torch, fn):
+    """``(fn(), seconds)`` on the host clock, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_nccl_checks(torch, ctx) -> dict:
+    """World size 1 over NCCL: the Hybrid VAE's data-parallel epoch at
+    ``HybridVAEConfig()``'s widths against the same steps without the
+    mesh, the row-sharded silhouette at N = 1,336 x 128 against
+    ``silhouette_score``, the frame-sharded STFT and mel of 4 clips x 600 s
+    against ``stft_power(method='fft')`` and its mel."""
+    import math
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.dsp import (
+        mel_image_framesharded,
+        mel_power_from_stft,
+        stft_power,
+        stft_power_framesharded,
+    )
+    from tpuvae_torch.metrics import (
+        compact_labels,
+        silhouette_score,
+        silhouette_sharded,
+    )
+    from tpuvae_torch.models import HybridVAE
+    from tpuvae_torch.parallel import make_dp_epoch
+    from tpuvae_torch.parallel.dp import rank_seed
+    from tpuvae_torch.train import create_state, hybrid_objective
+
+    dev = ctx.device
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    mel = torch.randn((MESH_ROWS, *MEL_HW, 1), generator=g, device=dev)
+    text = torch.randn((MESH_ROWS, 768), generator=g, device=dev)
+
+    def hybrid_state():
+        return create_state(HybridVAE(
+            latent_dim=HYBRID_LATENT, text_dim=768, input_hw=MEL_HW,
+            generator=torch.Generator().manual_seed(SEED)).to(dev), 1e-4)
+
+    obj = hybrid_objective()
+    state = hybrid_state()
+    epoch = make_dp_epoch(obj, ctx.mesh, batch_size=BATCH, n_local=MESH_ROWS,
+                          n_train_arrays=2, loss_reduction="sum")
+    ops.reset_launch_counts()
+    (state, loss, _), dp_s = synced_s(torch, lambda: epoch(state, 0, mel,
+                                                            text))
+    counts = ops.launch_counts()
+    steps = MESH_ROWS // BATCH
+    check(counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == steps,
+          f"DP epoch: kernel 6 launched {counts}, {steps} times expected")
+    # the same steps without the mesh: the rank's generator, permutation,
+    # batches and noise
+    ref = hybrid_state()
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(0, 0))
+    perm = torch.randperm(MESH_ROWS, generator=gen, device=dev)
+    ref.model.train()
+    total = torch.zeros((), device=dev)
+    for i in range(0, MESH_ROWS, BATCH):
+        idx = perm[i:i + BATCH]
+        ref.optimizer.zero_grad(set_to_none=True)
+        step_loss, _ = obj(ref.model, (mel[idx], text[idx]), gen, True)
+        step_loss.backward()
+        ref.optimizer.step()
+        total += step_loss.detach()
+    loss, total = float(loss), float(total)
+    check(math.isfinite(loss) and abs(loss - total) <= 1e-4 * abs(total),
+          f"DP epoch loss {loss} against the plain loop's {total}")
+    out["dp_epoch"] = {"rows": MESH_ROWS, "batch": BATCH, "steps": steps,
+                       "loss_sum": loss, "plain_loss_sum": total,
+                       "launches": counts, "seconds": dp_s}
+    del state, ref, mel, text
+
+    x, groups = planted_latents()
+    lab, k = compact_labels(groups)
+    got, sharded_s = synced_s(torch, lambda: silhouette_sharded(
+        x, lab, k, ctx.mesh))
+    want, plain_s = synced_s(torch, lambda: float(silhouette_score(
+        torch.from_numpy(x).to(dev), lab, k)))
+    check(abs(got - want) <= 1e-5,
+          f"silhouette_sharded {got} against silhouette_score {want}")
+    out["silhouette"] = {"n": len(x), "dim": x.shape[1], "sharded": got,
+                         "plain": want, "seconds": sharded_s,
+                         "plain_seconds": plain_s}
+
+    n = int(LONG_SECONDS * SR)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / SR
+    y = torch.stack([
+        (0.3 * torch.sin(2 * math.pi * 110 * 2 ** (i / 2) * t)).float()
+        + 0.05 * torch.randn(n, generator=g, device=dev)
+        for i in range(LONG_CLIPS)])
+    del t
+    (s, n_frames), stft_s = synced_s(
+        torch, lambda: stft_power_framesharded(y, ctx, N_FFT, HOP))
+    plain, plain_s = synced_s(torch, lambda: stft_power(y, N_FFT, HOP,
+                                                        method="fft"))
+    check(tuple(s.shape) == (LONG_CLIPS, N_FFT // 2 + 1, n_frames)
+          == tuple(plain.shape), f"frame-sharded power {tuple(s.shape)}")
+    scale = float(plain.abs().max())
+    err = float((s.to_local()[..., :n_frames] - plain).abs().max()) / scale
+    check(err <= 1e-5, f"frame-sharded power: max error {err} x max power")
+    del s
+    (m, _), mel_s = synced_s(torch, lambda: mel_image_framesharded(
+        y, ctx, SR, N_FFT, HOP, N_MELS))
+    want_mel = mel_power_from_stft(plain, SR, N_FFT, N_MELS)
+    mel_err = float((m.to_local()[..., :n_frames] - want_mel).abs().max()
+                    / want_mel.abs().max())
+    check(mel_err <= 1e-5, f"frame-sharded mel: max error {mel_err} x max")
+    out["long_stft"] = {"clips": LONG_CLIPS, "seconds_of_audio": LONG_SECONDS,
+                        "shape": list(plain.shape),
+                        "power_mb": plain.numel() * 4 / 1e6,
+                        "max_err_share": err, "mel_max_err_share": mel_err,
+                        "seconds": stft_s, "plain_seconds": plain_s,
+                        "mel_seconds": mel_s}
+    return out
+
+
+def mesh_gloo_checks(torch, ctx) -> dict:
+    """World size 2 over gloo, both ranks on the one card: the
+    deterministic autoencoder's full-batch data-parallel fit against the
+    single-rank fit (losses rtol 1e-5, parameters rtol 2e-3 / atol 1e-4,
+    the Tier-1 test's), the row-sharded silhouette (the parent holds the
+    two ranks' values equal), and one sharded ``extract_basic_features``
+    batch of 8 clips of 30 s (kernels 1 + 2 in each rank) against the
+    unsharded batch."""
+    import hashlib
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import PreprocessConfig
+    from tpuvae_torch.dsp.features import extract_basic_features, make_extractor
+    from tpuvae_torch.metrics import (
+        compact_labels,
+        silhouette_score,
+        silhouette_sharded,
+    )
+    from tpuvae_torch.models import SimpleAutoencoder
+    from tpuvae_torch.train import (
+        FitConfig,
+        autoencoder_objective,
+        create_state,
+        fit,
+    )
+
+    dev = ctx.device
+    out = {}
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(MESH_AE_ROWS, 12)).astype(np.float32)).to(dev)
+    cfg = FitConfig(epochs=3, batch_size=MESH_AE_ROWS, patience=99, seed=0)
+
+    def ae_fit(mesh):
+        model = SimpleAutoencoder(input_dim=12, latent_dim=4,
+                                  generator=torch.Generator().manual_seed(0))
+        return fit(create_state(model.to(dev), 1e-3), autoencoder_objective(),
+                   (x,), cfg, mesh=mesh, loss_reduction="mean")
+
+    dp, dp_s = synced_s(torch, lambda: ae_fit(ctx.mesh))
+    one = ae_fit(None)
+    np.testing.assert_allclose(dp.history["train_loss"],
+                               one.history["train_loss"], rtol=1e-5)
+    digest = hashlib.sha256()
+    for (k, a), b in zip(dp.state.model.state_dict().items(),
+                         one.state.model.state_dict().values()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-3, atol=1e-4, err_msg=k)
+        digest.update(a.cpu().numpy().tobytes())
+    out["ae_fit"] = {"train_loss": dp.history["train_loss"],
+                     "single_rank_train_loss": one.history["train_loss"],
+                     "params_sha256": digest.hexdigest(), "seconds": dp_s}
+
+    xs, groups = planted_latents()
+    lab, k = compact_labels(groups)
+    got, sil_s = synced_s(torch, lambda: silhouette_sharded(
+        xs, lab, k, ctx.mesh))
+    want = float(silhouette_score(torch.from_numpy(xs).to(dev), lab, k))
+    check(abs(got - want) <= 1e-5,
+          f"silhouette_sharded {got} against silhouette_score {want}")
+    out["silhouette"] = {"sharded": got, "plain": want, "seconds": sil_s}
+
+    waves = tones(MESH_EXTRACT_CLIPS, int(SR * DURATION), SEED + 16)
+    extract = make_extractor(extract_basic_features, PreprocessConfig(), dev)
+    ops.reset_launch_counts()
+    feats, ext_s = synced_s(torch, lambda: ctx.apply_sharded(extract, waves))
+    counts = ops.launch_counts()
+    check(counts["stft_features"] >= 1 and counts["tuning"] >= 1,
+          f"sharded extraction launches {counts}")
+    plain = extract(waves)
+    np.testing.assert_allclose(feats.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    out["extract"] = {"clips": MESH_EXTRACT_CLIPS,
+                      "rows_per_rank": MESH_EXTRACT_CLIPS // ctx.data_size,
+                      "launches": counts, "seconds": ext_s,
+                      "max_abs_diff": float((feats - plain).abs().max())}
+    return out
+
+
+def mesh_path(torch, work: Path) -> dict:
+    """Phase 20: the mesh over ``torch.distributed`` on the card, NCCL at
+    world size 1 and gloo at world size 2 (two processes on ``cuda:0``);
+    prints one line with the backends, world sizes, each check's time and
+    the card's name and power limit."""
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    nccl = mesh_ranks(repo, work, "nccl", 1)[0]
+    t1 = time.perf_counter()
+    gloo = mesh_ranks(repo, work, "gloo", 2)
+    t2 = time.perf_counter()
+    check(gloo[0]["silhouette"]["sharded"] == gloo[1]["silhouette"]["sharded"],
+          f"silhouette differs between ranks: "
+          f"{[r['silhouette'] for r in gloo]}")
+    check(gloo[0]["ae_fit"]["params_sha256"]
+          == gloo[1]["ae_fit"]["params_sha256"],
+          "the data-parallel replicas' parameters differ")
+    line = {
+        "backends": [nccl["backend"], gloo[0]["backend"]],
+        "world_sizes": [nccl["world_size"], gloo[0]["world_size"]],
+        "devices": [nccl["device"]] + [r["device"] for r in gloo],
+        "nccl_ws1_s": {"process": t1 - t0,
+                       "dp_epoch_hybrid": nccl["dp_epoch"]["seconds"],
+                       "silhouette_sharded": nccl["silhouette"]["seconds"],
+                       "silhouette_score": nccl["silhouette"]["plain_seconds"],
+                       "stft_power_framesharded": nccl["long_stft"]["seconds"],
+                       "stft_power_fft": nccl["long_stft"]["plain_seconds"],
+                       "mel_image_framesharded":
+                           nccl["long_stft"]["mel_seconds"]},
+        "gloo_ws2_s": {"processes": t2 - t1,
+                       "ae_dp_fit": [r["ae_fit"]["seconds"] for r in gloo],
+                       "silhouette_sharded": [r["silhouette"]["seconds"]
+                                              for r in gloo],
+                       "sharded_extract": [r["extract"]["seconds"]
+                                           for r in gloo]},
+        "card": card_line()}
+    log("mesh: " + json.dumps(line))
+    log("mesh checks: " + json.dumps({"nccl": nccl, "gloo": gloo}))
+    return {"line": line, "nccl": nccl, "gloo": gloo}
+
+
 def main() -> int:
     import torch
 
@@ -3557,6 +3917,15 @@ def run(torch, dev, work: Path, card: str) -> int:
         for arch in ("cvae", "hybrid")}
     k5["launches_bf16_runs"] = {arch: bf16[arch]["launches"]["pairwise"]
                                 for arch in ("cvae", "hybrid")}
+
+    # ---- 20. the mesh over torch.distributed -----------------------------
+    mesh = mesh_path(torch, work)
+    fusedconv_row["launches_mesh_dp_epoch"] = (
+        mesh["nccl"]["dp_epoch"]["launches"]["fusedconv_conv1"])
+    for name in ("stft_features", "tuning"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["launches_mesh_sharded_extract"] = [
+            r["extract"]["launches"][name] for r in mesh["gloo"]]
 
     log("preprocess path: " + json.dumps(pre))
     log("encode latency: " + json.dumps(encode_ms))

@@ -75,7 +75,19 @@ from test_torch_conv_models import B, HW, _data, _flat, _seed_stats, _unflat
 torch.set_num_threads(2)
 
 SPREAD_L2 = 1.0     # port's relative L2 error <= this x flax fp32's
-SPREAD_MAX = 3.0    # port's largest element error <= this x flax fp32's
+# port's largest element error <= this x flax fp32's.  3.0, not the 1.5
+# first written: on the card the Hybrid's training-mode logvar measures
+# 1.87 against the CPU (chip_smoke.py phase 19; tools/bf16_op_trace.py on
+# an H100).  Op by op, each fed the CPU's input: every Dense (fc_fusion
+# and fc_logvar bit-equal) and BatchNorm stays within one bf16 ulp per
+# rounding point, while cuDNN's bf16 convolutions differ by up to 13x
+# that (their sums are not float32 sums of exact products; the port calls
+# them in flax's op order, product then bias).  The trunk carries those
+# differences into audio_fc's 16,384 inputs, fc_fusion and fc_logvar mix
+# them into every output, and training-mode logvar's yardstick is the
+# forward's smallest (0.24% of its largest value): one element reads 1.87
+# while its L2 ratio is 0.56.
+SPREAD_MAX = 3.0
 GRAD_TENSOR = 1.5   # each gradient tensor's relative L2 <= this x flax's
 LOSS_RTOL = 1e-4    # the loss: flax fp32's distance + this x the loss
 

@@ -45,6 +45,11 @@ TF32 products per term); two runs bit-equal.  The trunk's gradient on the card
 against the CPU: within 1e-2 of each tensor's largest entry and 5e-3 in
 relative L2 (a LeakyReLU pre-activation within rounding of zero may take
 the other slope on one device; otherwise ~1e-5).
+The mesh over one NCCL rank (``-k nccl``): ``make_dp_epoch`` of the
+Hybrid VAE equal to the same steps without the mesh (rtol 1e-4; cuDNN's
+backward sums in run-dependent order), ``silhouette_sharded`` within 1e-5
+of ``silhouette_score``, the frame-sharded power and mel within 1e-5 of
+the max of ``stft_power(method='fft')`` and its mel.
 """
 
 import numpy as np
@@ -1665,3 +1670,109 @@ def test_bf16_models_on_the_card_match_the_cpu(cuda, arch):
             s = want - ref
             assert float(d.norm()) <= float(s.norm()), (train, d.norm(), s.norm())
             assert float(d.abs().max()) <= 3.0 * float(s.abs().max())
+
+
+# -- the mesh over torch.distributed, one rank over NCCL -----------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda):
+    """A mesh of this one process over NCCL: the process's group where it
+    has one (NCCL for CUDA tensors), else one started on a localhost
+    store."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpuvae_torch.parallel import MeshContext
+
+    if not dist.is_initialized():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    ctx = MeshContext.create(device="cuda")
+    assert ctx.n_devices == 1 and ctx.device.type == "cuda"
+    return ctx
+
+
+def test_dp_epoch_over_nccl_equals_the_plain_steps(cuda, nccl_mesh):
+    """``make_dp_epoch`` of the fp32 Hybrid VAE ('sum' objective) over one
+    NCCL rank: kernel 6 once per step, and the epoch's loss that of the
+    same steps without the mesh (rtol 1e-4: cuDNN's backward sums in
+    run-dependent order)."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.models import HybridVAE
+    from tpuvae_torch.parallel import make_dp_epoch
+    from tpuvae_torch.parallel.dp import rank_seed
+    from tpuvae_torch.train import create_state, hybrid_objective
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mel = torch.randn((32, 64, 128, 1), generator=g, device=cuda)
+    text = torch.randn((32, 32), generator=g, device=cuda)
+
+    def state():
+        return create_state(HybridVAE(
+            latent_dim=16, text_dim=32, input_hw=(64, 128),
+            generator=torch.Generator().manual_seed(0)).to(cuda), 1e-4)
+
+    obj = hybrid_objective()
+    epoch = make_dp_epoch(obj, nccl_mesh.mesh, batch_size=8, n_local=32,
+                          n_train_arrays=2, loss_reduction="sum")
+    ops.reset_launch_counts()
+    _, loss, _ = epoch(state(), 5, mel, text)
+    assert ops.launch_counts()["fusedconv_conv1"] == 4
+    ref = state()
+    gen = torch.Generator(device=cuda).manual_seed(rank_seed(5, 0))
+    perm = torch.randperm(32, generator=gen, device=cuda)
+    ref.model.train()
+    total = 0.0
+    for i in range(0, 32, 8):
+        idx = perm[i:i + 8]
+        ref.optimizer.zero_grad(set_to_none=True)
+        step_loss, _ = obj(ref.model, (mel[idx], text[idx]), gen, True)
+        step_loss.backward()
+        ref.optimizer.step()
+        total += float(step_loss)
+    np.testing.assert_allclose(float(loss), total, rtol=1e-4)
+
+
+def test_silhouette_sharded_over_nccl(cuda, nccl_mesh):
+    from tpuvae_torch.metrics import (
+        compact_labels,
+        silhouette_score,
+        silhouette_sharded,
+    )
+
+    rng = np.random.default_rng(4)
+    y = np.arange(301) % 5
+    x = (rng.normal(0, 2, (5, 16))[y] + rng.normal(size=(301, 16))).astype(
+        np.float32)
+    y[7] = 5                                   # a singleton cluster
+    lab, k = compact_labels(y)
+    got = silhouette_sharded(x, lab, k, nccl_mesh)
+    want = float(silhouette_score(torch.from_numpy(x).to(cuda), lab, k))
+    assert abs(got - want) <= 1e-5, (got, want)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (1024, 300)])
+def test_framesharded_stft_over_nccl(cuda, nccl_mesh, n_fft, hop):
+    """One rank holds the whole clip: the power and the mel equal
+    ``stft_power(method='fft')`` and its mel within 1e-5 of the max."""
+    from tpuvae_torch.dsp import (
+        mel_image_framesharded,
+        mel_power_from_stft,
+        stft_power,
+        stft_power_framesharded,
+    )
+
+    y = torch.from_numpy(_tones(2, 60 * SR, 8)).to(cuda)
+    s, n = stft_power_framesharded(y, nccl_mesh, n_fft, hop)
+    want = stft_power(y, n_fft, hop, method="fft")
+    assert tuple(s.shape) == tuple(want.shape) and s.to_local().is_cuda
+    err = (s.to_local()[..., :n] - want).abs().max() / want.abs().max()
+    assert float(err) <= 1e-5
+    mel, _ = mel_image_framesharded(y, nccl_mesh, SR, n_fft, hop, 64)
+    want_mel = mel_power_from_stft(want, SR, n_fft, 64)
+    err = (mel.to_local()[..., :n] - want_mel).abs().max() / want_mel.abs().max()
+    assert float(err) <= 1e-5

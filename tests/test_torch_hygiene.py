@@ -283,14 +283,8 @@ def test_config_matches_jax_defaults():
 # the JAX package's public names with no counterpart of the same name in
 # the port, each with its reason (ROADMAP.md items where one is open)
 NAMESPACE_EXCEPTIONS = {
-    "dsp.stft_power_framesharded": "dsp/long.py is not ported yet "
-                                   "(ROADMAP.md queue 1, item 3)",
-    "dsp.mel_image_framesharded": "dsp/long.py is not ported yet "
-                                  "(ROADMAP.md queue 1, item 3)",
     "dsp.jit_extractor": "ported as dsp.make_extractor (PyTorch runs "
                          "eagerly: there is nothing to jit)",
-    "metrics.silhouette_sharded": "waits for the mesh item (ROADMAP.md "
-                                  "queue 1, item 4 [9])",
     "train.adam_with_adjustable_lr": "an optax chain; the port's is the "
                                      "torch.optim.Adam of train.create_state "
                                      "with train.set_learning_rate",
@@ -304,8 +298,6 @@ NAMESPACE_EXCEPTIONS = {
                                  "in the port",
     "ops.stft_power_pallas": "kernel 4 is ops.stft.stft_power_dense in "
                              "the port",
-    "parallel": "the mesh / torch.distributed item (ROADMAP.md queue 1, "
-                "item 4 [9]); the whole subpackage waits for it",
 }
 
 
@@ -347,7 +339,7 @@ def test_every_namespace_exception_names_a_jax_export():
                                          "utils", "models", "ops")
                 for n in _jax_namespace(sub)}
     for key, reason in NAMESPACE_EXCEPTIONS.items():
-        assert key in exported or key == "parallel", key
+        assert key in exported, key
         assert len(reason) > 20, key
 
 

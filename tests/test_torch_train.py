@@ -321,8 +321,15 @@ def test_fit_rejects_what_is_not_ported_and_ignores_scan_epochs(tmp_path):
                         checkpoint_dir=str(tmp_path / "ck")))
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
         "latest", "step_00000001"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fit(state, loss_fn, data, FitConfig(epochs=1), mesh=object())
+    # a mesh is ported (tests/test_torch_dp.py runs two ranks): a mesh of
+    # one rank runs the single-device epoch; host_stream with a mesh is
+    # refused, as in the JAX package
+    from tpuvae_torch.parallel import make_mesh
+
+    mesh = make_mesh((1,), ("data",), device="cpu")
+    with pytest.raises(ValueError, match="host_stream"):
+        fit(state, loss_fn, data, FitConfig(epochs=1, host_stream=True),
+            mesh=mesh)
     # host_stream is ported: host arrays in, the same loss as resident data
     streamed = fit(create_state(_Scripted(), 0.01),
                    _scripted_objective([1.0] * 4, 1), (np.zeros((4, 1), np.float32),),
@@ -331,6 +338,11 @@ def test_fit_rejects_what_is_not_ported_and_ignores_scan_epochs(tmp_path):
                    _scripted_objective([1.0] * 4, 1), data,
                    FitConfig(epochs=1, batch_size=4))
     assert streamed.history["train_loss"] == resident.history["train_loss"]
+    on_mesh = fit(create_state(_Scripted(), 0.01),
+                  _scripted_objective([1.0] * 4, 1), data,
+                  FitConfig(epochs=1, batch_size=4), mesh=mesh,
+                  loss_reduction="sum")
+    assert on_mesh.history["train_loss"] == resident.history["train_loss"]
 
     class Log:
         events = []

@@ -32,6 +32,9 @@ Layers, mirroring ``tpuvae/``:
   viz/          t-SNE on the device (kernel 5), the report figures, EDA
   parity.py     the parity (run twice, ±0.01) and quality gates
   utils/        batching, run logging, stage timers (``torch.profiler``)
+  parallel/     the mesh over ``torch.distributed`` (a rank per device, a
+                ``DeviceMesh``, DTensor placements), the data-parallel
+                step and epoch, the tensor-parallel rule
   convert.py    flax ``weights.npz`` <-> the port's ``state_dict``; the
                 flax sentence encoder's params <-> the port's
   pipelines.py  preprocess_basic / preprocess_advanced; run_simple_vae,

@@ -89,7 +89,10 @@ nearest-training-centroid cluster ids (the serving bundle of a prior
 scalers), ``--lyrics=<text>`` (the same lyrics for every clip) or
 ``--lyrics_file=<file>`` (one line per clip; ``cvae`` / ``hybrid``),
 ``--genres=a,b,...`` (one per clip; ``cvae``), ``--batch_size``,
-``--out=<file.npz>`` to save latents/clusters, ``--device`` (default cuda).
+``--out=<file.npz>`` to save latents/clusters, ``--device`` (default cuda),
+``--mesh=1`` to shard each device batch over every rank of the process
+group (``--mesh=0``, the default, encodes on this process's device; rank 0
+prints and writes).
 ``encode`` and ``serve`` embed lyrics through ``$TPUVAE_TEXT_CHECKPOINT``
 as ``preprocess-advanced`` does; a backend other than the bundle's warns.
 
@@ -257,9 +260,16 @@ def _dispatch(argv) -> int:
         eopts, paths = _parse_flags(
             cmd, rest, {"arch", "results_dir", "data_dir", "lyrics",
                         "lyrics_file", "genres", "out", "batch_size",
-                        "device"})
+                        "device", "mesh"})
         if not paths:
             raise ValueError("encode needs at least one audio file")
+        mesh = None
+        if eopts.get("mesh", "0") != "0":
+            from tpuvae_torch.parallel import MeshContext
+
+            # all ranks, data axis; made first, so the encoder loads onto
+            # this rank's device
+            mesh = MeshContext.create(device=eopts.get("device", "cuda"))
         enc = ClipEncoder.load(
             eopts.get("arch", "hybrid"),
             results_dir=eopts.get("results_dir", "results"),
@@ -273,7 +283,10 @@ def _dispatch(argv) -> int:
             lyrics = [eopts["lyrics"]] * len(paths)
         genres = eopts["genres"].split(",") if "genres" in eopts else None
         res = enc.encode_paths(paths, lyrics=lyrics, genres=genres,
-                               batch_size=int(eopts.get("batch_size", 32)))
+                               batch_size=int(eopts.get("batch_size", 32)),
+                               mesh=mesh)
+        if mesh is not None and not mesh.is_writer:
+            return 0            # rank 0 prints and writes
         for p, c in zip(res.paths, res.clusters):
             print(f"{p}\tcluster={int(c)}")
         if "out" in eopts:

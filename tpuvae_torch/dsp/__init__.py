@@ -1,8 +1,8 @@
 """Batched feature extraction on torch tensors (counterpart of ``tpuvae.dsp``).
 
 The JAX package's ``jit_extractor`` is :func:`features.make_extractor`
-here; ``stft_power_framesharded`` / ``mel_image_framesharded``
-(``tpuvae/dsp/long.py``) are not ported yet (ROADMAP.md, queue 1)."""
+here; ``stft_power_framesharded`` / ``mel_image_framesharded`` shard a
+long clip's frame axis over a mesh (``dsp/long.py``)."""
 
 from tpuvae_torch.dsp.primitives import (  # noqa: F401
     hann_window,
@@ -37,4 +37,8 @@ from tpuvae_torch.dsp.chroma import (  # noqa: F401
     chroma_batch,
     estimate_tuning_from_power,
     piptrack_from_power,
+)
+from tpuvae_torch.dsp.long import (  # noqa: F401
+    stft_power_framesharded,
+    mel_image_framesharded,
 )

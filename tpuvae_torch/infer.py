@@ -239,14 +239,27 @@ class ClipEncoder:
                                      f"{names}")
 
     def encode_waveforms(self, waveforms: np.ndarray, lyrics=None,
-                         genres=None, batch_size: int = 32) -> EncodeResult:
+                         genres=None, batch_size: int = 32,
+                         mesh=None) -> EncodeResult:
         """Encode pre-loaded ``(N, num_samples)`` float32 waveforms: the
         extraction and the encoder each in device batches of
-        ``batch_size``."""
+        ``batch_size``.
+
+        ``mesh`` (a :class:`tpuvae_torch.parallel.MeshContext`, created
+        before the encoder is loaded so its device is the rank's) shards
+        every device batch over the mesh's data axis — the scale-out path
+        for bulk offline scoring (``tpuvae/infer.py:240-302``):
+        ``batch_size`` is rounded up to a multiple of the rank count, each
+        rank runs its contiguous block of a batch and one all-gather puts
+        the batch back together.  Every rank returns the same result."""
         n = waveforms.shape[0]
         self.validate_args(n, lyrics=lyrics, genres=genres)
         waveforms = np.asarray(waveforms, np.float32)
-        raw = batched_apply(self.extract, (waveforms,), batch_size)
+        put = None
+        if mesh is not None:
+            batch_size = -(-batch_size // mesh.data_size) * mesh.data_size
+            put = mesh.apply_sharded
+        raw = batched_apply(self.extract, (waveforms,), batch_size, put=put)
         inputs = (self.normalize(raw),)
         if self.arch != "simple":
             inputs += (self._embed_texts(lyrics, n),)
@@ -259,7 +272,7 @@ class ClipEncoder:
                         "genres= for in-distribution latents", stacklevel=2)
                 inputs += (self._condition(genres, n),)
         mu = batched_apply(self.apply_latent, inputs,
-                           batch_size).astype(np.float32)
+                           batch_size, put=put).astype(np.float32)
         return EncodeResult(latents=mu,
                             clusters=_nearest_center(mu, self.centers),
                             paths=[])
@@ -272,11 +285,12 @@ class ClipEncoder:
         ])
 
     def encode_paths(self, paths, lyrics=None, genres=None,
-                     batch_size: int = 32) -> EncodeResult:
+                     batch_size: int = 32, mesh=None) -> EncodeResult:
         """Decode audio files host-side, then :meth:`encode_waveforms`."""
         paths = [str(p) for p in paths]
         res = self.encode_waveforms(self.load_waveforms(paths), lyrics=lyrics,
-                                    genres=genres, batch_size=batch_size)
+                                    genres=genres, batch_size=batch_size,
+                                    mesh=mesh)
         return EncodeResult(latents=res.latents, clusters=res.clusters,
                             paths=paths)
 

@@ -54,14 +54,17 @@ class ExtractionManifest:
     def total_rows(self) -> int:
         return len(self.done_ids)
 
-    def load_all(self) -> tuple[list[str], dict[str, np.ndarray]]:
-        """Concatenate all shards in manifest order → (file_ids, arrays)."""
+    def load_all(self, keys=None) -> tuple[list[str], dict[str, np.ndarray]]:
+        """Concatenate all shards in manifest order → (file_ids, arrays);
+        with ``keys``, only those arrays are read."""
         ids: list[str] = []
         parts: dict[str, list[np.ndarray]] = {}
-        for shard_ids, arrays in self.iter_shards():
-            ids.extend(shard_ids)
-            for k, v in arrays.items():
-                parts.setdefault(k, []).append(v)
+        for name in self.shards:
+            with np.load(self.dir / name, allow_pickle=True) as z:
+                ids.extend(z["file_ids"].tolist())
+                for k in z.files:
+                    if k != "file_ids" and (keys is None or k in keys):
+                        parts.setdefault(k, []).append(z[k])
         return ids, {k: np.concatenate(v) for k, v in parts.items()}
 
     def cleanup(self) -> None:

@@ -1,6 +1,6 @@
 """Clustering metrics (counterpart of ``tpuvae.metrics``): labels, the
-pairwise distances of kernel 5, and the internal and external quality
-scores.  ``silhouette_sharded`` waits for the mesh item (ROADMAP.md)."""
+pairwise distances of kernel 5, the internal and external quality
+scores, and the row-sharded silhouette over a mesh."""
 
 from tpuvae_torch.metrics.pairwise import (  # noqa: F401
     squared_distances,
@@ -20,3 +20,4 @@ from tpuvae_torch.metrics.external import (  # noqa: F401
     normalized_mutual_info,
 )
 from tpuvae_torch.metrics.labels import compact_labels, encode_labels, one_hot_np  # noqa: F401
+from tpuvae_torch.metrics.distributed import silhouette_sharded  # noqa: F401

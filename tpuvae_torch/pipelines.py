@@ -22,9 +22,12 @@ file, the k-means, Ward and DBSCAN sweeps, the serving bundle and four rows
 (the default, as in the JAX package) each also draws the reference's
 figures, its t-SNEs on the device; with ``checkpoint_every > 0`` each
 keeps rotating mid-train checkpoints under ``<arch>/checkpoints`` and
-resumes from them.  All run on one device; the artifact, shard and CSV
-contracts are the JAX pipeline's, so either package reads what the other
-writes.
+resumes from them.  Each runs on one device, or with ``mesh=`` (a
+:class:`~tpuvae_torch.parallel.MeshContext`) on every rank of a mesh:
+the preprocess pipelines shard each device batch over the ranks, the
+training pipelines run the data-parallel epoch, and rank 0 alone writes
+the files.  The artifact, shard and CSV contracts are the JAX
+pipeline's, so either package reads what the other writes.
 """
 
 from __future__ import annotations
@@ -99,6 +102,7 @@ from tpuvae_torch.models import (
     SimpleVAE,
 )
 from tpuvae_torch.models.layers import compute_dtype
+from tpuvae_torch.parallel.mesh import MeshContext
 from tpuvae_torch.train.checkpoint import save_checkpoint
 from tpuvae_torch.train.loop import FitConfig, fit, train_val_split
 from tpuvae_torch.train.objectives import (
@@ -155,7 +159,8 @@ class _BatchSlot:
 
 def _extract_batched(entries, extract_fn, cfg, device: torch.device,
                      logger: RunLogger | None = None,
-                     manifest=None, shard_keys: tuple = ("out",)):
+                     manifest=None, shard_keys: tuple = ("out",),
+                     mesh: MeshContext | None = None):
     """Decode clips into preallocated batch buffers on a thread pool,
     extract on the device, skip-and-tally failures (ref per-file
     try/except, ``1_preprocessing.py:237-256``).
@@ -182,15 +187,33 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
     is persisted as a shard so interrupted runs resume.  A clip that fails
     to decode is skipped and returned in ``failed``; nothing that happens
     on the device is caught.
+
+    With a ``mesh`` of D > 1 ranks on its data axis
+    (``tpuvae/pipelines.py:133-260``) every rank decodes the whole batch,
+    as the JAX host does, so the skip-and-tally and the compaction over
+    failed slots give the same result on every rank.  The batch buffer
+    holds ``extract_batch`` rounded up to a multiple of D rows, the rows
+    past the kept clips zeroed; each rank copies and extracts its own
+    contiguous block of them, one all-gather per output puts the batch
+    back in order (its time is part of ``device``), and only rank 0
+    writes the shard.
     """
     t_setup = time.time()
     # int() truncation, matching load_audio's clip-length convention
     nsamp = int(cfg.sample_rate * cfg.duration)
     bs = cfg.extract_batch
+    n_dev = mesh.data_size if mesh is not None else 1
+    # the sharded batch must divide over the mesh's data axis
+    bs_padded = -(-bs // n_dev) * n_dev
+    per_rank = bs_padded // n_dev
+    mine = (slice(mesh.rank * per_rank, (mesh.rank + 1) * per_rank)
+            if n_dev > 1 else None)
+    writes = mesh is None or mesh.is_writer
     on_card = device.type == "cuda"
     wire = resolve_transfer_dtype(cfg)
     wire_t = torch.int16 if wire == np.int16 else torch.float32
-    slots = [_BatchSlot((bs, nsamp), wire_t, device) for _ in range(3)]
+    slots = [_BatchSlot((bs_padded, nsamp), wire_t, device)
+             for _ in range(3)]
     if on_card:
         compute = torch.cuda.current_stream(device)
         copy_stream = torch.cuda.Stream(device)
@@ -231,8 +254,9 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
                 # reader, and it has written or copied a batch's rows out
                 # (below) before it fetches the next batch into them
                 fetch_host.extend(
-                    torch.empty((bs,) + tuple(o.shape[1:]), dtype=o.dtype,
-                                pin_memory=True) for o in out_dev)
+                    torch.empty((bs_padded,) + tuple(o.shape[1:]),
+                                dtype=o.dtype, pin_memory=True)
+                    for o in out_dev)
             with torch.cuda.stream(fetch_stream):
                 fetch_stream.wait_event(t_dev1)
                 for h, o in zip(fetch_host, out_dev):
@@ -247,14 +271,24 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
         detail["fetch_worker_s"] += t1 - t0
         if manifest is not None:
             # shards on disk are the source of truth; no second in-RAM copy
-            manifest.add_shard([e.file_id for e in kept],
-                               dict(zip(shard_keys, out_np)))
+            if writes:
+                manifest.add_shard([e.file_id for e in kept],
+                                   dict(zip(shard_keys, out_np)))
             detail["persist_worker_s"] += time.time() - t1
         else:
             outputs.append(tuple(np.array(o) for o in out_np))
         ok_entries.extend(kept)
 
     drain: deque = deque()      # in-flight (future) outputs, depth <= 2
+
+    def gather(out):
+        """The whole batch's outputs from every rank's block (a collective:
+        the main thread calls it, in batch order on every rank)."""
+        if mine is None:
+            return out
+        if isinstance(out, tuple):
+            return tuple(mesh.gather_rows(o) for o in out)
+        return mesh.gather_rows(out)
 
     def process(chunk, slot, futures, writer):
         t0 = time.time()
@@ -276,6 +310,10 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
         if not kept:
             return
         n = len(kept)
+        rows = slice(0, n)
+        if mine is not None:
+            slot.host_np[n:] = 0        # the pad rows of the sharded batch
+            rows = mine
         if on_card:
             t_copy0 = torch.cuda.Event(enable_timing=True)
             t_copy1 = torch.cuda.Event(enable_timing=True)
@@ -285,18 +323,18 @@ def _extract_batched(entries, extract_fn, cfg, device: torch.device,
                 if slot.consumed is not None:
                     copy_stream.wait_event(slot.consumed)
                 t_copy0.record(copy_stream)
-                slot.dev[:n].copy_(slot.host[:n], non_blocking=True)
+                slot.dev[rows].copy_(slot.host[rows], non_blocking=True)
                 t_copy1.record(copy_stream)
             slot.copied = t_copy1
             compute.wait_event(t_copy1)
             t_dev0.record(compute)
-            out = extract_fn(slot.dev[:n])
+            out = gather(extract_fn(slot.dev[rows]))
             t_dev1.record(compute)
             slot.consumed = t_dev1
             timing = (t_copy0, t_copy1, t_dev0, t_dev1)
         else:
             t1 = time.time()
-            out = extract_fn(slot.dev[:n])
+            out = gather(extract_fn(slot.dev[rows]))
             detail["device_s"] += time.time() - t1
             timing = None
         out_list = out if isinstance(out, tuple) else (out,)
@@ -355,15 +393,27 @@ def _metadata_frame(entries, labels):
     return df
 
 
-def _resume_manifest(output_dir, entries, resume: bool, logger: RunLogger):
-    """``(manifest or None, entries still to extract)``."""
+def _resume_manifest(output_dir, entries, resume: bool, logger: RunLogger,
+                     mesh: MeshContext):
+    """``(manifest or None, entries still to extract)``; every rank reads
+    the manifest before rank 0 writes to it."""
     if not resume:
         return None, entries
     manifest = ExtractionManifest(output_dir)
     pending = manifest.filter_pending(entries)
     if len(pending) < len(entries):
         logger.log("resume", already_done=len(entries) - len(pending))
+    mesh.barrier()
     return manifest, pending
+
+
+def _shards_written(manifest, output_dir, mesh: MeshContext):
+    """Wait until rank 0 has written every shard; the other ranks then
+    read its manifest anew."""
+    mesh.barrier()
+    if manifest is None or mesh.is_writer:
+        return manifest
+    return ExtractionManifest(output_dir)
 
 
 def _entries_of(ids, entries, manifest):
@@ -378,6 +428,19 @@ def _entries_of(ids, entries, manifest):
     return [by_id[i] for i in ids]
 
 
+def _pipeline_device(device, mesh: MeshContext | None) -> torch.device:
+    """The device a pipeline computes on: ``device`` (CUDA by default,
+    raising without a card), or with a mesh its rank's device, which must
+    be of the same type."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    if mesh.device.type != dev.type:
+        raise ValueError(f"device {device!r} and the mesh's "
+                         f"{mesh.device.type!r} differ")
+    return mesh.device
+
+
 # -----------------------------------------------------------------------------
 # Preprocessing pipelines
 # -----------------------------------------------------------------------------
@@ -387,11 +450,19 @@ def preprocess_basic(
     device: str = "cuda",
     logger: RunLogger | None = None,
     resume: bool = True,
+    mesh: MeshContext | None = None,
 ) -> dict:
     """Raw audio under ``cfg.dataset_root`` -> ``processed_data1/`` (370-d
     features, normalizers, labels, metadata).  ``device`` defaults to CUDA
-    and raises without a card."""
-    dev = resolve_device(device)
+    and raises without a card.
+
+    ``mesh`` (default: :meth:`MeshContext.create` over every rank of the
+    process group, a world of one in a plain process) shards each device
+    batch over its data axis (:func:`_extract_batched`).  Every rank runs
+    the pipeline on the same inputs and returns the same counts; rank 0
+    writes the shards and the artifacts, the others wait at a barrier."""
+    mesh = mesh or MeshContext.create(device=device)
+    dev = _pipeline_device(device, mesh)
     logger = logger or RunLogger()
     timer = StageTimer(logger,
                        profile_dir=os.environ.get("TPUVAE_PROFILE_DIR"))
@@ -401,13 +472,14 @@ def preprocess_basic(
             max_per_class=cfg.max_samples_per_class, strict=False,
         )
     manifest, pending = _resume_manifest(cfg.output_dir, entries, resume,
-                                         logger)
+                                         logger, mesh)
     extract = make_extractor(extract_basic_features, cfg, dev)
     with timer.stage("extract_basic", items=len(pending)):
         ok, outs, failed, detail = _extract_batched(
             pending, extract, cfg, dev, logger,
-            manifest=manifest, shard_keys=("features",),
+            manifest=manifest, shard_keys=("features",), mesh=mesh,
         )
+    manifest = _shards_written(manifest, cfg.output_dir, mesh)
     t_asm = time.time()
     if manifest is not None:
         ids, arrays = manifest.load_all()
@@ -424,15 +496,17 @@ def preprocess_basic(
     with timer.stage("normalize"):
         normalized, imputer, scaler = impute_and_scale(features)
     with timer.stage("save_artifacts"):
-        save_basic(
-            cfg.output_dir,
-            features_raw=features, features_normalized=normalized,
-            labels=labels,
-            metadata=_metadata_frame(ok, labels)[
-                ["language", "genre", "filename", "label"]],
-            scaler=scaler, imputer=imputer, config=cfg,
-        )
-    if manifest is not None:
+        if mesh.is_writer:
+            save_basic(
+                cfg.output_dir,
+                features_raw=features, features_normalized=normalized,
+                labels=labels,
+                metadata=_metadata_frame(ok, labels)[
+                    ["language", "genre", "filename", "label"]],
+                scaler=scaler, imputer=imputer, config=cfg,
+            )
+        mesh.barrier()      # every rank has read the shards
+    if manifest is not None and mesh.is_writer:
         manifest.cleanup()
     logger.log("saved", dir=cfg.output_dir, n=len(ok),
                feature_dim=int(features.shape[1]), failed=len(failed),
@@ -447,20 +521,25 @@ def preprocess_advanced(
     logger: RunLogger | None = None,
     text_checkpoint: str | None = None,
     resume: bool = True,
+    mesh: MeshContext | None = None,
 ) -> dict:
     """Raw audio + lyrics -> ``processed_data2/`` (mel images, 290-d
     features, 768-d lyrics embeddings, normalizers, labels, metadata).
     ``device`` defaults to CUDA and raises without a card.  The lyrics are
     embedded by the XLM-R encoder of ``text_checkpoint`` (else
     ``$TPUVAE_TEXT_CHECKPOINT``) on ``device``, else by hashed n-grams;
-    ``config.pkl`` records which (``lyrics_embedder_backend``)."""
+    ``config.pkl`` records which (``lyrics_embedder_backend``).  ``mesh``
+    as :func:`preprocess_basic`'s; with the streaming assembly only rank 0
+    streams the mel artifacts to disk, the others read the shards' ids and
+    flat features."""
     if cfg.assembly_mode not in ("auto", "inmem", "stream"):
         raise ValueError(f"assembly_mode must be 'auto'|'inmem'|'stream', "
                          f"got {cfg.assembly_mode!r}")
     if cfg.assembly_mode == "stream" and not resume:
         raise ValueError("assembly_mode='stream' requires resume=True "
                          "(extraction shards are the streaming source)")
-    dev = resolve_device(device)
+    mesh = mesh or MeshContext.create(device=device)
+    dev = _pipeline_device(device, mesh)
     logger = logger or RunLogger()
     timer = StageTimer(logger,
                        profile_dir=os.environ.get("TPUVAE_PROFILE_DIR"))
@@ -474,13 +553,14 @@ def preprocess_advanced(
     if not entries:
         raise ValueError("No audio files collected! Check paths and metadata.")
     manifest, pending = _resume_manifest(cfg.output_dir, entries, resume,
-                                         logger)
+                                         logger, mesh)
     extract = make_extractor(extract_advanced, cfg, dev)
     with timer.stage("extract_advanced", items=len(pending)):
         ok, outs, failed, detail = _extract_batched(
             pending, extract, cfg, dev, logger,
-            manifest=manifest, shard_keys=("mel", "flat"),
+            manifest=manifest, shard_keys=("mel", "flat"), mesh=mesh,
         )
+    manifest = _shards_written(manifest, cfg.output_dir, mesh)
     streaming = False
     t_asm = time.time()
     if manifest is not None:
@@ -488,7 +568,10 @@ def preprocess_advanced(
         streaming = bool(manifest.total_rows()) and (
             cfg.assembly_mode == "stream"
             or (cfg.assembly_mode == "auto" and mel_bytes > 1 << 30))
-        if streaming:
+        if streaming and not mesh.is_writer:
+            ids, arrays = manifest.load_all(keys=("flat",))
+            flats, mel_scaler, mels = arrays["flat"], None, None
+        elif streaming:
             from tpuvae_torch.io.assembly import assemble_advanced_streaming
 
             with timer.stage("assemble_stream", items=manifest.total_rows()):
@@ -530,19 +613,22 @@ def preprocess_advanced(
             mel_norm = None
         flat_norm, imputer, flat_scaler = impute_and_scale(flats)
     with timer.stage("save_artifacts"):
-        save_advanced(
-            cfg.output_dir,
-            mel_raw=mels, mel_normalized=mel_norm,
-            features_raw=flats, features_normalized=flat_norm,
-            lyrics_embeddings=embeddings, labels=labels,
-            metadata=_metadata_frame(ok, labels),
-            mel_scaler=mel_scaler, flat_scaler=flat_scaler, imputer=imputer,
-            # record WHICH embedder produced lyrics_embeddings.npy so
-            # downstream results are attributable
-            config={**cfg.to_dict(),
-                    "lyrics_embedder_backend": embedder_backend},
-        )
-    if manifest is not None:
+        if mesh.is_writer:
+            save_advanced(
+                cfg.output_dir,
+                mel_raw=mels, mel_normalized=mel_norm,
+                features_raw=flats, features_normalized=flat_norm,
+                lyrics_embeddings=embeddings, labels=labels,
+                metadata=_metadata_frame(ok, labels),
+                mel_scaler=mel_scaler, flat_scaler=flat_scaler,
+                imputer=imputer,
+                # record WHICH embedder produced lyrics_embeddings.npy so
+                # downstream results are attributable
+                config={**cfg.to_dict(),
+                        "lyrics_embedder_backend": embedder_backend},
+            )
+        mesh.barrier()      # every rank has read the shards
+    if manifest is not None and mesh.is_writer:
         manifest.cleanup()
     logger.log("saved", dir=cfg.output_dir, n=len(ok), failed=len(failed),
                skipped=skipped)
@@ -567,6 +653,32 @@ def _ckpt_kwargs(cfg, default_dir: str) -> dict:
             "checkpoint_keep": cfg.checkpoint_keep}
 
 
+def _fit_mesh(mesh: MeshContext | None, batch_size: int, logger=None):
+    """The ``DeviceMesh`` to hand to ``fit`` (``tpuvae/pipelines.py:534-544``):
+    the data-parallel epoch when the mesh has several ranks and the batch
+    divides across them, else None (each rank then trains the same model
+    on the whole data, as one device would)."""
+    if mesh is None or mesh.data_size <= 1:
+        return None
+    if batch_size % mesh.data_size:
+        if logger is not None:
+            logger.log("dp_disabled", reason="batch_size % n_devices != 0",
+                       batch_size=batch_size, n_devices=mesh.data_size)
+        return None
+    return mesh.mesh
+
+
+def _writes(mesh: MeshContext | None) -> bool:
+    """This rank writes the files: rank 0, or the only process."""
+    return mesh is None or mesh.is_writer
+
+
+def _done_writing(mesh: MeshContext | None) -> None:
+    """The other ranks wait until rank 0 has written."""
+    if mesh is not None:
+        mesh.barrier()
+
+
 def _silhouette_ch(x: torch.Tensor, labels: np.ndarray) -> tuple[float, float]:
     lab, k = compact_labels(labels)
     sil = float(silhouette_from_distances(self_distances(x), lab, k))
@@ -581,6 +693,7 @@ def run_simple_vae(
     logger: RunLogger | None = None,
     make_plots: bool = True,
     device: str = "cuda",
+    mesh: MeshContext | None = None,
 ) -> pd.DataFrame:
     """Train the Simple VAE on ``data_dir`` (a ``processed_data1``) and
     write its metrics, best weights and serving bundle under
@@ -589,9 +702,13 @@ def run_simple_vae(
     Returns the two metric rows.
 
     ``device`` defaults to CUDA and raises without a card.  With
-    ``make_plots`` a missing matplotlib raises before any training.
+    ``make_plots`` a missing matplotlib raises before any training.  With
+    a ``mesh`` of several ranks (every rank calls this with the same
+    arguments) ``fit`` runs the data-parallel epoch on the ``'mean'``
+    objective; the clustering runs on every rank, gives every rank the
+    same rows, and rank 0 alone writes the files and draws the figure.
     """
-    dev = resolve_device(device)
+    dev = _pipeline_device(device, mesh)
     if make_plots:
         pyplot()
     logger = logger or RunLogger()
@@ -613,12 +730,14 @@ def run_simple_vae(
     xd = torch.from_numpy(features).to(dev)
     t0 = time.perf_counter()
     res = fit(state, simple_vae_objective(cfg.beta), (xd,), fit_cfg,
-              logger=logger)
+              logger=logger, mesh=_fit_mesh(mesh, cfg.batch_size, logger),
+              loss_reduction="mean")
     epochs_run = len(res.history["train_loss"])
     logger.log("fit", seconds=time.perf_counter() - t0, epochs=epochs_run,
                best_epoch=res.best_epoch, steps_per_sec=res.steps_per_sec)
-    save_checkpoint(f"{results_dir}/Simple_VAE/best_vae_model", model,
-                    {"best_epoch": res.best_epoch})
+    if _writes(mesh):
+        save_checkpoint(f"{results_dir}/Simple_VAE/best_vae_model", model,
+                        {"best_epoch": res.best_epoch})
 
     model.eval()
     with torch.no_grad():
@@ -639,14 +758,15 @@ def run_simple_vae(
     vae_sil, vae_ch = _silhouette_ch(xl, vae_clusters)
 
     centers = centers_from_labels(latents, vae_clusters)
-    serving = save_serving_model(
-        results_dir, model, centers,
-        meta={"arch": "simple", "best_epoch": res.best_epoch,
-              "best_k": best_k, "input_dim": int(input_dim),
-              "hidden_dims": list(cfg.hidden_dims),
-              "latent_dim": cfg.latent_dim, "dropout": cfg.dropout,
-              "data_dir": str(data_dir)})
-    logger.log("serving_saved", dir=str(serving), n_centers=len(centers))
+    if _writes(mesh):
+        serving = save_serving_model(
+            results_dir, model, centers,
+            meta={"arch": "simple", "best_epoch": res.best_epoch,
+                  "best_k": best_k, "input_dim": int(input_dim),
+                  "hidden_dims": list(cfg.hidden_dims),
+                  "latent_dim": cfg.latent_dim, "dropout": cfg.dropout,
+                  "data_dir": str(data_dir)})
+        logger.log("serving_saved", dir=str(serving), n_centers=len(centers))
 
     # PCA(latent_dim)+KMeans baseline (ref :258-263)
     t0 = time.perf_counter()
@@ -660,16 +780,18 @@ def run_simple_vae(
         "Silhouette": [vae_sil, pca_sil],
         "Calinski-Harabasz": [vae_ch, pca_ch],
     })
-    consolidate_metrics(results_dir, df, "Simple VAE")
+    if _writes(mesh):
+        consolidate_metrics(results_dir, df, "Simple VAE")
     logger.log("metrics", architecture="Simple VAE",
                rows=df.to_dict("records"))
 
-    if make_plots:
+    if make_plots and _writes(mesh):
         xy = tsne(latents, perplexity=ccfg.tsne_perplexity, seed=ccfg.seed,
                   device=dev)
         tsne_cluster_language(
             xy, vae_clusters, data["metadata"]["language"].values, best_k,
             f"{results_dir}/Simple_VAE/tsne_visualization_simplified.png")
+    _done_writing(mesh)
     return df
 
 
@@ -739,6 +861,7 @@ def run_conditional_vae(
     logger: RunLogger | None = None,
     make_plots: bool = True,
     device: str = "cuda",
+    mesh: MeshContext | None = None,
 ) -> pd.DataFrame:
     """Train the Conditional VAE on ``data_dir`` (a ``processed_data2``),
     cluster its latents at k = number of genres, and write the serving
@@ -753,10 +876,12 @@ def run_conditional_vae(
     ``cfg.compute_dtype="bfloat16"`` trains and encodes in bfloat16 as the
     JAX pipeline does (``layers.ConvEncoderTrunk``: no kernel 6 there);
     the weights and the optimizer stay float32.  With ``make_plots`` a
-    missing matplotlib raises before any training.
+    missing matplotlib raises before any training.  ``mesh`` as
+    :func:`run_simple_vae`'s, on the ``'sum'`` objective (the autoencoder
+    baseline trains on every rank, unsharded, as in the JAX pipeline).
     """
     dtype = compute_dtype(cfg.compute_dtype)
-    dev = resolve_device(device)
+    dev = _pipeline_device(device, mesh)
     if make_plots:
         pyplot()
     logger = logger or RunLogger()
@@ -787,7 +912,9 @@ def run_conditional_vae(
     logger.log("fit_start", setup_seconds=t0 - t_start, n_train=len(tr),
                n_val=len(va), host_stream=stream)
     res = fit(state, cvae_objective(cfg.beta, cfg.text_loss_weight),
-              splits[0], fit_cfg, val_data=splits[1], logger=logger)
+              splits[0], fit_cfg, val_data=splits[1], logger=logger,
+              mesh=_fit_mesh(mesh, cfg.batch_size, logger),
+              loss_reduction="sum")
     del splits
     logger.log("fit", seconds=time.perf_counter() - t0,
                epochs=len(res.history["train_loss"]),
@@ -805,16 +932,18 @@ def run_conditional_vae(
 
     zd = torch.from_numpy(z_cvae).to(dev)
     km_cvae = kmeans(zd, n_classes, n_init=ccfg.kmeans_n_init, seed=ccfg.seed)
-    serving = save_serving_model(
-        results_dir, model, km_cvae.centers,
-        meta={"arch": "cvae", "latent_dim": cfg.latent_dim,
-              "text_dim": int(text.shape[1]), "num_classes": int(n_classes),
-              "input_hw": [int(mel.shape[1]), int(mel.shape[2])],
-              "compute_dtype": str(cfg.compute_dtype),
-              "genre_names": [str(g) for g in genre_names],
-              "data_dir": str(data_dir)})
-    logger.log("serving_saved", dir=str(serving),
-               n_centers=int(len(km_cvae.centers)))
+    if _writes(mesh):
+        serving = save_serving_model(
+            results_dir, model, km_cvae.centers,
+            meta={"arch": "cvae", "latent_dim": cfg.latent_dim,
+                  "text_dim": int(text.shape[1]),
+                  "num_classes": int(n_classes),
+                  "input_hw": [int(mel.shape[1]), int(mel.shape[2])],
+                  "compute_dtype": str(cfg.compute_dtype),
+                  "genre_names": [str(g) for g in genre_names],
+                  "data_dir": str(data_dir)})
+        logger.log("serving_saved", dir=str(serving),
+                   n_centers=int(len(km_cvae.centers)))
 
     results = []
     eval_s = 0.0
@@ -852,12 +981,13 @@ def run_conditional_vae(
     logger.log("evaluate_clustering", seconds=eval_s, rows=len(results))
 
     df = pd.DataFrame(results)
-    consolidate_metrics(results_dir, df, "Conditional VAE",
-                        per_arch_subdir="Conditional_VAE")
+    if _writes(mesh):
+        consolidate_metrics(results_dir, df, "Conditional VAE",
+                            per_arch_subdir="Conditional_VAE")
     logger.log("metrics", architecture="Conditional VAE",
                rows=df.to_dict("records"))
 
-    if make_plots:
+    if make_plots and _writes(mesh):
         # reconstruction of the first clip (ref :496-511): running
         # BatchNorm statistics, z sampled with the run's seed
         out = f"{results_dir}/Conditional_VAE"
@@ -876,6 +1006,7 @@ def run_conditional_vae(
         y_lang, lang_names = encode_labels(data["metadata"]["language"].values)
         cluster_language_bar(km_cvae.labels, y_lang, lang_names,
                              f"{out}/cluster_lang_distribution.png")
+    _done_writing(mesh)
     return df
 
 
@@ -891,6 +1022,7 @@ def run_hybrid_vae(
     logger: RunLogger | None = None,
     make_plots: bool = True,
     device: str = "cuda",
+    mesh: MeshContext | None = None,
 ) -> pd.DataFrame:
     """Train the Hybrid VAE on ``data_dir`` (a ``processed_data2``), write
     its latents (``Convolutional_VAE/hybrid_latent_features.npy``, on every
@@ -910,10 +1042,11 @@ def run_hybrid_vae(
     times.  ``cfg.compute_dtype="bfloat16"`` computes in bfloat16 as
     :func:`run_conditional_vae`'s, and writes the latents file as the JAX
     pipeline's (raw bfloat16 bits, ``'<V2'``); with ``make_plots`` a
-    missing matplotlib raises before any training.
+    missing matplotlib raises before any training.  ``mesh`` as
+    :func:`run_simple_vae`'s, on the ``'sum'`` objective.
     """
     dtype = compute_dtype(cfg.compute_dtype)
-    dev = resolve_device(device)
+    dev = _pipeline_device(device, mesh)
     if make_plots:
         pyplot()
     logger = logger or RunLogger()
@@ -943,7 +1076,9 @@ def run_hybrid_vae(
     logger.log("fit_start", setup_seconds=t0 - t_start, n_train=len(tr),
                n_val=len(va), host_stream=stream)
     res = fit(state, hybrid_objective(cfg.beta, cfg.text_loss_weight),
-              splits[0], fit_cfg, val_data=splits[1], logger=logger)
+              splits[0], fit_cfg, val_data=splits[1], logger=logger,
+              mesh=_fit_mesh(mesh, cfg.batch_size, logger),
+              loss_reduction="sum")
     del splits
     logger.log("fit", seconds=time.perf_counter() - t0,
                epochs=len(res.history["train_loss"]),
@@ -951,7 +1086,7 @@ def run_hybrid_vae(
                epoch_seconds=res.history["epoch_seconds"],
                train_loss=res.history["train_loss"],
                val_loss=res.history["val_loss"])
-    if make_plots:
+    if make_plots and _writes(mesh):
         loss_curve(res.history["train_loss"],
                    f"{results_dir}/Convolutional_VAE/training_loss.png")
 
@@ -960,10 +1095,11 @@ def run_hybrid_vae(
     latents = _batched_latents(model.latent, (mel, text), cfg.batch_size, dev)
     # contract artifact: the reference saves it on EVERY run
     # (Convolutional_VAE.py:303), so it is not gated on plotting
-    out = Path(results_dir) / "Convolutional_VAE"
-    out.mkdir(parents=True, exist_ok=True)
-    save_latents(out / "hybrid_latent_features.npy", latents,
-                 str(cfg.compute_dtype))
+    if _writes(mesh):
+        out = Path(results_dir) / "Convolutional_VAE"
+        out.mkdir(parents=True, exist_ok=True)
+        save_latents(out / "hybrid_latent_features.npy", latents,
+                     str(cfg.compute_dtype))
     logger.log("latents", shape=list(latents.shape),
                seconds=time.perf_counter() - t0)
 
@@ -989,14 +1125,16 @@ def run_hybrid_vae(
                seconds=sweep_s)
 
     best_k = int(km_sweep.best_param)
-    serving = save_serving_model(
-        results_dir, model, centers_from_labels(latents, km_sweep.best_labels),
-        meta={"arch": "hybrid", "latent_dim": cfg.latent_dim,
-              "text_dim": int(text.shape[1]),
-              "input_hw": [int(mel.shape[1]), int(mel.shape[2])],
-              "compute_dtype": str(cfg.compute_dtype), "best_k": best_k,
-              "data_dir": str(data_dir)})
-    logger.log("serving_saved", dir=str(serving), best_k=best_k)
+    if _writes(mesh):
+        serving = save_serving_model(
+            results_dir, model,
+            centers_from_labels(latents, km_sweep.best_labels),
+            meta={"arch": "hybrid", "latent_dim": cfg.latent_dim,
+                  "text_dim": int(text.shape[1]),
+                  "input_hw": [int(mel.shape[1]), int(mel.shape[2])],
+                  "compute_dtype": str(cfg.compute_dtype), "best_k": best_k,
+                  "data_dir": str(data_dir)})
+        logger.log("serving_saved", dir=str(serving), best_k=best_k)
 
     t0 = time.perf_counter()
     lang_km = kmeans(zd, 2, n_init=ccfg.kmeans_n_init, seed=ccfg.seed)
@@ -1024,16 +1162,18 @@ def run_hybrid_vae(
                          "n_clusters": n_found})
     logger.log("rows", seconds=time.perf_counter() - t0, rows=len(rows))
     df = pd.DataFrame(rows)
-    consolidate_metrics(results_dir, df, "Convolutional VAE",
-                        per_arch_subdir="Convolutional_VAE")
+    if _writes(mesh):
+        consolidate_metrics(results_dir, df, "Convolutional VAE",
+                            per_arch_subdir="Convolutional_VAE")
     logger.log("metrics", architecture="Convolutional VAE",
                rows=df.to_dict("records"))
 
-    if make_plots:
+    if make_plots and _writes(mesh):
         # no perplexity here, as in the JAX pipeline: t-SNE's default 30
         xy = tsne(latents, seed=ccfg.seed, device=dev)
         tsne_triptych(
             xy, algos[f"K-Means-Main (k={best_k})"],
             algos["K-Means-Language (k=2)"], y_genre, best_k,
             f"{results_dir}/Convolutional_VAE/tsne_clusters_v2.png")
+    _done_writing(mesh)
     return df

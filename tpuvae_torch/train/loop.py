@@ -28,9 +28,17 @@ the same permutations, dropout masks and noise as an uninterrupted one.
 With ``restore_best`` it also writes the best weights to ``best/`` on each
 improvement and reads them back on resume (``:336-370``, ``:425-440``).
 
+With ``mesh`` (a ``DeviceMesh`` whose first axis, ``data``, holds more
+than one rank) each epoch is :func:`tpuvae_torch.parallel.dp.make_dp_epoch`
+on the rank's contiguous block of the data (``tpuvae/train/loop.py:89-130``):
+micro-batches of ``batch_size / D`` rows, the gradients reduced as
+``loss_reduction`` names the objective's batch reduction.  Every rank
+reads the same reduced epoch losses, so early stopping and
+ReduceLROnPlateau take the same decision on every rank; rank 0 writes the
+checkpoints and every rank reads them on resume.
+
 Not ported: ``scan_epochs`` (TPU dispatch amortisation; accepted and
-logged as ignored) and a data-parallel ``mesh`` (raises
-``NotImplementedError`` naming its ROADMAP.md item).
+logged as ignored).
 """
 
 from __future__ import annotations
@@ -42,8 +50,11 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpuvae_torch.convert import from_flax
+from tpuvae_torch.parallel.dp import make_dp_epoch
+from tpuvae_torch.parallel.mesh import axis_size
 from tpuvae_torch.train.checkpoint import (
     CheckpointManager,
     latest_train_state_dir,
@@ -90,13 +101,6 @@ class FitResult:
     best_epoch: int
     stopped_epoch: int
     steps_per_sec: float
-
-
-def _reject_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported to "
-            "tpuvae_torch yet (ROADMAP.md, queue 1, item 9: torch.distributed)")
 
 
 def _resident_batches(data, bs: int):
@@ -197,6 +201,23 @@ def _loss_sum(model, loss_fn, batches, device, gen, train: bool,
     return total
 
 
+def _dp_blocks(mesh, axis: str, data, bs: int, logger, trim_key: str):
+    """``(n, this rank's contiguous blocks, batches a rank runs)`` of
+    ``data`` over the data axis: rows beyond a multiple of D dropped (at
+    most D - 1, logged as ``dp_trim``), micro-batches of ``bs / D``."""
+    n_dev = axis_size(mesh, axis)
+    n = int(data[0].shape[0])
+    dropped = n % n_dev
+    if dropped:
+        n -= dropped
+        if logger is not None:
+            logger.log("dp_trim", **{trim_key: dropped})
+    n_local = n // n_dev
+    r = mesh.get_local_rank(axis)
+    blocks = tuple(d[r * n_local:(r + 1) * n_local] for d in data)
+    return n, blocks, -(-n_local // max(bs // n_dev, 1))
+
+
 def fit(
     state: TrainState,
     loss_fn: LossFn,
@@ -205,6 +226,7 @@ def fit(
     val_data: Sequence[torch.Tensor] | None = None,
     logger: RunLogger | None = None,
     mesh=None,
+    loss_reduction: str = "mean",
 ) -> FitResult:
     """Train ``state`` with per-epoch host control flow.
 
@@ -213,10 +235,26 @@ def fit(
     ``np.memmap``, ``RowView``); batches index dim 0.  The shuffles,
     dropout masks and reparameterisation noise come from one
     ``torch.Generator`` on the model's device, seeded with ``cfg.seed``.
+
+    With ``mesh`` (a ``DeviceMesh`` whose first axis, the data axis, has
+    D > 1 ranks; every rank calls ``fit`` with the same data) each rank
+    trains on its contiguous block of ``n / D`` rows in micro-batches of
+    ``batch_size / D``, its generator seeded from the epoch and its rank
+    (:func:`tpuvae_torch.parallel.dp.make_dp_epoch`), and only gradients
+    and BatchNorm statistics cross ranks.  ``loss_reduction`` must then
+    name the objective's batch reduction ('mean' for Simple VAE/AE, 'sum'
+    for CVAE/Hybrid) so the gradient reduction matches single-device
+    semantics.  Rows beyond a multiple of D (at most D - 1) are dropped
+    with a ``dp_trim`` log entry.
     """
     if cfg.monitor == "val" and val_data is None:
         raise ValueError("FitConfig.monitor='val' requires val_data")
-    _reject_unported(mesh)
+    if cfg.host_stream and mesh is not None:
+        raise ValueError(
+            "host_stream=True streams host batches to a single device; "
+            "it cannot be combined with mesh= (the DP epoch operates on "
+            "device-sharded data)"
+        )
     model, optimizer = state.model, state.optimizer
     train_data = tuple(train_data)
     stream = bool(cfg.host_stream)
@@ -226,10 +264,29 @@ def fit(
     n = int(train_data[0].shape[0])
     bs = cfg.batch_size
     n_batches = -(-n // bs)
+    dp_axis = mesh.mesh_dim_names[0] if mesh is not None else None
+    n_dev = axis_size(mesh, dp_axis) if mesh is not None else 1
+    dp = n_dev > 1
+    if dp:
+        n, train_data, n_batches = _dp_blocks(mesh, dp_axis, train_data, bs,
+                                              logger, "dropped_train_rows")
     if val_data is not None:
         val_data = tuple(val_data)
         n_val = int(val_data[0].shape[0])
         val_batches = -(-n_val // bs)
+        if dp:
+            n_val, val_data, val_batches = _dp_blocks(
+                mesh, dp_axis, val_data, bs, logger, "dropped_val_rows")
+    if dp:
+        dp_epoch = make_dp_epoch(
+            loss_fn, mesh, batch_size=bs, n_local=n // n_dev,
+            n_train_arrays=len(train_data),
+            n_val_arrays=len(val_data) if val_data is not None else 0,
+            n_val_local=n_val // n_dev if val_data is not None else 0,
+            loss_reduction=loss_reduction, axis=dp_axis)
+    # rank 0 of a process group writes the checkpoints, also where the
+    # ranks train unsharded copies (a batch that does not divide over D)
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     if cfg.scan_epochs > 1 and logger is not None:
         logger.log("scan_epochs_ignored",
                    reason="the port runs one epoch per host-loop step")
@@ -276,19 +333,28 @@ def fit(
 
     for epoch in range(start_epoch, cfg.epochs):
         t_epoch = time.perf_counter()
-        perm = torch.randperm(n, generator=gen, device=dev)
-        model.train()
-        batches = (_host_batches(stager, train_data, bs, perm.cpu().numpy())
-                   if stream else
-                   _resident_batches(tuple(d[perm] for d in train_data), bs))
-        loss_sum = _loss_sum(model, loss_fn, batches, dev, gen, True, optimizer)
+        if dp:
+            state, loss_sum, val_total = dp_epoch(
+                state, cfg.seed * 1_000_003 + epoch, *train_data,
+                *(val_data or ()))
+        else:
+            perm = torch.randperm(n, generator=gen, device=dev)
+            model.train()
+            batches = (_host_batches(stager, train_data, bs,
+                                     perm.cpu().numpy())
+                       if stream else
+                       _resident_batches(tuple(d[perm] for d in train_data),
+                                         bs))
+            loss_sum = _loss_sum(model, loss_fn, batches, dev, gen, True,
+                                 optimizer)
+            val_total = None
+            if val_data is not None:
+                model.eval()
+                batches = (_host_batches(stager, val_data, bs) if stream
+                           else _resident_batches(val_data, bs))
+                val_total = _loss_sum(model, loss_fn, batches, dev, gen,
+                                      False)
         total_steps += n_batches
-        val_total = None
-        if val_data is not None:
-            model.eval()
-            batches = (_host_batches(stager, val_data, bs) if stream
-                       else _resident_batches(val_data, bs))
-            val_total = _loss_sum(model, loss_fn, batches, dev, gen, False)
 
         denom = n_batches if cfg.loss_normalizer == "per_batch" else n
         train_loss = float(loss_sum) / denom
@@ -322,7 +388,7 @@ def fit(
             if cfg.restore_best:
                 best_snapshot = {k: v.detach().clone()
                                  for k, v in model.state_dict().items()}
-                if cfg.checkpoint_dir:
+                if cfg.checkpoint_dir and writer:
                     save_checkpoint(Path(cfg.checkpoint_dir) / "best",
                                     best_snapshot,
                                     {"epoch": epoch, "monitored": monitored})
@@ -337,18 +403,22 @@ def fit(
             )
         if cfg.checkpoint_dir and (epoch + 1) % cfg.checkpoint_every == 0:
             t_save = time.perf_counter()
-            saved = CheckpointManager(
-                cfg.checkpoint_dir, cfg.checkpoint_keep).save(
-                state,
-                {"epoch": epoch, "best": best, "best_epoch": best_epoch,
-                 "patience_counter": patience_counter,
-                 "plateau_best": plateau_best,
-                 "plateau_counter": plateau_counter, "lr": lr,
-                 "history": history},
-                step=epoch, generator=gen)
-            if logger is not None:
-                logger.log("checkpoint_saved", dir=str(saved), epoch=epoch,
-                           seconds=time.perf_counter() - t_save)
+            if writer:
+                saved = CheckpointManager(
+                    cfg.checkpoint_dir, cfg.checkpoint_keep).save(
+                    state,
+                    {"epoch": epoch, "best": best, "best_epoch": best_epoch,
+                     "patience_counter": patience_counter,
+                     "plateau_best": plateau_best,
+                     "plateau_counter": plateau_counter, "lr": lr,
+                     "history": history},
+                    step=epoch, generator=gen)
+                if logger is not None:
+                    logger.log("checkpoint_saved", dir=str(saved),
+                               epoch=epoch,
+                               seconds=time.perf_counter() - t_save)
+            if dp:
+                dist.barrier()      # every rank sees the checkpoint
         if patience_counter >= cfg.patience:
             break
 

@@ -11,15 +11,20 @@ import numpy as np
 import torch
 
 
-def batched_apply(fn, arrays, batch_size: int = 32) -> np.ndarray:
+def batched_apply(fn, arrays, batch_size: int = 32, put=None) -> np.ndarray:
     """Apply ``fn(*chunks) -> (B, ...)`` over ``arrays`` in batches of at
-    most ``batch_size`` rows; returns the concatenated host result."""
+    most ``batch_size`` rows; returns the concatenated host result.
+    ``put`` overrides how each batch's host chunks reach ``fn``: it is
+    called as ``put(fn, *chunks)`` and returns the batch's rows (a
+    :class:`~tpuvae_torch.parallel.MeshContext`'s ``apply_sharded`` spreads
+    the batch dim over a mesh, as the JAX package's sharding ``put``)."""
     if batch_size < 1:
         raise ValueError("batch_size must be >= 1")
     n = arrays[0].shape[0]
     outs = []
     for i in range(0, n, batch_size):
-        out = fn(*[a[i : i + batch_size] for a in arrays])
+        chunks = [a[i : i + batch_size] for a in arrays]
+        out = fn(*chunks) if put is None else put(fn, *chunks)
         if isinstance(out, torch.Tensor):
             out = out.detach().cpu().numpy()
         outs.append(np.asarray(out))
