@@ -176,13 +176,27 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``extract_basic_features`` batch of 8 clips (kernels 1 + 2 in each
     rank) against the unsharded batch; one line with the backends, world
     sizes, each check's time and the card;
-21. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
+21. scanned epochs, the epoch as one CUDA graph: ``run_simple_vae`` at
+    1,336 x 370 for 16 epochs at ``scan_epochs`` 8 and 1 (histories within
+    rtol 1e-6, best and stopped epochs equal, one host read per chunk
+    against one per epoch), again with a patience and learning rate that
+    stop the run inside a chunk; ``run_hybrid_vae`` in fp32 at
+    ``HybridVAEConfig()``'s widths on phase 7's ``processed_data2`` for 8
+    epochs at 4 and 1 (the same checks; kernel 6 inside the graph, its
+    launches counted per replay: steps x epochs), and at bf16 for one
+    chunk (no kernel 6); one epoch of the Simple VAE, the fp32 and the
+    bf16 Hybrid as a graph replay against the same epoch function run
+    eagerly from a copy of the state and generator (losses and weights,
+    the Simple VAE's bit-equal), both timed per epoch and per step in
+    alternating rounds;
+22. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
     then the ``ok`` line last.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import shutil
@@ -3156,6 +3170,301 @@ def mesh_path(torch, work: Path) -> dict:
     return {"line": line, "nccl": nccl, "gloo": gloo}
 
 
+# -- phase 21: scanned epochs -------------------------------------------------
+
+SCAN_SIMPLE_EPOCHS = 16   # two chunks of the Simple VAE's scan_epochs 8
+SCAN_HYBRID_EPOCHS = 8    # two chunks of the Hybrid VAE's scan_epochs 4
+SCAN_TIMED_EPOCHS = 5     # epochs per round when timing graphed and eager
+# a patience and learning rate under which the Simple VAE's train loss
+# rises early enough to stop the run inside its first or second chunk
+SCAN_STOP_PATIENCE = 1
+SCAN_STOP_LR = 1e-2
+
+
+def fit_event(log_path: Path) -> dict:
+    return next(rec for rec in (json.loads(line) for line in
+                                log_path.read_text().splitlines())
+                if rec["event"] == "fit")
+
+
+def same_histories(a: dict, b: dict, keys, what: str) -> None:
+    """Two runs' fit events: the histories within rtol 1e-6, the learning
+    rates within 1e-7, the best and stopped epochs equal."""
+    for key in keys:
+        np.testing.assert_allclose(a[key], b[key], rtol=1e-6,
+                                   err_msg=f"{what}: {key}")
+    np.testing.assert_allclose(a["lr"], b["lr"], rtol=1e-7,
+                               err_msg=f"{what}: lr")
+    check((a["best_epoch"], a["stopped_epoch"])
+          == (b["best_epoch"], b["stopped_epoch"]),
+          f"{what}: best / stopped {a['best_epoch']} / {a['stopped_epoch']} "
+          f"against {b['best_epoch']} / {b['stopped_epoch']}")
+
+
+def scanned_simple_vae(torch, work: Path) -> dict:
+    """``run_simple_vae`` at the reference's 1,336 x 370 (phase 5's
+    ``processed_data1``) for 16 epochs at ``scan_epochs`` 8 and at 1: equal
+    histories, one host read per chunk against one per epoch; then a
+    ``patience`` and learning rate that stop the run inside a chunk, again
+    at both K."""
+    from tpuvae_torch.config import ClusterConfig, SimpleVAEConfig
+    from tpuvae_torch.pipelines import run_simple_vae
+    from tpuvae_torch.utils.logging import RunLogger
+
+    data_dir = work / "processed_data1_train"
+    ccfg = ClusterConfig(simple_k_sweep=(3, 5), kmeans_n_init=2)
+
+    def one(tag, **kw):
+        log_path = work / f"scan_simple_{tag}.jsonl"
+        logger = RunLogger(log_path, echo=False)
+        cfg = SimpleVAEConfig(epochs=SCAN_SIMPLE_EPOCHS, batch_size=BATCH,
+                              **kw)
+        try:
+            run_simple_vae(str(data_dir), str(work / f"scan_simple_{tag}"),
+                           cfg, ccfg, logger, make_plots=False, device="cuda")
+        finally:
+            logger.close()
+        return fit_event(log_path)
+
+    out = {}
+    for name, kw in (("budget", {}),
+                     ("stop", {"patience": SCAN_STOP_PATIENCE,
+                               "learning_rate": SCAN_STOP_LR})):
+        chunked = one(f"{name}_k8", scan_epochs=8, **kw)
+        per_epoch = one(f"{name}_k1", scan_epochs=1, **kw)
+        same_histories(chunked, per_epoch, ("train_loss",),
+                       f"Simple VAE ({name})")
+        ran = chunked["epochs"]
+        check(chunked["host_reads"] == -(-ran // 8)
+              and per_epoch["host_reads"] == ran,
+              f"host reads {chunked['host_reads']} / "
+              f"{per_epoch['host_reads']} "
+              f"for {ran} epochs")
+        out[name] = {
+            "epochs_run": ran, "best_epoch": chunked["best_epoch"],
+            "stopped_epoch": chunked["stopped_epoch"],
+            "host_reads_k8": chunked["host_reads"],
+            "host_reads_k1": per_epoch["host_reads"],
+            "fit_s_k8": chunked["seconds"], "fit_s_k1": per_epoch["seconds"],
+            "epoch_s_k8": chunked["epoch_seconds"],
+            "epoch_s_k1": per_epoch["epoch_seconds"],
+            "train_loss": chunked["train_loss"], "lr": chunked["lr"]}
+    check(out["budget"]["epochs_run"] == SCAN_SIMPLE_EPOCHS,
+          f"the budget run stopped at {out['budget']['stopped_epoch']}")
+    stop = out["stop"]["stopped_epoch"]
+    check(stop < SCAN_SIMPLE_EPOCHS - 1 and stop % 8 != 7,
+          f"the stop run stopped at epoch {stop}, not inside a chunk")
+    log(f"scanned Simple VAE: 16 epochs at K = 8 equal to K = 1 (histories "
+        f"rtol 1e-6, best / stopped equal), host reads "
+        f"{out['budget']['host_reads_k8']} against "
+        f"{out['budget']['host_reads_k1']}; patience "
+        f"{SCAN_STOP_PATIENCE} stops at epoch {stop}, inside a chunk, at "
+        f"both K")
+    return out
+
+
+def scanned_hybrid(torch, work: Path, data2: Path, dtype: str,
+                   epochs: int) -> dict:
+    """``run_hybrid_vae`` at ``HybridVAEConfig()``'s widths on phase 7's
+    ``processed_data2`` for ``epochs`` at ``scan_epochs`` 4 (and, in fp32,
+    again at 1), under deterministic algorithms: launch counts through the
+    replays, host reads, stage times."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.config import ClusterConfig, HybridVAEConfig
+    from tpuvae_torch.pipelines import run_hybrid_vae
+    from tpuvae_torch.utils.logging import RunLogger
+
+    def one(tag, k):
+        log_path = work / f"scan_hybrid_{tag}.jsonl"
+        logger = RunLogger(log_path, echo=False)
+        cfg = HybridVAEConfig(epochs=epochs, batch_size=BATCH, scan_epochs=k,
+                              compute_dtype=dtype)
+        ops.reset_launch_counts()
+        try:
+            run_hybrid_vae(str(data2), str(work / f"scan_hybrid_{tag}"), cfg,
+                           ClusterConfig(), logger, make_plots=False,
+                           device="cuda")
+        finally:
+            logger.close()
+        counts = ops.launch_counts()
+        ev = {rec["event"]: rec for rec in (
+            json.loads(line) for line in log_path.read_text().splitlines())}
+        return ev["fit"], ev["fit_start"], counts
+
+    from tpuvae_torch.parity import deterministic_algorithms
+
+    # fp32: both K under deterministic algorithms, where two runs do not
+    # part by cuDNN's run-to-run freedom (which Adam amplifies: two
+    # default runs differed by 9e-4 in the first epoch's loss)
+    fp32 = dtype == "float32"
+    with (deterministic_algorithms() if fp32
+          else contextlib.nullcontext([])) as nondeterministic:
+        fit4, start, counts = one(f"{dtype}_k4", 4)
+        if fp32:
+            fit1, _, _ = one(f"{dtype}_k1", 1)
+    n_train, n_val = start["n_train"], start["n_val"]
+    forwards = (fit4["epochs"] * (-(-n_train // BATCH) + -(-n_val // BATCH))
+                + -(-(n_train + n_val) // BATCH))
+    want = forwards if dtype == "float32" else 0
+    for name in ("fusedconv_conv0", "fusedconv_conv1"):
+        check(counts[name] == want,
+              f"{name} launched {counts[name]} times in the scanned {dtype} "
+              f"run, {want} expected (steps x epochs through the replays "
+              f"and the latents' batches)")
+    check(fit4["host_reads"] == -(-fit4["epochs"] // 4),
+          f"host reads {fit4['host_reads']} for {fit4['epochs']} epochs")
+    check(all(np.isfinite(fit4["train_loss"] + fit4["val_loss"])),
+          "scanned hybrid losses not finite")
+    out = {"epochs_run": fit4["epochs"], "best_epoch": fit4["best_epoch"],
+           "stopped_epoch": fit4["stopped_epoch"],
+           "host_reads_k4": fit4["host_reads"], "launches": counts,
+           "fit_s_k4": fit4["seconds"], "epoch_s_k4": fit4["epoch_seconds"],
+           "train_loss": fit4["train_loss"], "val_loss": fit4["val_loss"]}
+    if fp32:
+        check(not nondeterministic, f"nondeterministic ops {nondeterministic}")
+        same_histories(fit4, fit1, ("train_loss", "val_loss"), "Hybrid VAE")
+        check(fit1["host_reads"] == fit1["epochs"], "host reads at K = 1")
+        out.update(host_reads_k1=fit1["host_reads"], fit_s_k1=fit1["seconds"],
+                   epoch_s_k1=fit1["epoch_seconds"])
+    log(f"scanned Hybrid VAE {dtype}: {fit4['epochs']} epochs at K = 4, host "
+        f"reads {fit4['host_reads']}, kernel 6 launches "
+        f"{counts['fusedconv_conv1']} of {want} expected"
+        + (", histories equal to K = 1's" if dtype == "float32" else ""))
+    return out
+
+
+def graph_against_eager(torch, dev, name: str, build, loss_fn, train, val,
+                        batch: int) -> dict:
+    """One resident epoch of ``build()``'s model as a CUDA graph against the
+    same epoch function run eagerly from a copy of its state and generator.
+    Under deterministic algorithms (cuDNN's and cuBLAS's run-to-run
+    freedom off) the graph runs the eager epoch's kernels in its order, so
+    the losses, the weights and the generator after one epoch are
+    bit-equal; with the default algorithms their distance is logged.  Then
+    both are timed per epoch and per step with the default algorithms
+    (host clock around synchronised rounds of SCAN_TIMED_EPOCHS epochs,
+    alternating graph, eager, eager, graph)."""
+    import copy
+
+    from tpuvae_torch.parity import deterministic_algorithms
+    from tpuvae_torch.train.loop import CapturedEpoch, resident_epoch
+    from tpuvae_torch.train.state import (create_state, get_learning_rate,
+                                          load_optimizer_state)
+
+    def pair():
+        model = build()
+        state = create_state(model, 1e-4)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        graphed = CapturedEpoch(resident_epoch(
+            model, state.optimizer, loss_fn, train, val, batch, gen),
+            gen, dev, batch)
+        t0 = time.perf_counter()
+        graphed()               # the first epoch, eager
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        twin = copy.deepcopy(model)
+        twin_state = create_state(twin, get_learning_rate(state))
+        load_optimizer_state(twin_state.optimizer,
+                             copy.deepcopy(state.optimizer.state_dict()))
+        gen2 = torch.Generator(device=dev)
+        gen2.set_state(gen.get_state())
+        eager = resident_epoch(twin, twin_state.optimizer, loss_fn, train,
+                               val, batch, gen2)
+        t0 = time.perf_counter()
+        got = graphed()         # the capture and its first replay
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        got = [float(t) for t in got]
+        want = [float(t) for t in eager()]
+        check(torch.equal(gen.get_state(), gen2.get_state()),
+              f"{name}: the generator moved differently")
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            model.state_dict().values(), twin.state_dict().values())
+            if a.is_floating_point())
+        return graphed, eager, got, want, diff, (first_s, capture_s)
+
+    with deterministic_algorithms() as nondeterministic:
+        _, _, got_d, want_d, diff_d, _ = pair()
+    check(got_d == want_d and diff_d == 0.0 and not nondeterministic,
+          f"{name}: under deterministic algorithms the graphed epoch's "
+          f"losses {got_d} / weights differ from the eager epoch's {want_d} "
+          f"by {diff_d} ({nondeterministic})")
+    graphed, eager, got, want, diff, (first_s, capture_s) = pair()
+    steps = -(-train[0].shape[0] // batch)
+    vsteps = 0 if val is None else -(-val[0].shape[0] // batch)
+
+    def rounds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SCAN_TIMED_EPOCHS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SCAN_TIMED_EPOCHS
+
+    times = {"graph": [], "eager": []}
+    for kind in ("graph", "eager", "eager", "graph"):
+        times[kind].append(rounds(graphed if kind == "graph" else eager))
+    graph_ms = statistics.mean(times["graph"])
+    eager_ms = statistics.mean(times["eager"])
+    out = {"train_steps": steps, "val_batches": vsteps,
+           "deterministic_losses": got_d,
+           "default_losses_graph": got, "default_losses_eager": want,
+           "default_max_abs_weight_diff": diff,
+           "eager_first_epoch_s": first_s,
+           "capture_and_first_replay_s": capture_s,
+           "graph_ms_per_epoch": times["graph"],
+           "eager_ms_per_epoch": times["eager"],
+           "graph_ms_per_step": graph_ms / (steps + vsteps),
+           "eager_ms_per_step": eager_ms / (steps + vsteps)}
+    log(f"graph against eager, {name}: bit-equal under deterministic "
+        f"algorithms; default algorithms: losses {got} / {want}, weights max "
+        f"abs diff {diff:.3g}; epoch {graph_ms:.3f} ms graphed, "
+        f"{eager_ms:.3f} ms eager ({steps} steps + {vsteps} val batches: "
+        f"{out['graph_ms_per_step']:.3f} / {out['eager_ms_per_step']:.3f} "
+        f"ms a batch)")
+    return out
+
+
+def scanned_epochs_path(torch, dev, work: Path, data2: Path) -> dict:
+    """Phase 21: the compiled epoch and ``scan_epochs`` through the
+    pipelines, and one epoch graphed against eager for the Simple VAE, the
+    fp32 Hybrid (kernel 6 inside the graph) and the bf16 Hybrid."""
+    from tpuvae_torch.io.artifacts import load_advanced, load_basic
+    from tpuvae_torch.models import HybridVAE, SimpleVAE
+    from tpuvae_torch.train import hybrid_objective, simple_vae_objective
+    from tpuvae_torch.train.loop import train_val_split
+
+    out = {"simple": scanned_simple_vae(torch, work)}
+    out["hybrid_fp32"] = scanned_hybrid(torch, work, data2, "float32",
+                                        SCAN_HYBRID_EPOCHS)
+    out["hybrid_bf16"] = scanned_hybrid(torch, work, data2, "bfloat16", 4)
+
+    x = torch.from_numpy(np.asarray(
+        load_basic(work / "processed_data1_train")["features"],
+        np.float32)).to(dev)
+    out["epoch_simple"] = graph_against_eager(
+        torch, dev, "Simple VAE 1,336 x 370",
+        lambda: SimpleVAE(
+            generator=torch.Generator().manual_seed(SEED)).to(dev),
+        simple_vae_objective(0.8), (x,), None, BATCH)
+    data = load_advanced(data2)
+    mel = torch.from_numpy(np.asarray(data["mel"], np.float32)[..., None])
+    text = torch.from_numpy(np.asarray(data["text"], np.float32))
+    tr, va = train_val_split(len(mel), 0.15, SEED)
+    tr, va = torch.from_numpy(tr), torch.from_numpy(va)
+    train = (mel[tr].to(dev), text[tr].to(dev))
+    val = (mel[va].to(dev), text[va].to(dev))
+    for dtype in ("float32", "bfloat16"):
+        out[f"epoch_hybrid_{dtype}"] = graph_against_eager(
+            torch, dev, f"Hybrid VAE {dtype}",
+            lambda: HybridVAE(input_hw=MEL_HW, dtype=dtype,
+                              generator=torch.Generator().manual_seed(SEED)
+                              ).to(dev),
+            hybrid_objective(1.0, 350.0), train, val, BATCH)
+    log(f"card: {card_line()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3927,6 +4236,11 @@ def run(torch, dev, work: Path, card: str) -> int:
         row["launches_mesh_sharded_extract"] = [
             r["extract"]["launches"][name] for r in mesh["gloo"]]
 
+    # ---- 21. scanned epochs: the epoch as one CUDA graph ------------------
+    scanned = scanned_epochs_path(torch, dev, work, data2)
+    fusedconv_row["launches_scanned_hybrid"] = (
+        scanned["hybrid_fp32"]["launches"]["fusedconv_conv1"])
+
     log("preprocess path: " + json.dumps(pre))
     log("encode latency: " + json.dumps(encode_ms))
     log("training path: " + json.dumps(train["stages"]))
@@ -3940,6 +4254,7 @@ def run(torch, dev, work: Path, card: str) -> int:
     log("tsne at the reference's N: " + json.dumps(tsne_ref))
     log("workflow: " + json.dumps(flow))
     log("bf16 conv models: " + json.dumps(bf16))
+    log("scanned epochs: " + json.dumps(scanned))
     # kernel 1 per geometry: the main path's 2048 / 512 row above, then the
     # timed geometries of phase 17 (launches: extract_basic_features there)
     k1 = next(k for k in kernels if k["name"] == "stft_features")

@@ -379,6 +379,33 @@ def dp_errors(rank, ws):
             "enabled": enabled is ctx.mesh, "events": log.events}
 
 
+
+@case
+def scan_epochs_on_mesh(rank, ws):
+    """``fit`` on a mesh of ``ws`` ranks with ``scan_epochs`` 4: the mesh
+    epoch runs, K is ignored, and the log says why."""
+    import torch
+
+    from tpuvae_torch.models import SimpleAutoencoder
+    from tpuvae_torch.parallel import make_mesh
+    from tpuvae_torch.train import (FitConfig, autoencoder_objective,
+                                    create_state, fit)
+
+    mesh = make_mesh((ws,), ("data",), device="cpu")
+    x = torch.from_numpy(
+        np.random.default_rng(5).normal(size=(16, 12)).astype(np.float32))
+    log = _Log()
+    res = {}
+    for k in (4, 1):
+        model = SimpleAutoencoder(
+            input_dim=12, latent_dim=4,
+            generator=torch.Generator().manual_seed(0))
+        res[k] = fit(create_state(model, 1e-3), autoencoder_objective(),
+                     (x,), FitConfig(epochs=3, batch_size=8, seed=0,
+                                     scan_epochs=k),
+                     logger=log if k == 4 else None, mesh=mesh).history
+    return {"events": log.events, "history": res}
+
 def _hybrid(seed=0):
     import torch
 

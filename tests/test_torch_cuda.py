@@ -50,6 +50,15 @@ Hybrid VAE equal to the same steps without the mesh (rtol 1e-4; cuDNN's
 backward sums in run-dependent order), ``silhouette_sharded`` within 1e-5
 of ``silhouette_score``, the frame-sharded power and mel within 1e-5 of
 the max of ``stft_power(method='fft')`` and its mel.
+The compiled epoch (``-k "graphed or replays or scan_epochs or scanned or
+host_fails"``): a replay of the captured Hybrid epoch bit-equal to the
+eager epoch from a copied state and generator under deterministic
+algorithms (with cuDNN's default freedom two eager epochs part by ~1e-7
+of the loss); each replay draws new dropout masks; ``scan_epochs`` 4
+against 1 and a resume at 3 at the CPU tests' tolerances (histories rtol
+1e-6, learning rates 1e-7, weights rtol 1e-5 / atol 1e-7; the resume's
+weights rtol 1e-4 / atol 1e-6 as ``tests/test_train.py``); kernel 6
+counted per replay; a loss that reads the host fails the capture.
 """
 
 import numpy as np
@@ -1776,3 +1785,238 @@ def test_framesharded_stft_over_nccl(cuda, nccl_mesh, n_fft, hop):
     want_mel = mel_power_from_stft(want, SR, n_fft, 64)
     err = (mel.to_local()[..., :n] - want_mel).abs().max() / want_mel.abs().max()
     assert float(err) <= 1e-5
+
+
+# -- the compiled epoch: CUDA graphs and scan_epochs ----------------------------
+
+def _hybrid_epoch(cuda, dtype="float32", seed=0):
+    """A small Hybrid VAE (mel 64 x 128, text 32) with kernel 6 in its
+    trunk, its state, generator and resident epoch: 40 training rows in
+    batches of 16 (two full and a remainder of 8) and 10 validation rows."""
+    from tpuvae_torch.models import HybridVAE
+    from tpuvae_torch.train import create_state, hybrid_objective
+    from tpuvae_torch.train.loop import resident_epoch
+
+    g = torch.Generator().manual_seed(seed)
+    audio = torch.randn((50, 64, 128, 1), generator=g).to(cuda)
+    text = torch.randn((50, 32), generator=g).to(cuda)
+    model = HybridVAE(latent_dim=16, text_dim=32, input_hw=(64, 128),
+                      generator=torch.Generator().manual_seed(seed),
+                      dtype=dtype).to(cuda)
+    state = create_state(model, 1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    epoch = resident_epoch(model, state.optimizer, hybrid_objective(),
+                           (audio[:40], text[:40]), (audio[40:], text[40:]),
+                           16, gen)
+    return state, gen, epoch, (audio, text)
+
+
+def _clone(state, gen, data, cuda):
+    """The same state and generator, copied: the eager epoch's inputs."""
+    import copy
+
+    from tpuvae_torch.train import create_state, hybrid_objective
+    from tpuvae_torch.train.loop import resident_epoch
+    from tpuvae_torch.train.state import get_learning_rate, load_optimizer_state
+
+    model = copy.deepcopy(state.model)
+    clone = create_state(model, get_learning_rate(state))
+    load_optimizer_state(clone.optimizer,
+                         copy.deepcopy(state.optimizer.state_dict()))
+    g2 = torch.Generator(device=cuda)
+    g2.set_state(gen.get_state())
+    audio, text = data
+    return clone, resident_epoch(model, clone.optimizer, hybrid_objective(),
+                                 (audio[:40], text[:40]),
+                                 (audio[40:], text[40:]), 16, g2), g2
+
+
+def test_graphed_epoch_equals_the_eager_epoch(cuda):
+    """One replay of the captured Hybrid epoch against the same epoch
+    function run eagerly from a copy of the state and the generator: the
+    same kernels in the same order on the same inputs.  Under
+    deterministic algorithms (cuDNN's and cuBLAS's run-to-run freedom off:
+    with it two eager epochs part by ~1e-7 of the loss, which Adam then
+    amplifies) the losses, the weights, Adam's state and the generator's
+    state after it are bit-equal; kernel 6 counts its launches once per
+    replay."""
+    from tpuvae_torch.parity import deterministic_algorithms
+
+    with deterministic_algorithms() as nondeterministic:
+        _graphed_against_eager(cuda)
+    assert not nondeterministic
+
+
+def _graphed_against_eager(cuda):
+    from tpuvae_torch import ops
+    from tpuvae_torch.ops import fusedconv
+    from tpuvae_torch.train.loop import CapturedEpoch, _capture_stream
+
+    state, gen, epoch, data = _hybrid_epoch(cuda)
+    graphed = CapturedEpoch(epoch, gen, cuda, 16)
+    ops.reset_launch_counts()
+    first = [t.clone() for t in graphed()]        # eager
+    counts = ops.launch_counts()
+    assert counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == 4
+    clone, eager, g2 = _clone(state, gen, data, cuda)
+    for _ in range(2):
+        ops.reset_launch_counts()
+        got = [t.clone() for t in graphed()]
+        assert ops.launch_counts()["fusedconv_conv1"] == 4   # 3 train + 1 val
+        want = eager()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (a, b)
+        assert torch.equal(gen.get_state(), g2.get_state())
+        for (k, a), b in zip(state.model.state_dict().items(),
+                             clone.model.state_dict().values()):
+            assert torch.equal(a, b), k
+    assert not torch.equal(got[0], first[0])
+    # the kernels hand their tickets back as 0: no replay needs a memset
+    with torch.cuda.stream(_capture_stream(cuda)):
+        tickets = fusedconv.reserve_tickets(cuda, 16)
+    assert int(tickets.count_nonzero()) == 0
+    for p, q in zip(state.model.parameters(), clone.model.parameters()):
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(state.optimizer.state[p][key],
+                               clone.optimizer.state[q][key])
+
+
+def test_replays_draw_new_dropout_masks(cuda):
+    """The Simple VAE's forward in train mode (dropout 0.2 and the noise
+    from the generator) captured alone: two replays draw different masks,
+    and each equals the eager forward from the generator's state before
+    it."""
+    from tpuvae_torch.models import SimpleVAE
+    from tpuvae_torch.train.loop import CapturedEpoch
+
+    model = SimpleVAE(generator=torch.Generator().manual_seed(2)).to(cuda)
+    model.train()
+    x = torch.randn((32, 370), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def forward(g):
+        with torch.no_grad():
+            return (model(x, generator=g)[0],)
+
+    graphed = CapturedEpoch(lambda: forward(gen), gen, cuda, 32)
+    graphed()
+    outs = []
+    for _ in range(2):
+        g2 = torch.Generator(device=cuda)
+        g2.set_state(gen.get_state())
+        outs.append(graphed()[0].clone())
+        assert torch.equal(outs[-1], forward(g2)[0])
+    assert not torch.equal(outs[0], outs[1])
+
+
+def _scan_run(cuda, scan_epochs, **kw):
+    from tpuvae_torch.models import SimpleVAE
+    from tpuvae_torch.train import (FitConfig, create_state, fit,
+                                    simple_vae_objective)
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(200, 370)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(48, 370)).astype(np.float32) * 3)
+    model = SimpleVAE(generator=torch.Generator().manual_seed(0)).to(cuda)
+    cfg = FitConfig(**{**dict(epochs=14, batch_size=32, patience=4,
+                              monitor="val", restore_best=True,
+                              plateau_patience=1, seed=0,
+                              scan_epochs=scan_epochs), **kw})
+    res = fit(create_state(model, 1e-2), simple_vae_objective(0.5),
+              (x.to(cuda),), cfg, val_data=(v.to(cuda),))
+    return res, [t.cpu() for t in model.state_dict().values()]
+
+
+def test_scan_epochs_on_the_card_equal_per_epoch(cuda):
+    """K = 4 (device control, one host read per chunk) against K = 1 (one
+    replay and one host read per epoch), both graphed: histories rtol
+    1e-6, learning rates rtol 1e-7, equal best and stopped epochs, weights
+    rtol 1e-5 / atol 1e-7."""
+    a, wa = _scan_run(cuda, 1)
+    b, wb = _scan_run(cuda, 4)
+    for key in ("train_loss", "val_loss"):
+        np.testing.assert_allclose(a.history[key], b.history[key], rtol=1e-6)
+    np.testing.assert_allclose(a.history["lr"], b.history["lr"], rtol=1e-7)
+    assert (a.best_epoch, a.stopped_epoch) == (b.best_epoch, b.stopped_epoch)
+    for p, q in zip(wa, wb):
+        np.testing.assert_allclose(p.numpy(), q.numpy(), rtol=1e-5, atol=1e-7)
+    ran = len(a.history["train_loss"])
+    assert a.host_reads == ran and b.host_reads == -(-ran // 4)
+
+
+def test_scan_epochs_resume_on_the_card(cuda, tmp_path):
+    """K = 3 with checkpoints every 2 epochs: a run stopped after 6 epochs
+    and resumed to 10 lands where the uninterrupted run does (the CUDA
+    generator's state after the replays is the one saved)."""
+    kw = dict(epochs=10, patience=100, checkpoint_every=2, checkpoint_keep=2)
+    full, wf = _scan_run(cuda, 3, **kw, checkpoint_dir=str(tmp_path / "a"))
+    _scan_run(cuda, 3, **{**kw, "epochs": 6},
+              checkpoint_dir=str(tmp_path / "b"))
+    resumed, wr = _scan_run(cuda, 3, **kw, checkpoint_dir=str(tmp_path / "b"))
+    assert (resumed.best_epoch, resumed.stopped_epoch) == (full.best_epoch,
+                                                           full.stopped_epoch)
+    np.testing.assert_allclose(resumed.history["train_loss"],
+                               full.history["train_loss"], rtol=1e-5)
+    for p, q in zip(wf, wr):
+        np.testing.assert_allclose(p.numpy(), q.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def test_scanned_hybrid_fit_counts_kernel6_per_replay(cuda):
+    """A Hybrid ``fit`` of 6 epochs at K = 4: kernel 6 runs inside the
+    graph and counts once per batch of every epoch, replays included."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.train import FitConfig, fit, hybrid_objective
+
+    state, _, _, (audio, text) = _hybrid_epoch(cuda)
+    ops.reset_launch_counts()
+    res = fit(state, hybrid_objective(), (audio[:40], text[:40]),
+              FitConfig(epochs=6, batch_size=16, patience=100, monitor="val",
+                        scan_epochs=4), val_data=(audio[40:], text[40:]))
+    counts = ops.launch_counts()
+    assert len(res.history["train_loss"]) == 6 and res.host_reads == 2
+    assert counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == 6 * 4
+    assert np.isfinite(res.history["val_loss"]).all()
+
+
+def test_a_loss_that_reads_the_host_fails_the_capture(cuda, tmp_path):
+    """A ``loss_fn`` that calls ``.item()`` runs its eager first epoch, then
+    fails the capture with the operation named, and is not run eagerly in
+    the graph's place.  In a child process, so that whatever a failed
+    capture leaves behind stays out of the other tests."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = tmp_path / "item.py"
+    script.write_text(
+        "import torch\n"
+        "from tpuvae_torch.models import SimpleAutoencoder\n"
+        "from tpuvae_torch.train import FitConfig, create_state, fit\n"
+        "calls = []\n"
+        "def loss_fn(model, batch, generator, train):\n"
+        "    (x,) = batch\n"
+        "    loss = ((model(x)[0] - x) ** 2).mean()\n"
+        "    calls.append(loss.item())\n"
+        "    return loss, {}\n"
+        "x = torch.randn((40, 12), device='cuda')\n"
+        "m = SimpleAutoencoder(input_dim=12, latent_dim=4).cuda()\n"
+        "try:\n"
+        "    fit(create_state(m, 1e-3), loss_fn, (x,),\n"
+        "        FitConfig(epochs=5, batch_size=16, scan_epochs=2))\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', len(calls), str(e).splitlines()[0])\n"
+        "else:\n"
+        "    print('NO RAISE', len(calls))\n")
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(script)], cwd=repo,
+                         capture_output=True, text=True, timeout=300,
+                         env={**__import__("os").environ,
+                              "PYTHONPATH": str(repo)})
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith(("RAISED",
+                                                                    "NO"))]
+    assert line, out.stdout + out.stderr
+    # the 3 batches of the eager first epoch; in the capture the first
+    # .item() raised before its value was appended
+    assert line[0].startswith("RAISED 3 capturing the epoch as a CUDA graph "
+                              "failed at "), line[0]
+    assert "calls.append(loss.item())" in line[0], line[0]

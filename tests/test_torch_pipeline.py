@@ -96,7 +96,9 @@ def test_run_simple_vae_sweeps_and_logs_its_stages(runs):
     out, _, _, log = runs
     events = [json.loads(line) for line in log.read_text().splitlines()]
     by_name = {e["event"]: e for e in events}
-    assert by_name["scan_epochs_ignored"]
+    # scan_epochs = 8 is honoured: one host read per 8 epochs, nothing
+    # logged as ignored
+    assert "scan_epochs_ignored" not in by_name
     assert by_name["fit"]["epochs"] == 3
     assert sorted(int(k) for k in by_name["k_sweep"]["scores"]) == list(K_SWEEP)
     assert by_name["k_sweep"]["best_k"] in K_SWEEP

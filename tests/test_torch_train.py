@@ -249,8 +249,9 @@ def _reference_control(script, patience, plateau_patience, factor, lr):
     return lrs, best_epoch, epoch, lr
 
 
+@pytest.mark.parametrize("scan_epochs", [1, 4])
 @pytest.mark.parametrize("restore_best", [True, False])
-def test_fit_control_semantics(restore_best):
+def test_fit_control_semantics(restore_best, scan_epochs):
     from tpuvae_torch.train.loop import FitConfig, fit
     from tpuvae_torch.train.state import create_state, get_learning_rate
 
@@ -262,7 +263,8 @@ def test_fit_control_semantics(restore_best):
     state = create_state(model, lr0)
     cfg = FitConfig(epochs=len(script), batch_size=bs, patience=6,
                     plateau_patience=1, plateau_factor=0.5,
-                    restore_best=restore_best, log_every=1)
+                    restore_best=restore_best, log_every=1,
+                    scan_epochs=scan_epochs)
     res = fit(state, _scripted_objective(script, 3),
               (torch.zeros((n, 2)),), cfg)
     lrs, best_epoch, stopped, lr_end = _reference_control(script, 6, 1, 0.5,
@@ -345,15 +347,39 @@ def test_fit_rejects_what_is_not_ported_and_ignores_scan_epochs(tmp_path):
     assert on_mesh.history["train_loss"] == resident.history["train_loss"]
 
     class Log:
-        events = []
+        def __init__(self):
+            self.events, self.fields = [], []
 
         def log(self, event, **fields):
             self.events.append(event)
+            self.fields.append(fields)
 
+    # scan_epochs_ignored is logged only where the JAX package ignores K
+    # (tpuvae/train/loop.py:383-386): with host_stream, and on a mesh of
+    # more than one rank; a resident epoch on one rank honours K
     log = Log()
     fit(state, loss_fn, data, FitConfig(epochs=1, batch_size=4,
                                         scan_epochs=8), logger=log)
+    fit(create_state(_Scripted(), 0.01), _scripted_objective([1.0] * 4, 1),
+        data, FitConfig(epochs=1, batch_size=4, scan_epochs=8), mesh=mesh,
+        loss_reduction="sum", logger=log)
+    assert "scan_epochs_ignored" not in log.events
+    log = Log()
+    fit(create_state(_Scripted(), 0.01), _scripted_objective([1.0] * 4, 1),
+        (np.zeros((4, 1), np.float32),),
+        FitConfig(epochs=1, batch_size=4, host_stream=True, scan_epochs=8),
+        logger=log)
     assert log.events[0] == "scan_epochs_ignored"
+    assert log.fields[0] == {"reason": "host_stream epoch active"}
+    from _torch_ranks import run_ranks
+
+    ranks = run_ranks(tmp_path / "ranks", 2, [("scan_epochs_on_mesh", {})])
+    for r in ranks:
+        got = r["scan_epochs_on_mesh"]
+        assert ("scan_epochs_ignored", {"reason": "dp mesh epoch active"}) \
+            in got["events"]
+        assert got["history"][4]["train_loss"] == \
+            got["history"][1]["train_loss"]
 
 
 def test_checkpoints_cross_between_the_packages(tmp_path):

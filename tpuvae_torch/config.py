@@ -153,8 +153,8 @@ class SimpleVAEConfig(_ConfigBase):
     patience: int = 15
     plateau_patience: int = 15       # ReduceLROnPlateau(factor=.5, patience=15)
     plateau_factor: float = 0.5
-    # read by the JAX package only (epochs per device call); the port runs
-    # one epoch per step of its host loop and logs that it ignores this
+    # epochs per host read: early stopping, ReduceLROnPlateau and the best
+    # weights run on the device (FitConfig.scan_epochs)
     scan_epochs: int = 8
     # periodic full-train-state checkpoints (0 = off), written to
     # <results_dir>/<arch>/checkpoints with CheckpointManager rotation
@@ -180,7 +180,7 @@ class ConditionalVAEConfig(_ConfigBase):
     text_loss_weight: float = 200.0  # dim-balancing weight, ref :238-240
     patience: int = 20
     val_fraction: float = 0.15
-    scan_epochs: int = 4             # read by the JAX package only
+    scan_epochs: int = 4             # see SimpleVAEConfig
     # memory-map the mel tensor and stream one batch per step
     # (FitConfig.host_stream): O(batch) host and device memory instead of
     # O(N), for datasets larger than either
@@ -207,7 +207,7 @@ class HybridVAEConfig(_ConfigBase):
     text_loss_weight: float = 350.0  # ref :194
     patience: int = 15
     val_fraction: float = 0.15
-    scan_epochs: int = 4             # read by the JAX package only
+    scan_epochs: int = 4             # see SimpleVAEConfig
     host_stream: bool = False        # see ConditionalVAEConfig
     checkpoint_every: int = 0
     checkpoint_keep: int = 1

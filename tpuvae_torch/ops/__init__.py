@@ -17,7 +17,10 @@ kernel                      replaces (Pallas, tpuvae/ops/)          wrapper
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version for a CPU tensor.  :func:`launch_counts` reads each
-kernel's launch counter; :func:`reset_launch_counts` sets them to 0.
+kernel's launch counter; :func:`reset_launch_counts` sets them to 0.  A
+kernel called while a CUDA graph is captured counts once at every replay
+of the graph (``_build.capture_tally``, ``_build.count_replay``), not at
+the capture, which launches nothing.
 """
 
 from tpuvae_torch.ops import (  # noqa: F401

@@ -10,12 +10,16 @@ libraries build in parallel (one ``nvcc`` per source, started together).
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :class:`Kernel` raises when that is
 non-zero and counts its launches, so a run can show it went through the
-kernel.  Nothing here is touched when a module is imported: the CPU tests
-import every module of the package.
+kernel.  A call made while a CUDA graph is captured launches nothing: it is
+recorded in the capture's tally (:func:`capture_tally`), and every replay
+of the graph adds the tally to the counts (:func:`count_replay`).  Nothing
+here is touched when a module is imported: the CPU tests import every
+module of the package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,6 +52,8 @@ _EXTRA_FLAGS = {
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _KERNELS: list["Kernel"] = []
+# the launches recorded by the CUDA graph being captured, if one is
+_TALLY: dict["Kernel", int] | None = None
 
 
 def _nvcc() -> str:
@@ -158,7 +164,28 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: error {rc} "
                 f"({msg.decode() if msg else 'unknown'})")
-        self.launches += 1
+        if _TALLY is None:
+            self.launches += 1
+        else:
+            _TALLY[self] = _TALLY.get(self, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Inside, kernel calls are recorded (they run only when the graph
+    captured meanwhile is replayed) in the dict this yields, by kernel."""
+    global _TALLY
+    outer, _TALLY = _TALLY, {}
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = outer
+
+
+def count_replay(tally: dict[Kernel, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``tally``."""
+    for kernel, n in tally.items():
+        kernel.launches += n
 
 
 def kernels() -> list[Kernel]:

@@ -168,15 +168,34 @@ def _tiles(h2: int, w2: int, tile) -> int:
     return -(-h2 // tile[0]) * -(-w2 // tile[1])
 
 
-def _tickets_and_stream(device: torch.device, batch: int):
-    """``(tickets, stream)`` as kernel arguments: the current stream's
-    ticket buffer of at least ``batch + 1`` zeros, and that stream."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    key = (device.index, stream)
+def reserve_tickets(device: torch.device, batch: int) -> torch.Tensor:
+    """The current stream's ticket buffer, at least ``batch + 1`` zeros,
+    allocated now if it is missing or short.  The kernels hand their
+    tickets back as 0, so one buffer serves every launch on its stream,
+    replays of a CUDA graph included.  A graph is captured on its own
+    stream: reserve that stream's buffer before the capture, outside the
+    graph's memory pool (``train.loop`` does, with its warm-up epoch)."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(index).cuda_stream
+    key = (index, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < batch + 1:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "kernel 6 needs a ticket buffer of "
+                f"{batch + 1} on the stream being captured: call "
+                "fusedconv.reserve_tickets on that stream before the capture")
         t = torch.zeros(max(batch + 1, 64), dtype=torch.int32, device=device)
         _TICKETS[key] = t
+    return t
+
+
+def _tickets_and_stream(device: torch.device, batch: int):
+    """``(tickets, stream)`` as kernel arguments: the current stream's
+    ticket buffer (:func:`reserve_tickets`) and that stream."""
+    t = reserve_tickets(device, batch)
+    stream = torch.cuda.current_stream(device).cuda_stream
     return _build.ptr(t), ctypes.c_void_p(stream)
 
 

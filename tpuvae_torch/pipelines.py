@@ -734,7 +734,10 @@ def run_simple_vae(
               loss_reduction="mean")
     epochs_run = len(res.history["train_loss"])
     logger.log("fit", seconds=time.perf_counter() - t0, epochs=epochs_run,
-               best_epoch=res.best_epoch, steps_per_sec=res.steps_per_sec)
+               best_epoch=res.best_epoch, stopped_epoch=res.stopped_epoch,
+               steps_per_sec=res.steps_per_sec, host_reads=res.host_reads,
+               epoch_seconds=res.history["epoch_seconds"],
+               train_loss=res.history["train_loss"], lr=res.history["lr"])
     if _writes(mesh):
         save_checkpoint(f"{results_dir}/Simple_VAE/best_vae_model", model,
                         {"best_epoch": res.best_epoch})
@@ -918,10 +921,11 @@ def run_conditional_vae(
     del splits
     logger.log("fit", seconds=time.perf_counter() - t0,
                epochs=len(res.history["train_loss"]),
-               best_epoch=res.best_epoch, steps_per_sec=res.steps_per_sec,
+               best_epoch=res.best_epoch, stopped_epoch=res.stopped_epoch,
+               steps_per_sec=res.steps_per_sec, host_reads=res.host_reads,
                epoch_seconds=res.history["epoch_seconds"],
                train_loss=res.history["train_loss"],
-               val_loss=res.history["val_loss"])
+               val_loss=res.history["val_loss"], lr=res.history["lr"])
 
     t0 = time.perf_counter()
     model.eval()
@@ -1082,10 +1086,11 @@ def run_hybrid_vae(
     del splits
     logger.log("fit", seconds=time.perf_counter() - t0,
                epochs=len(res.history["train_loss"]),
-               best_epoch=res.best_epoch, steps_per_sec=res.steps_per_sec,
+               best_epoch=res.best_epoch, stopped_epoch=res.stopped_epoch,
+               steps_per_sec=res.steps_per_sec, host_reads=res.host_reads,
                epoch_seconds=res.history["epoch_seconds"],
                train_loss=res.history["train_loss"],
-               val_loss=res.history["val_loss"])
+               val_loss=res.history["val_loss"], lr=res.history["lr"])
     if make_plots and _writes(mesh):
         loss_curve(res.history["train_loss"],
                    f"{results_dir}/Convolutional_VAE/training_loss.png")

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from tpuvae_torch.convert import to_flax
-from tpuvae_torch.train.state import TrainState
+from tpuvae_torch.train.state import TrainState, load_optimizer_state
 
 STATE_FILE = "train_state.pt"
 
@@ -91,7 +91,7 @@ def restore_train_state(path: str | Path, state: TrainState, *,
     saved = torch.load(path / STATE_FILE, map_location="cpu",
                        weights_only=True)
     state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    load_optimizer_state(state.optimizer, saved["optimizer"])
     if generator is not None:
         if saved["generator"] is None:
             raise ValueError(f"{path} holds no generator state")

@@ -1,32 +1,47 @@
-"""Generic per-epoch training loop (counterpart of ``tpuvae/train/loop.py``).
+"""Generic training loop (counterpart of ``tpuvae/train/loop.py``).
 
 The reference's per-batch loop (``Simple_VAE.py:171-217``) with the JAX
-package's epoch semantics (``tpuvae/train/loop.py:388-480``): a shuffled
+package's epoch semantics (``tpuvae/train/loop.py:205-243``): a shuffled
 permutation each epoch, full batches plus one remainder batch, a
-``per_batch`` or ``per_dataset`` loss normaliser, and host-side control
-between epochs:
+``per_batch`` or ``per_dataset`` loss normaliser, and control between
+epochs:
 
   * ReduceLROnPlateau on the monitored loss: the LR is multiplied by
     ``plateau_factor`` once the plateau counter exceeds ``plateau_patience``;
   * early stop when the patience counter reaches ``patience``;
-  * a deep copy of the best weights, restored when ``restore_best`` is set
+  * a copy of the best weights, restored when ``restore_best`` is set
     (Simple VAE: monitor **train** loss and restore, ``Simple_VAE.py:202-222``).
 
-PyTorch runs eagerly: one optimizer step per batch, and one host sync per
-epoch (the summed losses).  With ``FitConfig.host_stream`` the datasets
-stay on the host (numpy arrays, ``np.memmap``, ``RowView``) and one batch
-at a time goes to the device, staged while the previous step runs; batch
-composition, noise and the ragged remainder are those of the resident
-epoch, so the losses are the same.
+A resident epoch (the data on the device, no mesh of several ranks) is one
+function of device tensors (:func:`resident_epoch`) that reads nothing on
+the host.  On a card it runs as one CUDA graph (:class:`CapturedEpoch`):
+the first epoch of a ``fit`` runs eagerly on the graph's stream and is
+then captured, and every later epoch is one replay, as the JAX package's
+epoch is one ``jax.jit`` call.  With ``scan_epochs = 1`` the host reads the
+epoch's two sums after every epoch and runs the control in float64
+(``tpuvae/train/loop.py:388-480``).  With ``scan_epochs = K > 1`` the
+control runs on the device too (:class:`_DeviceControl`, counterpart of
+``_fit_chunked``, ``:483-663``): K epochs run back to back, and the host
+reads once per K epochs.  On the CPU the same functions run eagerly; they
+are the plain version of the graph.
+
+With ``FitConfig.host_stream`` the datasets stay on the host (numpy arrays,
+``np.memmap``, ``RowView``) and one batch at a time goes to the device,
+staged while the previous step runs; batch composition, noise and the
+ragged remainder are those of the resident epoch, so the losses are the
+same.  That epoch runs eagerly, with the host control of ``scan_epochs =
+1``.
 
 With ``FitConfig.checkpoint_dir`` the loop saves its whole state every
-``checkpoint_every`` epochs (``tpuvae/train/loop.py:454-465``; rotated by
+``checkpoint_every`` epochs (``tpuvae/train/loop.py:454-465``; with
+``scan_epochs > 1`` at the end of a chunk that crossed such a boundary,
+``:622-646``; rotated by
 :class:`~tpuvae_torch.train.checkpoint.CheckpointManager`): weights,
 optimizer, the counters of early stopping and ReduceLROnPlateau, the
 history and the state of its ``torch.Generator``, so a resumed run draws
 the same permutations, dropout masks and noise as an uninterrupted one.
-With ``restore_best`` it also writes the best weights to ``best/`` on each
-improvement and reads them back on resume (``:336-370``, ``:425-440``).
+With ``restore_best`` it also writes the best weights to ``best/`` and
+reads them back on resume (``:336-370``, ``:425-440``).
 
 With ``mesh`` (a ``DeviceMesh`` whose first axis, ``data``, holds more
 than one rank) each epoch is :func:`tpuvae_torch.parallel.dp.make_dp_epoch`
@@ -35,16 +50,18 @@ micro-batches of ``batch_size / D`` rows, the gradients reduced as
 ``loss_reduction`` names the objective's batch reduction.  Every rank
 reads the same reduced epoch losses, so early stopping and
 ReduceLROnPlateau take the same decision on every rank; rank 0 writes the
-checkpoints and every rank reads them on resume.
-
-Not ported: ``scan_epochs`` (TPU dispatch amortisation; accepted and
-logged as ignored).
+checkpoints and every rank reads them on resume.  That epoch runs eagerly,
+with the host control of ``scan_epochs = 1``; as in the JAX package
+``scan_epochs`` is then ignored, and so it is with ``host_stream``
+(``:383-386``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import traceback
 from pathlib import Path
 from typing import Any, Callable, Sequence
 
@@ -53,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from tpuvae_torch.convert import from_flax
+from tpuvae_torch.ops import _build, fusedconv
 from tpuvae_torch.parallel.dp import make_dp_epoch
 from tpuvae_torch.parallel.mesh import axis_size
 from tpuvae_torch.train.checkpoint import (
@@ -66,6 +84,7 @@ from tpuvae_torch.train.state import (
     TrainState,
     get_learning_rate,
     set_learning_rate,
+    traced_learning_rate,
 )
 from tpuvae_torch.utils.logging import RunLogger
 
@@ -89,7 +108,10 @@ class FitConfig:
     checkpoint_every: int = 50
     checkpoint_keep: int = 1              # rotation depth (CheckpointManager)
     resume: bool = True                   # continue from checkpoint_dir if present
-    scan_epochs: int = 1                  # TPU dispatch amortisation: ignored
+    # >1 runs K epochs per host read, with early stopping, ReduceLROnPlateau
+    # and best-weights tracking on the device; epochs past the stop point
+    # change nothing.  Resident data on one rank only (else ignored, logged)
+    scan_epochs: int = 1
     host_stream: bool = False             # data stays on the host, one
                                           # batch at a time on the device
 
@@ -101,6 +123,7 @@ class FitResult:
     best_epoch: int
     stopped_epoch: int
     steps_per_sec: float
+    host_reads: int = 0      # reads of epoch results from the device
 
 
 def _resident_batches(data, bs: int):
@@ -218,6 +241,278 @@ def _dp_blocks(mesh, axis: str, data, bs: int, logger, trim_key: str):
     return n, blocks, -(-n_local // max(bs // n_dev, 1))
 
 
+def resident_epoch(model, optimizer, loss_fn, train_data, val_data,
+                   batch_size: int, generator: torch.Generator):
+    """The resident epoch as one function of device tensors,
+    ``epoch() -> (train_sum, val_sum)`` (counterpart of
+    ``tpuvae/train/loop.py:205-243``): a permutation drawn from
+    ``generator``, one gather of every training array, the full batches
+    and the ragged remainder (one optimizer step each), then the
+    validation pass in eval mode.  The sums are 0-d float32 tensors on the
+    device (``val_sum`` is 0 without ``val_data``); nothing is read on the
+    host, so the function can be captured as a CUDA graph."""
+    dev = train_data[0].device
+    n = int(train_data[0].shape[0])
+
+    def epoch():
+        perm = torch.randperm(n, generator=generator, device=dev)
+        model.train()
+        train_sum = _loss_sum(
+            model, loss_fn,
+            _resident_batches(tuple(d[perm] for d in train_data), batch_size),
+            dev, generator, True, optimizer)
+        if val_data is None:
+            return train_sum, torch.zeros((), device=dev)
+        model.eval()
+        val_sum = _loss_sum(model, loss_fn,
+                            _resident_batches(val_data, batch_size), dev,
+                            generator, False)
+        return train_sum, val_sum
+
+    return epoch
+
+
+def _failed_at(exc: BaseException) -> str:
+    """``file:line (source)`` of the innermost frame of ``exc``'s traceback
+    outside torch: the operation that failed."""
+    torch_dir = os.path.dirname(torch.__file__)
+    frames = traceback.extract_tb(exc.__traceback__)
+    for f in reversed(frames):
+        if not f.filename.startswith(torch_dir):
+            return f"{f.filename}:{f.lineno} ({f.line})"
+    return "an unknown operation"
+
+
+class CapturedEpoch:
+    """``fn`` (a function of device tensors that takes no argument and
+    reads nothing on the host) as one CUDA graph.
+
+    The first call runs ``fn`` eagerly on the graph's own stream: it is a
+    real epoch, and it sets up what a capture cannot (cuBLAS and cuDNN
+    handles and algorithm choice, the kernels' libraries, Adam's state,
+    kernel 6's ticket buffer for the stream, reserved for
+    ``reserve_batch`` images).  The second call captures ``fn`` (a capture
+    runs nothing) and replays it; every call from then on is one replay
+    on that stream, which the caller's stream waits for, and returns the
+    tensors the capture returned, which the next replay overwrites.
+    ``generator`` is registered with the graph, so each replay draws new
+    numbers and leaves the generator where the eager run would have.
+    Kernel launches recorded at the capture count once per replay
+    (``ops._build.capture_tally``).  A capture that fails raises with the
+    failing operation named; nothing runs ``fn`` eagerly in its place.
+    :meth:`close` lets the graph and its memory pool go.
+    """
+
+    def __init__(self, fn, generator: torch.Generator, device: torch.device,
+                 reserve_batch: int):
+        self.fn = fn
+        self.generator = generator
+        self.device = device
+        self.reserve_batch = reserve_batch
+        self.stream = _capture_stream(device)
+        self.warm = False
+        self.graph = None
+        self.out = None
+        self.tally: dict = {}
+
+    def __call__(self):
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            if not self.warm:
+                fusedconv.reserve_tickets(self.device, self.reserve_batch)
+                out = self.fn()
+                self.warm = True
+            else:
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+                _build.count_replay(self.tally)
+                out = self.out
+        caller.wait_stream(self.stream)
+        return out
+
+    def close(self) -> None:
+        """Drop the graph and the tensors it returned, and with them the
+        graph's memory pool."""
+        self.graph = self.out = None
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        torch.cuda.synchronize(self.device)
+        with _build.capture_tally() as tally:
+            graph.capture_begin()
+            try:
+                out = self.fn()
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass            # the capture was invalidated by exc
+                raise RuntimeError(
+                    f"capturing the epoch as a CUDA graph failed at "
+                    f"{_failed_at(exc)}: {exc}") from exc
+            graph.capture_end()
+        self.graph, self.out, self.tally = graph, out, dict(tally)
+
+
+# one stream per device for every capture: cuBLAS keeps a workspace for
+# each stream it has run on, for the life of the process
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    index = torch.device(device).index or 0
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+def _release(run, optimizer) -> None:
+    """At the end of a loop, also on an error: a graphed epoch's graph and
+    the gradients that live in its memory pool go, and the pool with them."""
+    if isinstance(run, CapturedEpoch):
+        optimizer.zero_grad(set_to_none=True)
+        run.close()
+
+
+def _epoch_runner(epoch, generator, device, batch_size: int):
+    """``epoch`` as a :class:`CapturedEpoch` on a card, as it is on the
+    CPU."""
+    if device.type == "cuda":
+        return CapturedEpoch(epoch, generator, device, batch_size)
+    return epoch
+
+
+class _DeviceControl:
+    """Early stopping, ReduceLROnPlateau and best-weights tracking on the
+    device (``tpuvae/train/loop.py:513-593``), around a resident epoch.
+
+    The counters are 0-d tensors: ``best`` and ``plateau_best`` float32
+    (the monitored loss is compared in float32 on the device, where the
+    host loop compares float64: they part only on exact float32 ties),
+    ``best_epoch``, the patience and plateau counters int64, ``stopped``
+    bool, and the learning rate the optimizer's own float64 tensor.  A call
+    runs one epoch and updates them with ``torch.where`` in the JAX order,
+    plateau first, then early stop; it writes the epoch's row of ``rows``
+    (train loss, val loss, lr used, ran, stopped, best epoch) at ``slot``.
+
+    An epoch that starts stopped changes nothing: the first call (which
+    runs only when the host knows the run is live) records what an epoch
+    updates (parameters, BatchNorm buffers, Adam's moments and step), and
+    every later call copies them first and puts the copies back when the
+    run had stopped, as ``lax.cond`` skips the epoch in the JAX package.
+    The frozen epoch's draws still advance the generator.
+    """
+
+    def __init__(self, cfg: "FitConfig", state: TrainState, epoch, *,
+                 denom: int, vdenom: int, best: float, best_epoch: int,
+                 patience: int, plateau_best: float, plateau_counter: int,
+                 snapshot: dict | None):
+        model = state.model
+        self.cfg = cfg
+        self.state = state
+        self.epoch_fn = epoch
+        self.lr = traced_learning_rate(state)
+        dev = self.lr.device
+        self.denom, self.vdenom = float(denom), float(vdenom or 1)
+        f32 = dict(dtype=torch.float32, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.best = torch.tensor(best, **f32)
+        self.best_epoch = torch.tensor(best_epoch, **i64)
+        self.patience = torch.tensor(patience, **i64)
+        self.plateau_best = torch.tensor(plateau_best, **f32)
+        self.plateau_cnt = torch.tensor(plateau_counter, **i64)
+        # a resumed run that had stopped never calls this
+        self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        self.epoch = torch.zeros((), **i64)
+        self.slot = torch.zeros((), **i64)
+        k = max(int(cfg.scan_epochs), 1)
+        self.rows = torch.zeros((k, 6), dtype=torch.float64, device=dev)
+        self.row_ids = torch.arange(k, **i64)[:, None]
+        self.keys = list(model.state_dict().keys())
+        self.live_state = list(model.state_dict().values())
+        self.snap = None
+        if cfg.restore_best:
+            self.snap = [(snapshot[k] if snapshot is not None else v)
+                         .detach().clone()
+                         for k, v in zip(self.keys, self.live_state)]
+        self.frozen = None
+        self.saved = None
+
+    def begin_chunk(self, first_epoch: int) -> None:
+        self.slot.zero_()
+        self.epoch.fill_(first_epoch)
+
+    def __call__(self) -> torch.Tensor:
+        if self.frozen is not None:
+            for s, t in zip(self.saved, self.frozen):
+                s.copy_(t)
+        live = ~self.stopped
+        train_sum, val_sum = self.epoch_fn()
+        if self.frozen is None:
+            opt_state = self.state.optimizer.state
+            self.frozen = self.live_state + [
+                t for p in self.state.model.parameters() if p in opt_state
+                for t in opt_state[p].values() if isinstance(t, torch.Tensor)]
+            self.saved = [torch.empty_like(t) for t in self.frozen]
+        else:
+            for t, s in zip(self.frozen, self.saved):
+                t.copy_(torch.where(live, t, s))
+        self._control(live, train_sum / self.denom, val_sum / self.vdenom)
+        return self.rows
+
+    def _control(self, live, train_loss, val_loss) -> None:
+        cfg = self.cfg
+        monitored = train_loss if cfg.monitor == "train" else val_loss
+        lr_used = self.lr.clone()
+        if cfg.plateau_patience is not None:
+            p_imp = monitored < self.plateau_best
+            p_best = torch.minimum(monitored, self.plateau_best)
+            p_cnt = torch.where(p_imp, 0, self.plateau_cnt + 1)
+            reduce_now = p_cnt > cfg.plateau_patience
+            new_lr = torch.where(reduce_now, lr_used * cfg.plateau_factor,
+                                 lr_used)
+            p_cnt = torch.where(reduce_now, 0, p_cnt)
+            self.plateau_best.copy_(torch.where(live, p_best,
+                                                self.plateau_best))
+            self.plateau_cnt.copy_(torch.where(live, p_cnt, self.plateau_cnt))
+            self.lr.copy_(torch.where(live, new_lr, lr_used))
+        imp = live & (monitored < self.best)
+        self.best.copy_(torch.where(imp, monitored, self.best))
+        self.best_epoch.copy_(torch.where(imp, self.epoch, self.best_epoch))
+        self.patience.copy_(torch.where(
+            live, torch.where(imp, 0, self.patience + 1), self.patience))
+        self.stopped.copy_(self.patience >= cfg.patience)
+        if self.snap is not None:
+            for s, t in zip(self.snap, self.live_state):
+                s.copy_(torch.where(imp, t, s))
+        zero = torch.zeros((), dtype=torch.float64, device=live.device)
+        row = torch.stack([
+            torch.where(live, train_loss.double(), zero),
+            torch.where(live, val_loss.double(), zero),
+            torch.where(live, lr_used, zero),
+            live.double(), self.stopped.double(),
+            self.best_epoch.double()])
+        self.rows.copy_(torch.where(self.row_ids == self.slot, row, self.rows))
+        self.slot.add_(1)
+        self.epoch.add_(1)
+
+    def counters(self) -> dict:
+        """The counters as the checkpoint's metadata takes them (one host
+        read)."""
+        v = torch.stack([self.best.double(), self.best_epoch.double(),
+                         self.patience.double(), self.plateau_best.double(),
+                         self.plateau_cnt.double()]).cpu().tolist()
+        return {"best": v[0], "best_epoch": int(v[1]),
+                "patience_counter": int(v[2]), "plateau_best": v[3],
+                "plateau_counter": int(v[4])}
+
+    def best_state(self) -> dict:
+        return dict(zip(self.keys, self.snap))
+
+
 def fit(
     state: TrainState,
     loss_fn: LossFn,
@@ -228,13 +523,17 @@ def fit(
     mesh=None,
     loss_reduction: str = "mean",
 ) -> FitResult:
-    """Train ``state`` with per-epoch host control flow.
+    """Train ``state``; the control runs between epochs on the host, or
+    with ``cfg.scan_epochs > 1`` on the device, K epochs per host read.
 
     ``train_data``/``val_data`` are tuples of equal-length tensors on the
     model's device — or, with ``cfg.host_stream``, of host arrays (numpy,
     ``np.memmap``, ``RowView``); batches index dim 0.  The shuffles,
     dropout masks and reparameterisation noise come from one
     ``torch.Generator`` on the model's device, seeded with ``cfg.seed``.
+    On a card the resident epoch is one CUDA graph replay after the first
+    (:class:`CapturedEpoch`); ``loss_fn`` must then read nothing on the
+    host, or the capture raises.
 
     With ``mesh`` (a ``DeviceMesh`` whose first axis, the data axis, has
     D > 1 ranks; every rank calls ``fit`` with the same data) each rank
@@ -246,6 +545,10 @@ def fit(
     for CVAE/Hybrid) so the gradient reduction matches single-device
     semantics.  Rows beyond a multiple of D (at most D - 1) are dropped
     with a ``dp_trim`` log entry.
+
+    ``history["epoch_seconds"]`` (the port's own) holds each epoch's wall
+    time up to its host read; under ``scan_epochs > 1`` an epoch gets its
+    chunk's wall time over the epochs that ran in the chunk.
     """
     if cfg.monitor == "val" and val_data is None:
         raise ValueError("FitConfig.monitor='val' requires val_data")
@@ -270,6 +573,7 @@ def fit(
     if dp:
         n, train_data, n_batches = _dp_blocks(mesh, dp_axis, train_data, bs,
                                               logger, "dropped_train_rows")
+    n_val = val_batches = 0
     if val_data is not None:
         val_data = tuple(val_data)
         n_val = int(val_data[0].shape[0])
@@ -287,9 +591,10 @@ def fit(
     # rank 0 of a process group writes the checkpoints, also where the
     # ranks train unsharded copies (a batch that does not divide over D)
     writer = not dist.is_initialized() or dist.get_rank() == 0
-    if cfg.scan_epochs > 1 and logger is not None:
+    if cfg.scan_epochs > 1 and (dp or stream) and logger is not None:
         logger.log("scan_epochs_ignored",
-                   reason="the port runs one epoch per host-loop step")
+                   reason="dp mesh epoch active" if dp
+                   else "host_stream epoch active")
 
     history: dict[str, list[float]] = {"train_loss": [], "val_loss": [],
                                        "lr": [], "epoch_seconds": []}
@@ -302,7 +607,6 @@ def fit(
     lr = get_learning_rate(state)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     t0 = time.time()
-    total_steps = 0
     epoch = -1                     # the last epoch run
 
     if cfg.checkpoint_dir and cfg.resume:
@@ -328,99 +632,111 @@ def fit(
             if logger is not None:
                 logger.log("resume_training", from_epoch=epoch + 1)
     # a run that had stopped early before its last save stays stopped
-    start_epoch = (cfg.epochs if epoch >= 0 and patience_counter >= cfg.patience
-                   else epoch + 1)
+    stopped = epoch >= 0 and patience_counter >= cfg.patience
+    denom = n_batches if cfg.loss_normalizer == "per_batch" else n
+    vdenom = val_batches if cfg.loss_normalizer == "per_batch" else n_val
+    run_epoch = None
+    if not (dp or stream):
+        run_epoch = resident_epoch(model, optimizer, loss_fn, train_data,
+                                   val_data, bs, gen)
+        if cfg.scan_epochs > 1:
+            ctl = _DeviceControl(
+                cfg, state, run_epoch, denom=denom, vdenom=vdenom,
+                best=best, best_epoch=best_epoch, patience=patience_counter,
+                plateau_best=plateau_best, plateau_counter=plateau_counter,
+                snapshot=best_snapshot)
+            return _fit_chunked(
+                state, cfg, ctl, gen, dev, history, start_epoch=epoch + 1,
+                stopped=stopped, best_epoch=best_epoch,
+                had_snapshot=best_snapshot is not None, n_batches=n_batches,
+                has_val=val_data is not None, logger=logger, writer=writer,
+                t0=t0)
+        run_epoch = _epoch_runner(run_epoch, gen, dev, bs)
 
-    for epoch in range(start_epoch, cfg.epochs):
-        t_epoch = time.perf_counter()
-        if dp:
-            state, loss_sum, val_total = dp_epoch(
-                state, cfg.seed * 1_000_003 + epoch, *train_data,
-                *(val_data or ()))
-        else:
-            perm = torch.randperm(n, generator=gen, device=dev)
-            model.train()
-            batches = (_host_batches(stager, train_data, bs,
-                                     perm.cpu().numpy())
-                       if stream else
-                       _resident_batches(tuple(d[perm] for d in train_data),
-                                         bs))
-            loss_sum = _loss_sum(model, loss_fn, batches, dev, gen, True,
-                                 optimizer)
-            val_total = None
-            if val_data is not None:
-                model.eval()
-                batches = (_host_batches(stager, val_data, bs) if stream
-                           else _resident_batches(val_data, bs))
-                val_total = _loss_sum(model, loss_fn, batches, dev, gen,
-                                      False)
-        total_steps += n_batches
-
-        denom = n_batches if cfg.loss_normalizer == "per_batch" else n
-        train_loss = float(loss_sum) / denom
-        history["train_loss"].append(train_loss)
-        history["lr"].append(lr)
-        if val_data is not None:
-            vdenom = val_batches if cfg.loss_normalizer == "per_batch" else n_val
-            val_loss = float(val_total) / vdenom
-            history["val_loss"].append(val_loss)
-        monitored = train_loss if cfg.monitor == "train" else val_loss
-        # the float() above waited for the epoch's last step
-        history["epoch_seconds"].append(time.perf_counter() - t_epoch)
-
-        # ReduceLROnPlateau on the monitored loss
-        if cfg.plateau_patience is not None:
-            if monitored < plateau_best:
-                plateau_best = monitored
-                plateau_counter = 0
-            else:
-                plateau_counter += 1
-                if plateau_counter > cfg.plateau_patience:
-                    lr *= cfg.plateau_factor
-                    set_learning_rate(state, lr)
-                    plateau_counter = 0
-
-        # early stopping + best tracking
-        if monitored < best:
-            best = monitored
-            best_epoch = epoch
-            patience_counter = 0
-            if cfg.restore_best:
-                best_snapshot = {k: v.detach().clone()
-                                 for k, v in model.state_dict().items()}
-                if cfg.checkpoint_dir and writer:
-                    save_checkpoint(Path(cfg.checkpoint_dir) / "best",
-                                    best_snapshot,
-                                    {"epoch": epoch, "monitored": monitored})
-        else:
-            patience_counter += 1
-
-        if logger is not None and (epoch + 1) % cfg.log_every == 0:
-            logger.log(
-                "epoch", epoch=epoch + 1, train_loss=train_loss,
-                val_loss=history["val_loss"][-1] if val_data is not None else None,
-                lr=lr,
-            )
-        if cfg.checkpoint_dir and (epoch + 1) % cfg.checkpoint_every == 0:
-            t_save = time.perf_counter()
-            if writer:
-                saved = CheckpointManager(
-                    cfg.checkpoint_dir, cfg.checkpoint_keep).save(
-                    state,
-                    {"epoch": epoch, "best": best, "best_epoch": best_epoch,
-                     "patience_counter": patience_counter,
-                     "plateau_best": plateau_best,
-                     "plateau_counter": plateau_counter, "lr": lr,
-                     "history": history},
-                    step=epoch, generator=gen)
-                if logger is not None:
-                    logger.log("checkpoint_saved", dir=str(saved),
-                               epoch=epoch,
-                               seconds=time.perf_counter() - t_save)
+    total_steps = 0
+    host_reads = 0
+    try:
+        for epoch in range(cfg.epochs if stopped else epoch + 1, cfg.epochs):
+            t_epoch = time.perf_counter()
             if dp:
-                dist.barrier()      # every rank sees the checkpoint
-        if patience_counter >= cfg.patience:
-            break
+                state, loss_sum, val_total = dp_epoch(
+                    state, cfg.seed * 1_000_003 + epoch, *train_data,
+                    *(val_data or ()))
+            elif stream:
+                perm = torch.randperm(n, generator=gen, device=dev)
+                model.train()
+                loss_sum = _loss_sum(
+                    model, loss_fn,
+                    _host_batches(stager, train_data, bs, perm.cpu().numpy()),
+                    dev, gen, True, optimizer)
+                val_total = torch.zeros((), device=dev)
+                if val_data is not None:
+                    model.eval()
+                    val_total = _loss_sum(model, loss_fn,
+                                          _host_batches(stager, val_data, bs),
+                                          dev, gen, False)
+            else:
+                loss_sum, val_total = run_epoch()
+            total_steps += n_batches
+
+            # ONE host read for both sums
+            sums = torch.stack([loss_sum, val_total]).double().cpu().tolist()
+            host_reads += 1
+            train_loss = sums[0] / denom
+            history["train_loss"].append(train_loss)
+            history["lr"].append(lr)
+            if val_data is not None:
+                val_loss = sums[1] / vdenom
+                history["val_loss"].append(val_loss)
+            monitored = train_loss if cfg.monitor == "train" else val_loss
+            history["epoch_seconds"].append(time.perf_counter() - t_epoch)
+
+            # ReduceLROnPlateau on the monitored loss
+            if cfg.plateau_patience is not None:
+                if monitored < plateau_best:
+                    plateau_best = monitored
+                    plateau_counter = 0
+                else:
+                    plateau_counter += 1
+                    if plateau_counter > cfg.plateau_patience:
+                        lr *= cfg.plateau_factor
+                        set_learning_rate(state, lr)
+                        plateau_counter = 0
+
+            # early stopping + best tracking
+            if monitored < best:
+                best = monitored
+                best_epoch = epoch
+                patience_counter = 0
+                if cfg.restore_best:
+                    best_snapshot = {k: v.detach().clone()
+                                     for k, v in model.state_dict().items()}
+                    if cfg.checkpoint_dir and writer:
+                        save_checkpoint(Path(cfg.checkpoint_dir) / "best",
+                                        best_snapshot,
+                                        {"epoch": epoch,
+                                         "monitored": monitored})
+            else:
+                patience_counter += 1
+
+            if logger is not None and (epoch + 1) % cfg.log_every == 0:
+                logger.log(
+                    "epoch", epoch=epoch + 1, train_loss=train_loss,
+                    val_loss=(history["val_loss"][-1]
+                              if val_data is not None else None),
+                    lr=lr,
+                )
+            if cfg.checkpoint_dir and (epoch + 1) % cfg.checkpoint_every == 0:
+                _save(cfg, state, gen, logger, writer, dp, epoch,
+                      {"best": best, "best_epoch": best_epoch,
+                       "patience_counter": patience_counter,
+                       "plateau_best": plateau_best,
+                       "plateau_counter": plateau_counter, "lr": lr,
+                       "history": history})
+            if patience_counter >= cfg.patience:
+                break
+    finally:
+        _release(run_epoch, optimizer)
 
     if cfg.restore_best and best_snapshot is not None:
         model.load_state_dict(best_snapshot)
@@ -432,6 +748,103 @@ def fit(
         best_epoch=best_epoch,
         stopped_epoch=epoch,
         steps_per_sec=total_steps / max(elapsed, 1e-9),
+        host_reads=host_reads,
+    )
+
+
+def _save(cfg: FitConfig, state: TrainState, gen, logger, writer: bool,
+          dp: bool, epoch: int, meta: dict) -> None:
+    """The rotation checkpoint of ``epoch`` (``meta``: the loop's counters
+    and history), written by rank 0; every rank of a mesh waits for it."""
+    t_save = time.perf_counter()
+    if writer:
+        saved = CheckpointManager(
+            cfg.checkpoint_dir, cfg.checkpoint_keep).save(
+            state, {"epoch": epoch, **meta}, step=epoch, generator=gen)
+        if logger is not None:
+            logger.log("checkpoint_saved", dir=str(saved), epoch=epoch,
+                       seconds=time.perf_counter() - t_save)
+    if dp:
+        dist.barrier()      # every rank sees the checkpoint
+
+
+def _fit_chunked(state: TrainState, cfg: FitConfig, ctl: _DeviceControl,
+                 gen, dev, history, *, start_epoch: int, stopped: bool,
+                 best_epoch: int, had_snapshot: bool, n_batches: int,
+                 has_val: bool, logger, writer: bool, t0: float) -> FitResult:
+    """``cfg.scan_epochs`` epochs per host read (counterpart of
+    ``tpuvae/train/loop.py:483-663``): each epoch is one call of ``ctl`` (a
+    CUDA graph replay on a card), the K epochs of a chunk run back to back,
+    or fewer in the budget's last chunk, and the host reads the chunk's
+    rows once.  Epochs past the stop point change nothing, so the state
+    returned is the state at the stopping epoch."""
+    k_chunk = int(cfg.scan_epochs)
+    initial_best_epoch = best_epoch
+    run = _epoch_runner(ctl, gen, dev, cfg.batch_size)
+    total_steps = 0
+    host_reads = 0
+    epoch = start_epoch - 1
+    next_epoch = start_epoch
+    written_best = best_epoch
+    try:
+        while next_epoch < cfg.epochs and not stopped:
+            t_chunk = time.perf_counter()
+            k_run = min(k_chunk, cfg.epochs - next_epoch)
+            ctl.begin_chunk(next_epoch)
+            for _ in range(k_run):
+                rows = run()
+            rows = rows[:k_run].cpu().tolist()     # ONE host read / chunk
+            host_reads += 1
+            ran = 0
+            for i, (tl, vl, lr, live, stf, _) in enumerate(rows):
+                if not live:
+                    break
+                ran += 1
+                epoch = next_epoch + i
+                history["train_loss"].append(tl)
+                history["lr"].append(lr)
+                if has_val:
+                    history["val_loss"].append(vl)
+                total_steps += n_batches
+                if logger is not None and (epoch + 1) % cfg.log_every == 0:
+                    logger.log("epoch", epoch=epoch + 1, train_loss=tl,
+                               val_loss=vl if has_val else None, lr=lr)
+                if stf:
+                    stopped = True
+                    break
+            best_epoch = int(rows[-1][5])
+            chunk_s = time.perf_counter() - t_chunk
+            history["epoch_seconds"].extend([chunk_s / max(ran, 1)] * ran)
+            if cfg.checkpoint_dir and ((epoch + 1) // cfg.checkpoint_every
+                                       > next_epoch // cfg.checkpoint_every):
+                counters = ctl.counters()
+                host_reads += 1
+                _save(cfg, state, gen, logger, writer, False, epoch,
+                      {**counters, "lr": get_learning_rate(state),
+                       "history": history})
+                moved = counters["best_epoch"] > written_best
+                if ctl.snap is not None and moved:
+                    written_best = counters["best_epoch"]
+                    if writer:
+                        save_checkpoint(Path(cfg.checkpoint_dir) / "best",
+                                        ctl.best_state(),
+                                        {"epoch": written_best,
+                                         "monitored": counters["best"]})
+            next_epoch += k_chunk
+    finally:
+        _release(run, state.optimizer)
+
+    if ctl.snap is not None and (had_snapshot
+                                 or best_epoch > initial_best_epoch):
+        state.model.load_state_dict(ctl.best_state())
+    elapsed = time.time() - t0
+    return FitResult(
+        state=state,
+        history=history,
+        best_epoch=best_epoch,
+        stopped_epoch=epoch,
+        steps_per_sec=total_steps / max(elapsed, 1e-9),
+        host_reads=host_reads,
     )
 
 
