@@ -189,7 +189,19 @@ Phases (any failure exits non-zero, and no result line is printed):
     eagerly from a copy of the state and generator (losses and weights,
     the Simple VAE's bit-equal), both timed per epoch and per step in
     alternating rounds;
-22. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
+22. the compiled loops as CUDA graphs, each against the same step
+    functions run eagerly: ``tsne`` on phase 12's 1,336 x 128 latents (P
+    and the embedding bit-equal, kernel 5 1,001 times per embedding both
+    ways, seconds per embedding); in phase 20's NCCL child, 3 epochs of
+    the Hybrid's ``make_dp_epoch`` on 256 rows through ``dp_epoch_runner``
+    (totals and weights bit-equal under deterministic algorithms, kernel 6
+    per replay, the ``dp_epoch_graph`` log line; the gloo child's ``fit``
+    logs its eager choice); ``fit(host_stream=True)`` of the Hybrid on
+    phase 7's 186 clips for 3 epochs (losses and weights bit-equal under
+    deterministic algorithms, kernel 6 per replay, seconds per epoch);
+    ``torch.cuda.memory_reserved`` before each graph, after it and after
+    its ``close()``;
+23. print the ``kernels`` JSON line (kernel 1 once per timed geometry),
     then the ``ok`` line last.
 """
 
@@ -3005,7 +3017,10 @@ def mesh_nccl_checks(torch, ctx) -> dict:
     out["dp_epoch"] = {"rows": MESH_ROWS, "batch": BATCH, "steps": steps,
                        "loss_sum": loss, "plain_loss_sum": total,
                        "launches": counts, "seconds": dp_s}
-    del state, ref, mel, text
+    del state, ref
+    out["dp_graph"] = dp_epoch_graphs(torch, ctx, mel, text, hybrid_state,
+                                      obj)
+    del mel, text
 
     x, groups = planted_latents()
     lab, k = compact_labels(groups)
@@ -3083,13 +3098,24 @@ def mesh_gloo_checks(torch, ctx) -> dict:
         size=(MESH_AE_ROWS, 12)).astype(np.float32)).to(dev)
     cfg = FitConfig(epochs=3, batch_size=MESH_AE_ROWS, patience=99, seed=0)
 
+    events = []
+
+    class Events:
+        def log(self, event, **fields):
+            events.append([event, fields])
+
     def ae_fit(mesh):
         model = SimpleAutoencoder(input_dim=12, latent_dim=4,
                                   generator=torch.Generator().manual_seed(0))
         return fit(create_state(model.to(dev), 1e-3), autoencoder_objective(),
-                   (x,), cfg, mesh=mesh, loss_reduction="mean")
+                   (x,), cfg, mesh=mesh, loss_reduction="mean",
+                   logger=Events() if mesh is not None else None)
 
     dp, dp_s = synced_s(torch, lambda: ae_fit(ctx.mesh))
+    decision = [f for e, f in events if e == "dp_epoch_graph"]
+    check(len(decision) == 1 and decision[0]["graph"] is False
+          and decision[0]["reason"].startswith("gloo on cuda"),
+          f"gloo DP fit on the card: dp_epoch_graph {decision}")
     one = ae_fit(None)
     np.testing.assert_allclose(dp.history["train_loss"],
                                one.history["train_loss"], rtol=1e-5)
@@ -3101,7 +3127,8 @@ def mesh_gloo_checks(torch, ctx) -> dict:
         digest.update(a.cpu().numpy().tobytes())
     out["ae_fit"] = {"train_loss": dp.history["train_loss"],
                      "single_rank_train_loss": one.history["train_loss"],
-                     "params_sha256": digest.hexdigest(), "seconds": dp_s}
+                     "params_sha256": digest.hexdigest(), "seconds": dp_s,
+                     "dp_epoch_graph": decision[0]}
 
     xs, groups = planted_latents()
     lab, k = compact_labels(groups)
@@ -3346,8 +3373,9 @@ def graph_against_eager(torch, dev, name: str, build, loss_fn, train, val,
     alternating graph, eager, eager, graph)."""
     import copy
 
+    from tpuvae_torch.graphs import CapturedGraph
     from tpuvae_torch.parity import deterministic_algorithms
-    from tpuvae_torch.train.loop import CapturedEpoch, resident_epoch
+    from tpuvae_torch.train.loop import resident_epoch
     from tpuvae_torch.train.state import (create_state, get_learning_rate,
                                           load_optimizer_state)
 
@@ -3355,9 +3383,9 @@ def graph_against_eager(torch, dev, name: str, build, loss_fn, train, val,
         model = build()
         state = create_state(model, 1e-4)
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        graphed = CapturedEpoch(resident_epoch(
+        graphed = CapturedGraph(resident_epoch(
             model, state.optimizer, loss_fn, train, val, batch, gen),
-            gen, dev, batch)
+            dev, generator=gen, reserve_batch=batch)
         t0 = time.perf_counter()
         graphed()               # the first epoch, eager
         torch.cuda.synchronize()
@@ -3462,6 +3490,276 @@ def scanned_epochs_path(torch, dev, work: Path, data2: Path) -> dict:
                               ).to(dev),
             hybrid_objective(1.0, 350.0), train, val, BATCH)
     log(f"card: {card_line()}")
+    return out
+
+
+# -- phase 22: the compiled loops ----------------------------------------------
+
+LOOPS_EPOCHS = 3          # epochs of the DP and host_stream fits, both ways
+LOOPS_TIMED_EPOCHS = 5    # the timed pairs: the last three are replays
+
+
+@contextlib.contextmanager
+def eager_graphs():
+    """Within, ``graphs.runner`` returns the function it is given: every
+    loop runs its step functions eagerly on the card, the graphs' eager
+    reference."""
+    from unittest import mock
+
+    from tpuvae_torch import graphs
+
+    with mock.patch.object(graphs, "runner", lambda fn, device, **kw: fn):
+        yield
+
+
+@contextlib.contextmanager
+def graph_memory(torch, dev):
+    """Within, each ``CapturedGraph`` adds a row: its name and
+    ``torch.cuda.memory_reserved`` before its capture, after it and after
+    its ``close()`` (MB)."""
+    from unittest import mock
+
+    from tpuvae_torch import graphs
+
+    rows = []
+    capture, close = graphs.CapturedGraph._capture, graphs.CapturedGraph.close
+
+    def mb():
+        return torch.cuda.memory_reserved(dev) / 2**20
+
+    def capturing(self):
+        before = mb()
+        capture(self)
+        self.memory_row = {"graph": self.what, "before_mb": before,
+                           "after_capture_mb": mb()}
+        rows.append(self.memory_row)
+
+    def closing(self):
+        close(self)
+        if hasattr(self, "memory_row"):
+            self.memory_row["after_close_mb"] = mb()
+
+    with mock.patch.object(graphs.CapturedGraph, "_capture", capturing), \
+            mock.patch.object(graphs.CapturedGraph, "close", closing):
+        yield rows
+
+
+def tsne_graphs(torch, dev) -> dict:
+    """Phase 22, t-SNE on phase 12's 1,336 x 128 latents: the perplexity
+    search (one graph of 50 bisection steps) and ``tsne`` (graphs of 50
+    steps) against the same step functions run eagerly
+    (:func:`eager_graphs`): P and the embedding bit-equal, kernel 5 1,001
+    times per embedding both ways, seconds per embedding (host clock,
+    ``tsne`` returns on the host; rounds graph, eager, eager, graph), the
+    memory reserved around each graph and around each embedding."""
+    import importlib
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.metrics.pairwise import squared_distances
+
+    tsne_mod = importlib.import_module("tpuvae_torch.viz.tsne")
+    x, _ = planted_latents()
+    xc = torch.from_numpy(x).to(dev)
+    d2 = squared_distances(xc, xc)
+    with graph_memory(torch, dev) as memory:
+        p_graph = tsne_mod._calibrated_p(d2, 30.0)
+    with eager_graphs():
+        p_eager = tsne_mod._calibrated_p(d2, 30.0)
+    check(torch.equal(p_graph, p_eager),
+          "t-SNE: the graphed P differs from the eager P")
+    del xc, d2, p_graph, p_eager
+
+    def one(graphed):
+        ops.reset_launch_counts()
+        reserved = torch.cuda.memory_reserved(dev) / 2**20
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if graphed else eager_graphs():
+            emb = tsne_mod.tsne(x, device=dev)
+        return (emb, time.perf_counter() - t0, ops.launch_counts()["pairwise"],
+                [reserved, torch.cuda.memory_reserved(dev) / 2**20])
+
+    out = {"n": N_TRAIN, "d": HYBRID_LATENT, "seconds": {"graph": [],
+                                                         "eager": []},
+           "launches": {"graph": [], "eager": []},
+           "reserved_mb_around": {"graph": [], "eager": []}}
+    embs = {}
+    for kind in ("graph", "eager", "eager", "graph"):
+        with graph_memory(torch, dev) as rows:
+            emb, secs, k5, around = one(kind == "graph")
+        memory.extend(rows)
+        embs.setdefault(kind, emb)
+        check(np.array_equal(emb, embs[kind]),
+              f"t-SNE {kind}: two runs differ")
+        out["seconds"][kind].append(secs)
+        out["launches"][kind].append(k5)
+        out["reserved_mb_around"][kind].append(around)
+    check(np.array_equal(embs["graph"], embs["eager"]),
+          "t-SNE: the graphed embedding differs from the eager one")
+    check(out["launches"]["graph"] == out["launches"]["eager"] == [1001] * 2,
+          f"t-SNE: kernel 5 launches {out['launches']}, 1,001 expected")
+    check(np.isfinite(embs["graph"]).all()
+          and embs["graph"].shape == (N_TRAIN, 2), "t-SNE embedding")
+    out["graph_memory"] = memory
+    out["ms_per_embedding"] = {k: 1e3 * statistics.mean(v)
+                               for k, v in out["seconds"].items()}
+    log(f"compiled loops, t-SNE at {N_TRAIN} x {HYBRID_LATENT}: P and the "
+        f"embedding bit-equal graphed and eager, kernel 5 1,001 launches "
+        f"each; {out['ms_per_embedding']['graph']:.1f} ms graphed, "
+        f"{out['ms_per_embedding']['eager']:.1f} ms eager per embedding")
+    return out
+
+
+def dp_epoch_graphs(torch, ctx, mel, text, hybrid_state, obj) -> dict:
+    """Phase 22 in phase 20's NCCL child (world size 1): the Hybrid's
+    ``make_dp_epoch`` on ``MESH_ROWS`` rows for ``LOOPS_EPOCHS`` epochs
+    through ``dp_epoch_runner`` (the runner ``fit``'s data-parallel branch
+    builds; ``fit`` itself takes that branch only at D > 1, as the JAX
+    package's), seeded per epoch as ``fit`` seeds it, against the same
+    epochs through ``DPEpoch.run`` eagerly: under deterministic algorithms
+    the totals and the weights bit-equal, kernel 6 once per step through
+    the replays; with the default algorithms both timed per epoch."""
+    import functools
+
+    from tpuvae_torch import graphs, ops
+    from tpuvae_torch.parallel import make_dp_epoch
+    from tpuvae_torch.parity import deterministic_algorithms
+    from tpuvae_torch.train.loop import dp_epoch_runner
+
+    dev = ctx.device
+
+    class Events:
+        def __init__(self):
+            self.events = []
+
+        def log(self, event, **fields):
+            self.events.append([event, fields])
+
+    def epochs(graphed, n_epochs=LOOPS_EPOCHS):
+        state = hybrid_state()
+        ep = make_dp_epoch(obj, ctx.mesh, batch_size=BATCH,
+                           n_local=MESH_ROWS, n_train_arrays=2,
+                           loss_reduction="sum")
+        log_ = Events()
+        run = (dp_epoch_runner(ep, state, (mel, text), dev, log_) if graphed
+               else functools.partial(ep.run, state, mel, text))
+        totals, secs = [], []
+        ops.reset_launch_counts()
+        try:
+            for e in range(n_epochs):
+                ep.seed(SEED * 1_000_003 + e, dev)
+                sums, s = synced_s(torch, run)
+                totals.append([float(t) for t in sums])
+                secs.append(s)
+        finally:
+            state.optimizer.zero_grad(set_to_none=True)
+            graphs.close(run)
+        return state, totals, secs, ops.launch_counts(), log_.events
+
+    out = {"rows": MESH_ROWS, "epochs": LOOPS_EPOCHS}
+    with deterministic_algorithms() as nondeterministic:
+        with graph_memory(torch, dev) as memory:
+            g_state, g_totals, _, counts, events = epochs(True)
+        e_state, e_totals, _, _, _ = epochs(False)
+    same = all(torch.equal(a, b) for a, b in zip(
+        g_state.model.state_dict().values(),
+        e_state.model.state_dict().values()))
+    check(g_totals == e_totals and same and not nondeterministic,
+          f"graphed DP epoch: totals {g_totals} against eager {e_totals}, "
+          f"weights equal {same} ({nondeterministic})")
+    check(events == [["dp_epoch_graph", {"graph": True,
+                                         "reason": "nccl on cuda"}]],
+          f"dp_epoch_graph log {events}")
+    steps = MESH_ROWS // BATCH
+    check(counts["fusedconv_conv0"] == counts["fusedconv_conv1"]
+          == steps * LOOPS_EPOCHS,
+          f"graphed DP epochs: kernel 6 {counts}, {steps * LOOPS_EPOCHS} "
+          f"expected")
+    del g_state, e_state
+    _, _, g_secs, _, _ = epochs(True, LOOPS_TIMED_EPOCHS)
+    _, _, e_secs, _, _ = epochs(False, LOOPS_TIMED_EPOCHS)
+    out.update(totals=g_totals, launches=counts, log=events,
+               graph_memory=memory, graph_epoch_s=g_secs,
+               eager_epoch_s=e_secs)
+    return out
+
+
+def host_stream_graphs(torch, dev, data2: Path) -> dict:
+    """Phase 22, ``fit(host_stream=True)`` of the Hybrid VAE at
+    ``HybridVAEConfig()``'s widths on phase 7's 186 clips (the 15% split
+    of phase 21), ``LOOPS_EPOCHS`` epochs, its steps as graphs against the
+    same ``fit`` with every step eager (:func:`eager_graphs`): under
+    deterministic algorithms the losses and the weights bit-equal and
+    kernel 6 once per batch through the replays; with the default
+    algorithms both fits' epoch seconds."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.io.artifacts import load_advanced
+    from tpuvae_torch.models import HybridVAE
+    from tpuvae_torch.parity import deterministic_algorithms
+    from tpuvae_torch.train import (FitConfig, create_state, fit,
+                                    hybrid_objective)
+    from tpuvae_torch.train.loop import train_val_split
+
+    data = load_advanced(data2)
+    mel = np.asarray(data["mel"], np.float32)[..., None]
+    text = np.asarray(data["text"], np.float32)
+    tr, va = train_val_split(len(mel), 0.15, SEED)
+    train, val = (mel[tr], text[tr]), (mel[va], text[va])
+
+    def one(graphed, epochs=LOOPS_EPOCHS, stream=True):
+        model = HybridVAE(input_hw=MEL_HW,
+                          generator=torch.Generator().manual_seed(SEED)
+                          ).to(dev)
+        cfg = FitConfig(epochs=epochs, batch_size=BATCH, patience=100,
+                        monitor="val", host_stream=stream, seed=SEED)
+        place = ((lambda d: d) if stream
+                 else (lambda d: tuple(torch.from_numpy(a).to(dev)
+                                       for a in d)))
+        ops.reset_launch_counts()
+        with contextlib.nullcontext() if graphed else eager_graphs():
+            res = fit(create_state(model, 1e-4), hybrid_objective(1.0, 350.0),
+                      place(train), cfg, val_data=place(val))
+        return (res.history, ops.launch_counts(),
+                [t.detach().clone() for t in model.state_dict().values()])
+
+    with deterministic_algorithms() as nondeterministic:
+        with graph_memory(torch, dev) as memory:
+            g_hist, counts, g_w = one(True)
+        e_hist, _, e_w = one(False)
+    same = all(torch.equal(a, b) for a, b in zip(g_w, e_w))
+    check(g_hist["train_loss"] == e_hist["train_loss"]
+          and g_hist["val_loss"] == e_hist["val_loss"] and same
+          and not nondeterministic,
+          f"graphed host_stream fit: losses {g_hist['train_loss']} / "
+          f"{g_hist['val_loss']} against eager {e_hist['train_loss']} / "
+          f"{e_hist['val_loss']}, weights equal {same} ({nondeterministic})")
+    check(all(np.isfinite(g_hist["train_loss"] + g_hist["val_loss"])),
+          "host_stream losses not finite")
+    batches = -(-len(tr) // BATCH) + -(-len(va) // BATCH)
+    check(counts["fusedconv_conv0"] == counts["fusedconv_conv1"]
+          == batches * LOOPS_EPOCHS,
+          f"graphed host_stream fit: kernel 6 {counts}, "
+          f"{batches * LOOPS_EPOCHS} expected")
+    del g_w, e_w
+    g_hist2, _, _ = one(True, LOOPS_TIMED_EPOCHS)
+    e_hist2, _, _ = one(False, LOOPS_TIMED_EPOCHS)
+    # the resident epoch's graph (PR 17's) on the same data, for its memory
+    reserved = [torch.cuda.memory_reserved(dev) / 2**20]
+    with graph_memory(torch, dev) as resident:
+        one(True, stream=False)
+    reserved.append(torch.cuda.memory_reserved(dev) / 2**20)
+    out = {"clips": len(mel), "train": len(tr), "val": len(va),
+           "batches_per_epoch": batches, "train_loss": g_hist["train_loss"],
+           "val_loss": g_hist["val_loss"], "launches": counts,
+           "graph_memory": memory,
+           "graph_epoch_s": g_hist2["epoch_seconds"],
+           "eager_epoch_s": e_hist2["epoch_seconds"],
+           "resident_fit_graph_memory": resident,
+           "resident_fit_reserved_mb_around": reserved}
+    log(f"compiled loops, host_stream Hybrid fit ({len(tr)} + {len(va)} "
+        f"clips, {LOOPS_EPOCHS} epochs): losses and weights bit-equal "
+        f"graphed and eager; kernel 6 {counts['fusedconv_conv1']} launches; "
+        f"epoch s graphed {g_hist2['epoch_seconds']}, eager "
+        f"{e_hist2['epoch_seconds']}")
     return out
 
 
@@ -4240,6 +4538,19 @@ def run(torch, dev, work: Path, card: str) -> int:
     scanned = scanned_epochs_path(torch, dev, work, data2)
     fusedconv_row["launches_scanned_hybrid"] = (
         scanned["hybrid_fp32"]["launches"]["fusedconv_conv1"])
+
+    # ---- 22. the compiled loops: t-SNE, the DP epoch, host_stream ----------
+    loops = {"tsne": tsne_graphs(torch, dev),
+             "host_stream": host_stream_graphs(torch, dev, data2),
+             "dp_epoch_nccl": mesh["nccl"]["dp_graph"],
+             "dp_epoch_gloo": [r["ae_fit"]["dp_epoch_graph"]
+                               for r in mesh["gloo"]]}
+    k5["launches_tsne_graphed"] = loops["tsne"]["launches"]["graph"][0]
+    fusedconv_row["launches_host_stream_graphed"] = (
+        loops["host_stream"]["launches"]["fusedconv_conv1"])
+    fusedconv_row["launches_dp_epoch_graphed"] = (
+        loops["dp_epoch_nccl"]["launches"]["fusedconv_conv1"])
+    log("compiled loops: " + json.dumps(loops))
 
     log("preprocess path: " + json.dumps(pre))
     log("encode latency: " + json.dumps(encode_ms))

@@ -406,6 +406,104 @@ def scan_epochs_on_mesh(rank, ws):
                      logger=log if k == 4 else None, mesh=mesh).history
     return {"events": log.events, "history": res}
 
+# -- test_torch_graphs.py ------------------------------------------------------
+
+@case
+def dp_runner(rank, ws, x, flat, lr):
+    """The data-parallel epoch through ``dp_epoch_runner`` (the runner
+    ``fit``'s mesh branch builds), seeded per epoch as ``fit`` seeds it
+    (seed 0): the AE's full-batch losses and parameters after 3 epochs,
+    for each objective."""
+    import torch
+
+    from tpuvae_torch.parallel import make_dp_epoch, make_mesh
+    from tpuvae_torch.train import autoencoder_objective
+    from tpuvae_torch.train.loop import dp_epoch_runner
+
+    mesh = make_mesh((ws,), ("data",), device="cpu")
+    cpu = torch.device("cpu")
+    n = len(x) // ws
+    out = {}
+    for reduction in ("mean", "sum"):
+        obj = (autoencoder_objective() if reduction == "mean"
+               else _sum_ae_objective())
+        state = _ae(flat, lr)
+        ep = make_dp_epoch(obj, mesh, batch_size=len(x), n_local=n,
+                           n_train_arrays=1, loss_reduction=reduction)
+        log = _Log()
+        run = dp_epoch_runner(
+            ep, state, (torch.from_numpy(x[rank * n:(rank + 1) * n]),), cpu,
+            log)
+        losses = []
+        for epoch in range(3):
+            ep.seed(0 * 1_000_003 + epoch, cpu)
+            losses.append(float(run()[0]))
+        out[reduction] = {"losses": losses, "params": _state(state.model),
+                          "events": log.events}
+    return out
+
+
+@case
+def dp_epoch_static(rank, ws, x, v):
+    """One data-parallel epoch with a remainder step and a validation
+    pass under ``no_host_reads``; the generator that lives across epochs,
+    re-seeded at epochs 0 and 3, holds what a fresh generator seeded with
+    ``rank_seed`` holds, and draws what it draws."""
+    import torch
+
+    from _torch_host_reads import no_host_reads
+    from tpuvae_torch.models import SimpleVAE
+    from tpuvae_torch.parallel import make_dp_epoch, make_mesh
+    from tpuvae_torch.parallel.dp import rank_seed
+    from tpuvae_torch.train import (
+        FitConfig,
+        TrainState,
+        fit,
+        simple_vae_objective,
+    )
+    from tpuvae_torch.train.loop import dp_epoch_runner
+
+    mesh = make_mesh((ws,), ("data",), device="cpu")
+    model = SimpleVAE(input_dim=12, hidden_dims=(8,), latent_dim=4,
+                      generator=torch.Generator().manual_seed(0))
+    # torch's CPU Adam reads its step count on the host; on a card
+    # create_state makes it capturable, which the CPU refuses
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=1e-2))
+    n, nv = len(x) // ws, len(v) // ws
+    ep = make_dp_epoch(simple_vae_objective(0.5), mesh, batch_size=4,
+                       n_local=n, n_train_arrays=1, n_val_arrays=1,
+                       n_val_local=nv, loss_reduction="mean")
+    cpu = torch.device("cpu")
+    run = dp_epoch_runner(ep, state,
+                          (torch.from_numpy(x[rank * n:(rank + 1) * n]),
+                           torch.from_numpy(v[rank * nv:(rank + 1) * nv])),
+                          cpu)
+    same = {}
+    for epoch in range(4):
+        ep.seed(epoch, cpu)
+        if epoch in (0, 3):
+            fresh = torch.Generator().manual_seed(rank_seed(epoch, rank))
+            mine = torch.Generator()
+            mine.set_state(ep.generator(cpu).get_state())
+            same[epoch] = (
+                torch.equal(mine.get_state(), fresh.get_state())
+                and torch.equal(torch.randperm(n, generator=mine),
+                                torch.randperm(n, generator=fresh)))
+        if epoch == 1:
+            with no_host_reads():
+                sums = run()
+        else:
+            sums = run()
+    # fit over the mesh decides before its first epoch and logs it once
+    log = _Log()
+    fit(TrainState(model, torch.optim.SGD(model.parameters(), lr=1e-2)),
+        simple_vae_objective(0.5), (torch.from_numpy(x),),
+        FitConfig(epochs=2, batch_size=4, log_every=1, seed=0), mesh=mesh,
+        logger=log)
+    return {"same": same, "sums": [float(t) for t in sums],
+            "fit_events": log.events}
+
+
 def _hybrid(seed=0):
     import torch
 

@@ -1850,10 +1850,10 @@ def test_graphed_epoch_equals_the_eager_epoch(cuda):
 def _graphed_against_eager(cuda):
     from tpuvae_torch import ops
     from tpuvae_torch.ops import fusedconv
-    from tpuvae_torch.train.loop import CapturedEpoch, _capture_stream
+    from tpuvae_torch.graphs import CapturedGraph, capture_stream
 
     state, gen, epoch, data = _hybrid_epoch(cuda)
-    graphed = CapturedEpoch(epoch, gen, cuda, 16)
+    graphed = CapturedGraph(epoch, cuda, generator=gen, reserve_batch=16)
     ops.reset_launch_counts()
     first = [t.clone() for t in graphed()]        # eager
     counts = ops.launch_counts()
@@ -1872,7 +1872,7 @@ def _graphed_against_eager(cuda):
             assert torch.equal(a, b), k
     assert not torch.equal(got[0], first[0])
     # the kernels hand their tickets back as 0: no replay needs a memset
-    with torch.cuda.stream(_capture_stream(cuda)):
+    with torch.cuda.stream(capture_stream(cuda)):
         tickets = fusedconv.reserve_tickets(cuda, 16)
     assert int(tickets.count_nonzero()) == 0
     for p, q in zip(state.model.parameters(), clone.model.parameters()):
@@ -1887,7 +1887,7 @@ def test_replays_draw_new_dropout_masks(cuda):
     and each equals the eager forward from the generator's state before
     it."""
     from tpuvae_torch.models import SimpleVAE
-    from tpuvae_torch.train.loop import CapturedEpoch
+    from tpuvae_torch.graphs import CapturedGraph
 
     model = SimpleVAE(generator=torch.Generator().manual_seed(2)).to(cuda)
     model.train()
@@ -1898,7 +1898,8 @@ def test_replays_draw_new_dropout_masks(cuda):
         with torch.no_grad():
             return (model(x, generator=g)[0],)
 
-    graphed = CapturedEpoch(lambda: forward(gen), gen, cuda, 32)
+    graphed = CapturedGraph(lambda: forward(gen), cuda, generator=gen,
+                            reserve_batch=32)
     graphed()
     outs = []
     for _ in range(2):
@@ -2020,3 +2021,300 @@ def test_a_loss_that_reads_the_host_fails_the_capture(cuda, tmp_path):
     assert line[0].startswith("RAISED 3 capturing the epoch as a CUDA graph "
                               "failed at "), line[0]
     assert "calls.append(loss.item())" in line[0], line[0]
+
+
+# -- the compiled loops: t-SNE, the data-parallel epoch, host_stream ------------
+
+def test_graphed_tsne_equals_the_eager_loop(cuda):
+    """The perplexity search (one graph of 50 bisection steps) and the
+    descent (graphs of 50 steps and of one, at 130 steps with 60
+    exaggerated: neither phase a multiple of 50) bit-equal to the same
+    step functions run eagerly; kernel 5 once per step through the
+    replays."""
+    import importlib
+
+    from tpuvae_torch import ops
+    from tpuvae_torch.metrics.pairwise import squared_distances
+
+    tsne_mod = importlib.import_module("tpuvae_torch.viz.tsne")
+    x, _ = _planted_latents()
+    xc = torch.from_numpy(x[:400]).to(cuda)
+    d2 = squared_distances(xc, xc)
+    p = tsne_mod._calibrated_p(d2, 30.0)
+    cal = tsne_mod._Calibration(d2, 30.0)
+    for _ in range(tsne_mod.BISECTION_STEPS):
+        cal.step()
+    assert torch.equal(p, cal.p())
+    y0 = 1e-4 * torch.randn((400, 2), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    ops.reset_launch_counts()
+    got = tsne_mod._tsne_optimize(p, y0, 50.0, n_iter=130,
+                                  exaggeration_iters=60)
+    assert ops.launch_counts()["pairwise"] == 130
+    desc = tsne_mod._Descent(p, y0, 50.0)
+    for i in range(130):
+        desc.phase(i < 60)
+        desc.step()
+    assert torch.equal(got, desc.y)
+
+
+class _Events:
+    def __init__(self):
+        self.events = []
+
+    def log(self, event, **fields):
+        self.events.append((event, fields))
+
+
+def test_graphed_dp_epoch_over_nccl_equals_the_eager_epoch(cuda, nccl_mesh):
+    """``dp_epoch_runner`` over one NCCL rank: the epoch is a graph (logged
+    once), its first call eager; epochs 0-3 (the generator that lives
+    across them re-seeded before each, replays from epoch 1) bit-equal to
+    the eager epoch of a new ``make_dp_epoch`` each epoch (a fresh
+    generator) under deterministic algorithms: totals, the generator's
+    state and the weights; kernel 6 once per step through the replays."""
+    from tpuvae_torch import graphs, ops
+    from tpuvae_torch.models import HybridVAE
+    from tpuvae_torch.parallel import make_dp_epoch
+    from tpuvae_torch.parity import deterministic_algorithms
+    from tpuvae_torch.train import create_state, hybrid_objective
+    from tpuvae_torch.train.loop import dp_epoch_runner
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mel = torch.randn((32, 64, 128, 1), generator=g, device=cuda)
+    text = torch.randn((32, 32), generator=g, device=cuda)
+    obj = hybrid_objective()
+
+    def state():
+        return create_state(HybridVAE(
+            latent_dim=16, text_dim=32, input_hw=(64, 128),
+            generator=torch.Generator().manual_seed(0)).to(cuda), 1e-3)
+
+    def epoch_fn():
+        return make_dp_epoch(obj, nccl_mesh.mesh, batch_size=8, n_local=32,
+                             n_train_arrays=2, loss_reduction="sum")
+
+    with deterministic_algorithms() as nondeterministic:
+        graphed, log = state(), _Events()
+        ep = epoch_fn()
+        run = dp_epoch_runner(ep, graphed, (mel, text), cuda, log)
+        assert isinstance(run, graphs.CapturedGraph)
+        assert log.events == [("dp_epoch_graph", {"graph": True,
+                                                  "reason": "nccl on cuda"})]
+        eager = state()
+        try:
+            for e in range(4):
+                ep.seed(e, cuda)
+                ops.reset_launch_counts()
+                got = [t.clone() for t in run()]
+                assert ops.launch_counts()["fusedconv_conv1"] == 4
+                fresh = epoch_fn()
+                fresh.seed(e, cuda)
+                want = fresh.run(eager, mel, text)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), e
+                assert torch.equal(ep.generator(cuda).get_state(),
+                                   fresh.generator(cuda).get_state()), e
+        finally:
+            graphed.optimizer.zero_grad(set_to_none=True)
+            graphs.close(run)
+        for (k, a), b in zip(graphed.model.state_dict().items(),
+                             eager.model.state_dict().values()):
+            assert torch.equal(a, b), k
+    assert not nondeterministic
+
+
+def _stream_fit(cuda, arch, epochs):
+    """``fit(host_stream=True)`` on host arrays: the Hybrid VAE (mel 64 x
+    128, text 32) at ``arch``'s dtype or the Simple VAE at 370 features;
+    40 training rows in batches of 16 (two full, a remainder of 8) and 10
+    validation rows."""
+    from tpuvae_torch.models import HybridVAE, SimpleVAE
+    from tpuvae_torch.train import (FitConfig, create_state, fit,
+                                    hybrid_objective, simple_vae_objective)
+
+    g = torch.Generator().manual_seed(0)
+    init = torch.Generator().manual_seed(0)
+    if arch == "simple":
+        data = (torch.randn((50, 370), generator=g).numpy(),)
+        model, obj = SimpleVAE(generator=init), simple_vae_objective(0.5)
+    else:
+        data = (torch.randn((50, 64, 128, 1), generator=g).numpy(),
+                torch.randn((50, 32), generator=g).numpy())
+        model = HybridVAE(latent_dim=16, text_dim=32, input_hw=(64, 128),
+                          generator=init,
+                          dtype="bfloat16" if arch == "hybrid_bf16"
+                          else "float32")
+        obj = hybrid_objective()
+    model = model.to(cuda)
+    res = fit(create_state(model, 1e-3), obj, tuple(d[:40] for d in data),
+              FitConfig(epochs=epochs, batch_size=16, patience=100,
+                        monitor="val", host_stream=True),
+              val_data=tuple(d[40:] for d in data))
+    return res, [t.detach().clone() for t in model.state_dict().values()]
+
+
+@pytest.mark.parametrize("arch", ["hybrid_fp32", "hybrid_bf16", "simple"])
+def test_graphed_host_stream_fit_equals_the_eager_fit(cuda, monkeypatch,
+                                                      arch):
+    """``fit(host_stream=True)`` for 3 epochs with its steps as graphs
+    (one per batch shape, train and validation) against the same ``fit``
+    with every step eager (``graphs.runner`` returning the function):
+    losses and weights bit-equal — the fp32 Hybrid under deterministic
+    algorithms (cuDNN's run-to-run freedom parts two eager runs), the bf16
+    Hybrid and the Simple VAE with the default algorithms; kernel 6 once
+    per batch through the replays at fp32, never at bf16."""
+    import contextlib
+
+    from tpuvae_torch import graphs, ops
+    from tpuvae_torch.parity import deterministic_algorithms
+
+    ctx = (deterministic_algorithms() if arch == "hybrid_fp32"
+           else contextlib.nullcontext([]))
+    with ctx as nondeterministic:
+        ops.reset_launch_counts()
+        got, wg = _stream_fit(cuda, arch, 3)
+        counts = ops.launch_counts()
+        with monkeypatch.context() as m:
+            m.setattr(graphs, "runner", lambda fn, device, **kw: fn)
+            want, we = _stream_fit(cuda, arch, 3)
+    assert not nondeterministic
+    assert got.history["train_loss"] == want.history["train_loss"]
+    assert got.history["val_loss"] == want.history["val_loss"]
+    assert np.isfinite(got.history["train_loss"]).all()
+    for a, b in zip(wg, we):
+        assert torch.equal(a, b)
+    k6 = 3 * 4 if arch == "hybrid_fp32" else 0       # 3 train + 1 val
+    assert counts["fusedconv_conv0"] == counts["fusedconv_conv1"] == k6
+
+
+def _child(tmp_path, name: str, source: str, *args: str) -> list[str]:
+    """Run ``source`` as a script in a fresh interpreter with the checkout
+    on its path; its stdout's lines."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = tmp_path / name
+    script.write_text(source)
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(script), *args], cwd=repo,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(repo)})
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout.splitlines()
+
+
+def test_a_loss_that_reads_the_host_fails_the_host_stream_capture(cuda,
+                                                                   tmp_path):
+    """Under ``host_stream`` a ``loss_fn`` that calls ``.item()`` runs its
+    first batch eagerly, then fails the step's capture with the operation
+    named, and is not run eagerly in the graph's place."""
+    lines = _child(tmp_path, "item_stream.py", (
+        "import numpy as np\n"
+        "from tpuvae_torch.models import SimpleAutoencoder\n"
+        "from tpuvae_torch.train import FitConfig, create_state, fit\n"
+        "calls = []\n"
+        "def loss_fn(model, batch, generator, train):\n"
+        "    (x,) = batch\n"
+        "    loss = ((model(x)[0] - x) ** 2).mean()\n"
+        "    calls.append(loss.item())\n"
+        "    return loss, {}\n"
+        "x = np.random.default_rng(0).normal(size=(40, 12)).astype('f4')\n"
+        "m = SimpleAutoencoder(input_dim=12, latent_dim=4).cuda()\n"
+        "try:\n"
+        "    fit(create_state(m, 1e-3), loss_fn, (x,),\n"
+        "        FitConfig(epochs=2, batch_size=16, host_stream=True))\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', len(calls), str(e).splitlines()[0])\n"
+        "else:\n"
+        "    print('NO RAISE', len(calls))\n"))
+    line = [ln for ln in lines if ln.startswith(("RAISED", "NO"))]
+    assert line, lines
+    assert line[0].startswith("RAISED 1 capturing the host_stream step as a "
+                              "CUDA graph failed at "), line[0]
+    assert "calls.append(loss.item())" in line[0], line[0]
+
+
+def test_gloo_on_the_card_runs_the_dp_epoch_eagerly_and_says_so(cuda,
+                                                                tmp_path):
+    """Two gloo ranks on ``cuda:0``: ``fit(mesh=)`` decides before its first
+    epoch that the data-parallel epoch runs eagerly (gloo's collectives
+    pass through the host) and logs it once, on each rank."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    script = tmp_path / "gloo_fit.py"
+    script.write_text(
+        "import json, sys, torch, torch.distributed as dist\n"
+        "rank = int(sys.argv[1])\n"
+        f"dist.init_process_group('gloo', init_method='file://{tmp_path}/s',"
+        " rank=rank, world_size=2)\n"
+        "from tpuvae_torch.models import SimpleAutoencoder\n"
+        "from tpuvae_torch.parallel import MeshContext\n"
+        "from tpuvae_torch.train import (FitConfig, autoencoder_objective,\n"
+        "                                create_state, fit)\n"
+        "ctx = MeshContext.create(device='cuda')\n"
+        "events = []\n"
+        "class Log:\n"
+        "    def log(self, event, **fields):\n"
+        "        events.append([event, fields])\n"
+        "x = torch.randn((32, 12), generator=torch.Generator().manual_seed(0))\n"
+        "m = SimpleAutoencoder(input_dim=12, latent_dim=4,\n"
+        "    generator=torch.Generator().manual_seed(0)).to(ctx.device)\n"
+        "fit(create_state(m, 1e-3), autoencoder_objective(),\n"
+        "    (x.to(ctx.device),), FitConfig(epochs=2, batch_size=8,\n"
+        "    log_every=1), mesh=ctx.mesh, logger=Log())\n"
+        "print('EVENTS', json.dumps(events))\n"
+        "dist.destroy_process_group()\n")
+    env = {**__import__("os").environ, "PYTHONPATH": str(repo)}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r)], cwd=repo,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        line = [ln for ln in out.splitlines() if ln.startswith("EVENTS ")]
+        assert line, out
+        names = [e for e, _ in json.loads(line[0][7:])]
+        fields = dict(json.loads(line[0][7:]))["dp_epoch_graph"]
+        assert names.count("dp_epoch_graph") == 1
+        assert names.index("dp_epoch_graph") < names.index("epoch")
+        assert fields["graph"] is False
+        assert fields["reason"].startswith("gloo on cuda"), fields
+
+
+def test_a_closed_graph_hands_its_pool_back(cuda):
+    """A graph whose capture allocates 2 x 64 MB of temporaries: the card's
+    reserved memory grows by at least that with the capture and is back
+    where it was after ``close()`` (the pool's blocks go back to the card,
+    no process-wide ``empty_cache``)."""
+    from tpuvae_torch.graphs import CapturedGraph
+
+    x = torch.ones(16 * 2**20, device=cuda)
+
+    def fn():
+        y = x * 2.0
+        return ((y + 1.0).amax(),)
+
+    g = CapturedGraph(fn, cuda, what="a test graph")
+    g()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(cuda)
+    assert float(g()[0]) == 3.0
+    after_capture = torch.cuda.memory_reserved(cuda)
+    g.close()
+    after_close = torch.cuda.memory_reserved(cuda)
+    assert after_capture - before >= 128 * 2**20, (before, after_capture)
+    assert after_close <= before, (before, after_capture, after_close)

@@ -139,6 +139,95 @@ def make_dp_train_step(loss_fn, mesh: DeviceMesh, axis: str = "data",
     return step
 
 
+class DPEpoch:
+    """One rank's data-parallel epoch (:func:`make_dp_epoch` builds it):
+    ``epoch(state, seed, *data) -> (state, loss_sum, val_total)`` seeds the
+    epoch (:meth:`seed`) and runs it (:meth:`run`).
+
+    The epoch's body is a function of device tensors that reads nothing on
+    the host, so that ``fit`` can capture it as one CUDA graph (over NCCL;
+    ``train.loop.dp_epoch_runner``): the rank's generator lives as long as
+    the epoch object and is re-seeded before each epoch, the permutation
+    and the gather run on the device, the micro-batches have fixed shapes
+    and the totals stay on the device.
+    """
+
+    def __init__(self, loss_fn, mesh: DeviceMesh, *, batch_size: int,
+                 n_local: int, n_train_arrays: int, n_val_arrays: int,
+                 n_val_local: int, loss_reduction: str, axis: str):
+        _check_reduction(loss_reduction)
+        self.n_dev = axis_size(mesh, axis)
+        if batch_size % self.n_dev:
+            raise ValueError(
+                f"batch_size {batch_size} must divide over the "
+                f"{self.n_dev}-device '{axis}' mesh axis"
+            )
+        self.loss_fn = loss_fn
+        self.local_batch = batch_size // self.n_dev
+        self.n_local = n_local
+        self.n_train_arrays = n_train_arrays
+        self.n_val_arrays = n_val_arrays
+        self.n_val_local = n_val_local
+        self.loss_reduction = loss_reduction
+        self.group = mesh.get_group(axis)
+        self.rank = mesh.get_local_rank(axis)
+        self._generator: torch.Generator | None = None
+
+    def generator(self, device: torch.device) -> torch.Generator:
+        """The rank's generator on ``device``: the shuffles, dropout masks
+        and noise of every epoch."""
+        if self._generator is None:
+            self._generator = torch.Generator(device=device)
+        return self._generator
+
+    def seed(self, seed: int, device: torch.device) -> None:
+        """Start an epoch seeded with ``seed``: the generator draws what a
+        new one seeded with :func:`rank_seed` ``(seed, rank)`` draws."""
+        self.generator(device).manual_seed(rank_seed(seed, self.rank))
+
+    def run(self, state: TrainState, *data):
+        """The epoch on this rank's blocks ``data`` from the generator as
+        :meth:`seed` left it: ``(loss_sum, val_total)``, 0-d tensors on the
+        data's device."""
+        model, optimizer = state.model, state.optimizer
+        data = tuple(_local(d) for d in data)
+        tdata = data[:self.n_train_arrays]
+        vdata = data[self.n_train_arrays:
+                     self.n_train_arrays + self.n_val_arrays]
+        for d, want in [(d, self.n_local) for d in tdata] + [
+                (d, self.n_val_local) for d in vdata]:
+            if d.shape[0] != want:
+                raise ValueError(f"a rank's block has {d.shape[0]} rows, "
+                                 f"{want} expected")
+        dev = tdata[0].device
+        gen = self.generator(dev)
+        perm = torch.randperm(self.n_local, generator=gen, device=dev)
+        model.train()
+        totals = torch.zeros(2, device=dev)
+        for batch in self._batches(tuple(d[perm] for d in tdata)):
+            totals[0] += _step(model, optimizer, self.loss_fn, batch, gen,
+                               self.group, self.n_dev, self.loss_reduction)
+        if vdata:
+            model.eval()
+            with torch.no_grad():
+                for batch in self._batches(vdata):
+                    totals[1] += self.loss_fn(model, batch, gen, False)[0]
+        # the reductions are linear: one at the end of the epoch equals
+        # reducing every per-batch loss
+        dist.all_reduce(totals, group=self.group)
+        if self.loss_reduction == "mean":
+            totals /= self.n_dev
+        return totals[0], totals[1]
+
+    def __call__(self, state: TrainState, seed: int, *data):
+        self.seed(seed, _local(data[0]).device)
+        return (state, *self.run(state, *data))
+
+    def _batches(self, data):
+        for i in range(0, data[0].shape[0], self.local_batch):
+            yield tuple(d[i:i + self.local_batch] for d in data)
+
+
 def make_dp_epoch(
     loss_fn,
     mesh: DeviceMesh,
@@ -150,8 +239,9 @@ def make_dp_epoch(
     n_val_local: int = 0,
     loss_reduction: str = "mean",
     axis: str = "data",
-):
-    """Build ``epoch(state, seed, *data) -> (state, loss_sum, val_total)``.
+) -> DPEpoch:
+    """Build ``epoch(state, seed, *data) -> (state, loss_sum, val_total)``
+    (a :class:`DPEpoch`).
 
     ``data`` are ``n_train_arrays`` training then ``n_val_arrays``
     validation arrays, each this rank's contiguous block of the dataset: a
@@ -172,49 +262,7 @@ def make_dp_epoch(
     they are GLOBAL per-epoch sums of per-batch losses, as the
     single-device ``fit`` epoch's.
     """
-    _check_reduction(loss_reduction)
-    n_dev = axis_size(mesh, axis)
-    if batch_size % n_dev:
-        raise ValueError(
-            f"batch_size {batch_size} must divide over the {n_dev}-device "
-            f"'{axis}' mesh axis"
-        )
-    local_bs = batch_size // n_dev
-    group = mesh.get_group(axis)
-    rank = mesh.get_local_rank(axis)
-
-    def batches(data):
-        for i in range(0, data[0].shape[0], local_bs):
-            yield tuple(d[i:i + local_bs] for d in data)
-
-    def epoch(state: TrainState, seed: int, *data):
-        model, optimizer = state.model, state.optimizer
-        data = tuple(_local(d) for d in data)
-        tdata = data[:n_train_arrays]
-        vdata = data[n_train_arrays:n_train_arrays + n_val_arrays]
-        for d, want in [(d, n_local) for d in tdata] + [
-                (d, n_val_local) for d in vdata]:
-            if d.shape[0] != want:
-                raise ValueError(f"a rank's block has {d.shape[0]} rows, "
-                                 f"{want} expected")
-        dev = tdata[0].device
-        gen = torch.Generator(device=dev).manual_seed(rank_seed(seed, rank))
-        perm = torch.randperm(n_local, generator=gen, device=dev)
-        model.train()
-        totals = torch.zeros(2, device=dev)
-        for batch in batches(tuple(d[perm] for d in tdata)):
-            totals[0] += _step(model, optimizer, loss_fn, batch, gen, group,
-                               n_dev, loss_reduction)
-        if vdata:
-            model.eval()
-            with torch.no_grad():
-                for batch in batches(vdata):
-                    totals[1] += loss_fn(model, batch, gen, False)[0]
-        # the reductions are linear: one at the end of the epoch equals
-        # reducing every per-batch loss
-        dist.all_reduce(totals, group=group)
-        if loss_reduction == "mean":
-            totals /= n_dev
-        return state, totals[0], totals[1]
-
-    return epoch
+    return DPEpoch(loss_fn, mesh, batch_size=batch_size, n_local=n_local,
+                   n_train_arrays=n_train_arrays, n_val_arrays=n_val_arrays,
+                   n_val_local=n_val_local, loss_reduction=loss_reduction,
+                   axis=axis)

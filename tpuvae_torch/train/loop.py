@@ -14,11 +14,12 @@ epochs:
 
 A resident epoch (the data on the device, no mesh of several ranks) is one
 function of device tensors (:func:`resident_epoch`) that reads nothing on
-the host.  On a card it runs as one CUDA graph (:class:`CapturedEpoch`):
-the first epoch of a ``fit`` runs eagerly on the graph's stream and is
-then captured, and every later epoch is one replay, as the JAX package's
-epoch is one ``jax.jit`` call.  With ``scan_epochs = 1`` the host reads the
-epoch's two sums after every epoch and runs the control in float64
+the host.  On a card it runs as one CUDA graph
+(:class:`tpuvae_torch.graphs.CapturedGraph`): the first epoch of a ``fit``
+runs eagerly on the graph's stream and is then captured, and every later
+epoch is one replay, as the JAX package's epoch is one ``jax.jit`` call.
+With ``scan_epochs = 1`` the host reads the epoch's two sums after every
+epoch and runs the control in float64
 (``tpuvae/train/loop.py:388-480``).  With ``scan_epochs = K > 1`` the
 control runs on the device too (:class:`_DeviceControl`, counterpart of
 ``_fit_chunked``, ``:483-663``): K epochs run back to back, and the host
@@ -29,8 +30,13 @@ With ``FitConfig.host_stream`` the datasets stay on the host (numpy arrays,
 ``np.memmap``, ``RowView``) and one batch at a time goes to the device,
 staged while the previous step runs; batch composition, noise and the
 ragged remainder are those of the resident epoch, so the losses are the
-same.  That epoch runs eagerly, with the host control of ``scan_epochs =
-1``.
+same.  Its steps are functions of static device inputs
+(:class:`_StreamSteps`, counterpart of the JAX package's jitted
+``train_step`` and ``_val_batch_loss``): on a card each batch shape's
+training step and validation batch is a CUDA graph after its first call,
+and the staged batch is copied into the graph's inputs on the card.  The
+epoch reads its permutation on the host once, as the JAX package's does,
+and runs with the host control of ``scan_epochs = 1``.
 
 With ``FitConfig.checkpoint_dir`` the loop saves its whole state every
 ``checkpoint_every`` epochs (``tpuvae/train/loop.py:454-465``; with
@@ -50,18 +56,24 @@ micro-batches of ``batch_size / D`` rows, the gradients reduced as
 ``loss_reduction`` names the objective's batch reduction.  Every rank
 reads the same reduced epoch losses, so early stopping and
 ReduceLROnPlateau take the same decision on every rank; rank 0 writes the
-checkpoints and every rank reads them on resume.  That epoch runs eagerly,
-with the host control of ``scan_epochs = 1``; as in the JAX package
-``scan_epochs`` is then ignored, and so it is with ``host_stream``
-(``:383-386``).
+checkpoints and every rank reads them on resume.  The epoch is a function
+of device tensors (:class:`~tpuvae_torch.parallel.dp.DPEpoch`) whose
+generator ``fit`` re-seeds before each epoch; where the group's backend
+for the card is NCCL, the first epoch runs eagerly (it also creates NCCL's
+communicator, which a capture cannot) and every later one is one replay of
+a CUDA graph (:func:`dp_epoch_runner`).  Under gloo (the CPU, or ranks
+that share a card) the epoch runs eagerly, since gloo's collectives pass
+through the host; ``fit`` makes that choice before the first epoch and
+logs it once (``dp_epoch_graph``).  The control is the host's of
+``scan_epochs = 1``: as in the JAX package ``scan_epochs`` is then
+ignored, and so it is with ``host_stream`` (``:383-386``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
+import functools
 import time
-import traceback
 from pathlib import Path
 from typing import Any, Callable, Sequence
 
@@ -69,9 +81,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpuvae_torch import graphs
 from tpuvae_torch.convert import from_flax
-from tpuvae_torch.ops import _build, fusedconv
-from tpuvae_torch.parallel.dp import make_dp_epoch
+from tpuvae_torch.parallel.dp import DPEpoch, make_dp_epoch
 from tpuvae_torch.parallel.mesh import axis_size
 from tpuvae_torch.train.checkpoint import (
     CheckpointManager,
@@ -272,117 +284,104 @@ def resident_epoch(model, optimizer, loss_fn, train_data, val_data,
     return epoch
 
 
-def _failed_at(exc: BaseException) -> str:
-    """``file:line (source)`` of the innermost frame of ``exc``'s traceback
-    outside torch: the operation that failed."""
-    torch_dir = os.path.dirname(torch.__file__)
-    frames = traceback.extract_tb(exc.__traceback__)
-    for f in reversed(frames):
-        if not f.filename.startswith(torch_dir):
-            return f"{f.filename}:{f.lineno} ({f.line})"
-    return "an unknown operation"
+def _release(optimizer, *runs) -> None:
+    """At the end of a loop, also on an error: its graphs and the gradients
+    that live in their memory pools go, and the pools with them."""
+    graphed = [r for r in runs if isinstance(r, graphs.CapturedGraph)]
+    if graphed:
+        optimizer.zero_grad(set_to_none=True)
+        for run in graphed:
+            run.close()
 
 
-class CapturedEpoch:
-    """``fn`` (a function of device tensors that takes no argument and
-    reads nothing on the host) as one CUDA graph.
+class _StreamSteps:
+    """The host_stream epoch's steps as functions of static device inputs
+    (counterpart of ``tpuvae/train/loop.py:260-314``: ``jax.jit(train_step)``
+    and ``_val_batch_loss``): one training step and one validation batch
+    for each batch shape (the full batch and the ragged remainder), each a
+    CUDA graph on a card after its first call (:func:`graphs.runner`).  A
+    call copies the staged batch into its shape's static inputs on the
+    caller's stream, then runs the step, which adds the batch's loss to
+    :attr:`train_sum` or :attr:`val_sum` on the device."""
 
-    The first call runs ``fn`` eagerly on the graph's own stream: it is a
-    real epoch, and it sets up what a capture cannot (cuBLAS and cuDNN
-    handles and algorithm choice, the kernels' libraries, Adam's state,
-    kernel 6's ticket buffer for the stream, reserved for
-    ``reserve_batch`` images).  The second call captures ``fn`` (a capture
-    runs nothing) and replays it; every call from then on is one replay
-    on that stream, which the caller's stream waits for, and returns the
-    tensors the capture returned, which the next replay overwrites.
-    ``generator`` is registered with the graph, so each replay draws new
-    numbers and leaves the generator where the eager run would have.
-    Kernel launches recorded at the capture count once per replay
-    (``ops._build.capture_tally``).  A capture that fails raises with the
-    failing operation named; nothing runs ``fn`` eagerly in its place.
-    :meth:`close` lets the graph and its memory pool go.
-    """
-
-    def __init__(self, fn, generator: torch.Generator, device: torch.device,
-                 reserve_batch: int):
-        self.fn = fn
+    def __init__(self, model, optimizer, loss_fn, generator: torch.Generator,
+                 device: torch.device, batch_size: int):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
         self.generator = generator
         self.device = device
-        self.reserve_batch = reserve_batch
-        self.stream = _capture_stream(device)
-        self.warm = False
-        self.graph = None
-        self.out = None
-        self.tally: dict = {}
+        self.batch_size = batch_size
+        self.train_sum = torch.zeros((), device=device)
+        self.val_sum = torch.zeros((), device=device)
+        self.steps: dict = {}       # (train, rows) -> (static inputs, run)
 
-    def __call__(self):
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
-            if not self.warm:
-                fusedconv.reserve_tickets(self.device, self.reserve_batch)
-                out = self.fn()
-                self.warm = True
-            else:
-                if self.graph is None:
-                    self._capture()
-                self.graph.replay()
-                _build.count_replay(self.tally)
-                out = self.out
-        caller.wait_stream(self.stream)
-        return out
+    def begin_epoch(self) -> None:
+        self.train_sum.zero_()
+        self.val_sum.zero_()
 
-    def close(self) -> None:
-        """Drop the graph and the tensors it returned, and with them the
-        graph's memory pool."""
-        self.graph = self.out = None
+    def __call__(self, batch, train: bool) -> None:
+        key = (train, int(batch[0].shape[0]))
+        if key not in self.steps:
+            static = tuple(torch.empty_like(b) for b in batch)
+            step = self._train if train else self._val
+            self.steps[key] = (static, graphs.runner(
+                lambda: step(static), self.device, generator=self.generator,
+                reserve_batch=self.batch_size, what="the host_stream step"))
+        static, run = self.steps[key]
+        for s, b in zip(static, batch):
+            s.copy_(b)
+        run()
 
-    def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        torch.cuda.synchronize(self.device)
-        with _build.capture_tally() as tally:
-            graph.capture_begin()
-            try:
-                out = self.fn()
-            except Exception as exc:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass            # the capture was invalidated by exc
-                raise RuntimeError(
-                    f"capturing the epoch as a CUDA graph failed at "
-                    f"{_failed_at(exc)}: {exc}") from exc
-            graph.capture_end()
-        self.graph, self.out, self.tally = graph, out, dict(tally)
+    def _train(self, batch) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, _ = self.loss_fn(self.model, batch, self.generator, True)
+        loss.backward()
+        self.optimizer.step()
+        self.train_sum.add_(loss.detach())
+
+    def _val(self, batch) -> None:
+        with torch.no_grad():
+            loss, _ = self.loss_fn(self.model, batch, self.generator, False)
+        self.val_sum.add_(loss)
+
+    def runs(self) -> list:
+        return [run for _, run in self.steps.values()]
 
 
-# one stream per device for every capture: cuBLAS keeps a workspace for
-# each stream it has run on, for the life of the process
-_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+def _dp_graph_choice(group, device: torch.device) -> tuple[bool, str]:
+    """Whether the data-parallel epoch runs as a CUDA graph, and why: on a
+    card whose backend in ``group`` is NCCL (a capture takes its
+    collectives once the communicator exists); gloo's pass through the
+    host, which a capture cannot take."""
+    if device.type != "cuda":
+        return False, f"data on {device.type}"
+    backend = str(dist.get_backend(group))
+    if ":" in backend:      # one backend per device type: 'cpu:gloo,cuda:nccl'
+        backend = dict(b.split(":") for b in backend.split(","))["cuda"]
+    if backend != "nccl":
+        return False, (f"{backend} on cuda: its collectives pass through "
+                       "the host")
+    return True, "nccl on cuda"
 
 
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    index = torch.device(device).index or 0
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
-    return _CAPTURE_STREAMS[index]
-
-
-def _release(run, optimizer) -> None:
-    """At the end of a loop, also on an error: a graphed epoch's graph and
-    the gradients that live in its memory pool go, and the pool with them."""
-    if isinstance(run, CapturedEpoch):
-        optimizer.zero_grad(set_to_none=True)
-        run.close()
-
-
-def _epoch_runner(epoch, generator, device, batch_size: int):
-    """``epoch`` as a :class:`CapturedEpoch` on a card, as it is on the
-    CPU."""
-    if device.type == "cuda":
-        return CapturedEpoch(epoch, generator, device, batch_size)
-    return epoch
+def dp_epoch_runner(dp_epoch: DPEpoch, state: TrainState, data,
+                    device: torch.device, logger: RunLogger | None = None):
+    """``run() -> (train_sum, val_sum)``: ``dp_epoch``'s body on this rank's
+    blocks ``data`` (:meth:`DPEpoch.run`), as a CUDA graph where
+    :func:`_dp_graph_choice` allows and eagerly elsewhere; the choice and
+    its reason are logged once (``dp_epoch_graph``).  The caller seeds the
+    epoch (:meth:`DPEpoch.seed`) before each call; the generator it seeds
+    is the graph's."""
+    graphed, reason = _dp_graph_choice(dp_epoch.group, device)
+    if logger is not None:
+        logger.log("dp_epoch_graph", graph=graphed, reason=reason)
+    body = functools.partial(dp_epoch.run, state, *data)
+    if not graphed:
+        return body
+    return graphs.CapturedGraph(
+        body, device, generator=dp_epoch.generator(device),
+        reserve_batch=dp_epoch.local_batch, what="the data-parallel epoch")
 
 
 class _DeviceControl:
@@ -531,9 +530,10 @@ def fit(
     ``np.memmap``, ``RowView``); batches index dim 0.  The shuffles,
     dropout masks and reparameterisation noise come from one
     ``torch.Generator`` on the model's device, seeded with ``cfg.seed``.
-    On a card the resident epoch is one CUDA graph replay after the first
-    (:class:`CapturedEpoch`); ``loss_fn`` must then read nothing on the
-    host, or the capture raises.
+    On a card the resident epoch, the data-parallel epoch over NCCL and
+    each host_stream step are CUDA graph replays after their first call
+    (:class:`tpuvae_torch.graphs.CapturedGraph`); ``loss_fn`` must then
+    read nothing on the host, or the capture raises.
 
     With ``mesh`` (a ``DeviceMesh`` whose first axis, the data axis, has
     D > 1 ranks; every rank calls ``fit`` with the same data) each rank
@@ -581,13 +581,6 @@ def fit(
         if dp:
             n_val, val_data, val_batches = _dp_blocks(
                 mesh, dp_axis, val_data, bs, logger, "dropped_val_rows")
-    if dp:
-        dp_epoch = make_dp_epoch(
-            loss_fn, mesh, batch_size=bs, n_local=n // n_dev,
-            n_train_arrays=len(train_data),
-            n_val_arrays=len(val_data) if val_data is not None else 0,
-            n_val_local=n_val // n_dev if val_data is not None else 0,
-            loss_reduction=loss_reduction, axis=dp_axis)
     # rank 0 of a process group writes the checkpoints, also where the
     # ranks train unsharded copies (a batch that does not divide over D)
     writer = not dist.is_initialized() or dist.get_rank() == 0
@@ -635,8 +628,20 @@ def fit(
     stopped = epoch >= 0 and patience_counter >= cfg.patience
     denom = n_batches if cfg.loss_normalizer == "per_batch" else n
     vdenom = val_batches if cfg.loss_normalizer == "per_batch" else n_val
-    run_epoch = None
-    if not (dp or stream):
+    run_epoch = steps = None
+    if dp:
+        dp_epoch = make_dp_epoch(
+            loss_fn, mesh, batch_size=bs, n_local=n // n_dev,
+            n_train_arrays=len(train_data),
+            n_val_arrays=len(val_data) if val_data is not None else 0,
+            n_val_local=n_val // n_dev if val_data is not None else 0,
+            loss_reduction=loss_reduction, axis=dp_axis)
+        run_epoch = dp_epoch_runner(dp_epoch, state,
+                                    (*train_data, *(val_data or ())), dev,
+                                    logger)
+    elif stream:
+        steps = _StreamSteps(model, optimizer, loss_fn, gen, dev, bs)
+    else:
         run_epoch = resident_epoch(model, optimizer, loss_fn, train_data,
                                    val_data, bs, gen)
         if cfg.scan_epochs > 1:
@@ -651,31 +656,29 @@ def fit(
                 had_snapshot=best_snapshot is not None, n_batches=n_batches,
                 has_val=val_data is not None, logger=logger, writer=writer,
                 t0=t0)
-        run_epoch = _epoch_runner(run_epoch, gen, dev, bs)
+        run_epoch = graphs.runner(run_epoch, dev, generator=gen,
+                                  reserve_batch=bs)
 
     total_steps = 0
     host_reads = 0
     try:
         for epoch in range(cfg.epochs if stopped else epoch + 1, cfg.epochs):
             t_epoch = time.perf_counter()
-            if dp:
-                state, loss_sum, val_total = dp_epoch(
-                    state, cfg.seed * 1_000_003 + epoch, *train_data,
-                    *(val_data or ()))
-            elif stream:
+            if stream:
                 perm = torch.randperm(n, generator=gen, device=dev)
+                steps.begin_epoch()
                 model.train()
-                loss_sum = _loss_sum(
-                    model, loss_fn,
-                    _host_batches(stager, train_data, bs, perm.cpu().numpy()),
-                    dev, gen, True, optimizer)
-                val_total = torch.zeros((), device=dev)
+                for batch in _host_batches(stager, train_data, bs,
+                                           perm.cpu().numpy()):
+                    steps(batch, True)
                 if val_data is not None:
                     model.eval()
-                    val_total = _loss_sum(model, loss_fn,
-                                          _host_batches(stager, val_data, bs),
-                                          dev, gen, False)
+                    for batch in _host_batches(stager, val_data, bs):
+                        steps(batch, False)
+                loss_sum, val_total = steps.train_sum, steps.val_sum
             else:
+                if dp:
+                    dp_epoch.seed(cfg.seed * 1_000_003 + epoch, dev)
                 loss_sum, val_total = run_epoch()
             total_steps += n_batches
 
@@ -736,7 +739,7 @@ def fit(
             if patience_counter >= cfg.patience:
                 break
     finally:
-        _release(run_epoch, optimizer)
+        _release(optimizer, run_epoch, *(steps.runs() if stream else ()))
 
     if cfg.restore_best and best_snapshot is not None:
         model.load_state_dict(best_snapshot)
@@ -780,7 +783,7 @@ def _fit_chunked(state: TrainState, cfg: FitConfig, ctl: _DeviceControl,
     returned is the state at the stopping epoch."""
     k_chunk = int(cfg.scan_epochs)
     initial_best_epoch = best_epoch
-    run = _epoch_runner(ctl, gen, dev, cfg.batch_size)
+    run = graphs.runner(ctl, dev, generator=gen, reserve_batch=cfg.batch_size)
     total_steps = 0
     host_reads = 0
     epoch = start_epoch - 1
@@ -832,7 +835,7 @@ def _fit_chunked(state: TrainState, cfg: FitConfig, ctl: _DeviceControl,
                                          "monitored": counters["best"]})
             next_epoch += k_chunk
     finally:
-        _release(run, state.optimizer)
+        _release(state.optimizer, run)
 
     if ctl.snap is not None and (had_snapshot
                                  or best_epoch > initial_best_epoch):
