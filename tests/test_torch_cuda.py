@@ -59,6 +59,11 @@ against 1 and a resume at 3 at the CPU tests' tolerances (histories rtol
 1e-6, learning rates 1e-7, weights rtol 1e-5 / atol 1e-7; the resume's
 weights rtol 1e-4 / atol 1e-6 as ``tests/test_train.py``); kernel 6
 counted per replay; a loss that reads the host fails the capture.
+The spans of the compiled epoch (``-k spans``): a chunked ``fit`` records
+its graph's warm, drain, capture and replays in that order under its
+``fit`` span, the capture's ``kernels`` equals the kernel records the
+profiler shows for one replay, and on an idle card a replay's first device
+record starts after its ``graph.replay`` span starts, on the one clock.
 """
 
 import numpy as np
@@ -2318,3 +2323,132 @@ def test_a_closed_graph_hands_its_pool_back(cuda):
     after_close = torch.cuda.memory_reserved(cuda)
     assert after_capture - before >= 128 * 2**20, (before, after_capture)
     assert after_close <= before, (before, after_capture, after_close)
+
+
+def _kernel_records(prof) -> list:
+    """The profiler's device records that are kernels, not copies or fills
+    (``Memcpy ...``, ``Memset ...``), in order of their start."""
+    return sorted((e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and not e.name().startswith(("Memcpy", "Memset"))),
+                  key=lambda e: e.start_ns())
+
+
+def test_spans_of_a_chunked_fit_come_warm_drain_capture_replays(cuda):
+    """A Simple VAE ``fit`` of 9 epochs at K = 4 under the span recorder:
+    under its ``fit`` span the epoch graph's ``graph.warm``,
+    ``graph.drain``, ``graph.capture`` (with the kernel nodes it holds)
+    and 8 ``graph.replay`` spans, one after another, and one
+    ``fit.host_read`` per chunk."""
+    from tpuvae_torch.models import SimpleVAE
+    from tpuvae_torch.train import (FitConfig, create_state, fit,
+                                    simple_vae_objective)
+    from tpuvae_torch.utils.logging import recording
+
+    x = torch.randn((200, 370), generator=torch.Generator().manual_seed(1))
+    model = SimpleVAE(generator=torch.Generator().manual_seed(0)).to(cuda)
+    with recording() as spans:
+        res = fit(create_state(model, 1e-3), simple_vae_objective(0.5),
+                  (x.to(cuda),), FitConfig(epochs=9, batch_size=32,
+                                           patience=100, scan_epochs=4))
+    names = [s["name"] for s in spans]
+    graph = [s for s in spans if s["name"].startswith("graph.")]
+    assert names[0] == "fit" and spans[0]["parent"] is None
+    assert [s["name"] for s in graph] == [
+        "graph.warm", "graph.drain", "graph.capture"] + ["graph.replay"] * 8
+    assert names.count("fit.host_read") == res.host_reads == 3
+    assert all(s["parent"] == 0 for s in spans[1:])
+    for a, b in zip(graph, graph[1:]):
+        assert a["end_ns"] <= b["start_ns"]
+    capture = graph[2]["attrs"]
+    assert capture["what"] == "the epoch" and capture["kernels"] > 7 * 10
+
+
+def _simple_epoch(cuda):
+    """A Simple VAE resident epoch on 200 rows in batches of 32, its state
+    and generator."""
+    from tpuvae_torch.models import SimpleVAE
+    from tpuvae_torch.train import create_state, simple_vae_objective
+    from tpuvae_torch.train.loop import resident_epoch
+
+    x = torch.randn((200, 370), generator=torch.Generator().manual_seed(1))
+    model = SimpleVAE(generator=torch.Generator().manual_seed(0)).to(cuda)
+    state = create_state(model, 1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return resident_epoch(model, state.optimizer, simple_vae_objective(0.5),
+                          (x.to(cuda),), None, 32, gen), gen
+
+
+@pytest.mark.parametrize("arch", ["simple", "hybrid"])
+def test_spans_capture_counts_the_kernels_a_replay_runs(cuda, arch):
+    """An epoch graph (the Simple VAE's; the small Hybrid's with kernel 6,
+    cuDNN's and cuBLAS's kernels) captured under the recorder: ``kernels``
+    equals the records the profiler gives the replay's launch (by its
+    correlation id) less its fills and the graph's copy nodes (the card
+    runs some copy nodes as kernels, and then records them so)."""
+    import collections
+
+    from tpuvae_torch.graphs import MEMCPY_NODE, CapturedGraph, node_counts
+    from tpuvae_torch.utils.logging import recording
+
+    if arch == "simple":
+        epoch, gen = _simple_epoch(cuda)
+        batch = 32
+    else:
+        _, gen, epoch, _ = _hybrid_epoch(cuda)
+        batch = 16
+    graphed = CapturedGraph(epoch, cuda, generator=gen, reserve_batch=batch)
+    with recording() as spans:
+        graphed()
+        graphed()
+    (capture,) = [s for s in spans if s["name"] == "graph.capture"]
+    copies = node_counts(graphed.graph).get(MEMCPY_NODE, 0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        graphed()
+        torch.cuda.synchronize()
+    by_launch = collections.Counter(
+        e.correlation_id() for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not e.name().startswith("Memset"))
+    sizes = sorted(by_launch.values(), reverse=True)
+    assert sizes[0] - copies == capture["attrs"]["kernels"], (
+        capture["attrs"]["kernels"], copies, sizes[:5])
+
+
+def test_spans_on_an_idle_card_a_replay_runs_after_its_span(cuda):
+    """Five replays of a two-kernel graph, each on an idle card: the first
+    kernel of each (its records grouped by the launch's correlation id)
+    starts after its ``graph.replay`` span starts and within 50 ms of it,
+    on the profiler's clock."""
+    from tpuvae_torch.graphs import CapturedGraph
+    from tpuvae_torch.utils.logging import recording, span
+
+    x = torch.ones(1 << 20, device=cuda)
+
+    def fn():
+        return ((x * 2.0).sum(),)
+
+    graphed = CapturedGraph(fn, cuda, what="a test graph")
+    graphed()
+    graphed()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with recording() as spans, \
+            torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            with span("test.idle"):
+                torch.cuda.synchronize()
+            graphed()
+        torch.cuda.synchronize()
+    replays = [s for s in spans if s["name"] == "graph.replay"]
+    firsts = {}                 # each launch's first kernel, by its id
+    for e in _kernel_records(prof):
+        firsts.setdefault(e.correlation_id(), e.start_ns())
+    assert len(replays) == len(firsts) == 5
+    for rep, first in zip(replays, sorted(firsts.values())):
+        assert rep["start_ns"] <= first <= rep["start_ns"] + 50_000_000, (
+            first - rep["start_ns"])

@@ -14,12 +14,15 @@ the same kernels in the same order as the eager function.  On the CPU
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import traceback
 
 import torch
 
 from tpuvae_torch.ops import _build, fusedconv
+from tpuvae_torch.utils.logging import span
 
 
 def _failed_at(exc: BaseException) -> str:
@@ -56,6 +59,14 @@ class CapturedGraph:
     runs ``fn`` eagerly in its place.  The graph allocates from a memory
     pool of its own, which :meth:`close` hands back to the card with the
     graph.
+
+    Each step is a span (:func:`tpuvae_torch.utils.logging.span`, ``what``
+    its attribute): ``graph.warm`` the first call's eager ``fn`` or
+    ``warmup``, ``graph.drain`` the wait for the card before the capture,
+    ``graph.capture`` the capture and the graph's instantiation (with
+    ``kernels``, the kernel nodes of the captured graph,
+    :func:`kernel_nodes`), and ``graph.replay`` one replay's launch with
+    the two streams' waits.
     """
 
     def __init__(self, fn, device: torch.device, *,
@@ -76,22 +87,33 @@ class CapturedGraph:
         self.tally: dict = {}
 
     def __call__(self):
+        if not self.warm:
+            self.warm = True
+            with span("graph.warm", self.what):
+                out = self._on_stream(self._eager)
+            if self.warmup is None:
+                return out
+        if self.graph is None:
+            self._capture()
+        with span("graph.replay", self.what):
+            self._on_stream(self.graph.replay)
+        _build.count_replay(self.tally)
+        return self.out
+
+    def _on_stream(self, fn):
+        """``fn()`` on the graph's stream after the caller's work, and the
+        caller's stream after it."""
         caller = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
-            if self.warm:
-                out = self._replay()
-            else:
-                if self.reserve_batch is not None:
-                    fusedconv.reserve_tickets(self.device, self.reserve_batch)
-                self.warm = True
-                if self.warmup is None:
-                    out = self.fn()
-                else:
-                    self.warmup()
-                    out = self._replay()
+            out = fn()
         caller.wait_stream(self.stream)
         return out
+
+    def _eager(self):
+        if self.reserve_batch is not None:
+            fusedconv.reserve_tickets(self.device, self.reserve_batch)
+        return (self.fn if self.warmup is None else self.warmup)()
 
     def close(self) -> None:
         """Drop the graph and the tensors it returned, then its memory pool:
@@ -100,20 +122,16 @@ class CapturedGraph:
         self.graph = self.out = None
         self.pool = None
 
-    def _replay(self):
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        _build.count_replay(self.tally)
-        return self.out
-
     def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         pool = torch.cuda.MemPool()
-        torch.cuda.synchronize(self.device)
-        with _build.capture_tally() as tally:
+        with span("graph.drain", self.what):
+            torch.cuda.synchronize(self.device)
+        with span("graph.capture", self.what) as attrs, \
+                torch.cuda.stream(self.stream), \
+                _build.capture_tally() as tally:
             graph.capture_begin(pool=pool.id)
             try:
                 out = self.fn()
@@ -126,8 +144,58 @@ class CapturedGraph:
                     f"capturing {self.what} as a CUDA graph failed at "
                     f"{_failed_at(exc)}: {exc}") from exc
             graph.capture_end()
+            graph.instantiate()
+        if attrs is not None:
+            attrs["kernels"] = kernel_nodes(graph)
         self.graph, self.pool, self.out = graph, pool, out
         self.tally = dict(tally)
+
+
+# CUgraphNodeType (cuda.h): CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY
+KERNEL_NODE, MEMCPY_NODE = 0, 1
+
+
+@functools.cache
+def _driver() -> ctypes.CDLL:
+    """The CUDA driver library every CUDA process has loaded."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr = ctypes.c_void_p
+    cu.cuGraphGetNodes.argtypes = [ptr, ctypes.POINTER(ptr),
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphGetNodes.restype = cu.cuGraphNodeGetType.restype = ctypes.c_int
+    return cu
+
+
+def kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The kernel nodes of ``graph``'s captured CUDA graph (kept with
+    ``keep_graph=True``): the kernels one replay launches."""
+    return node_counts(graph).get(KERNEL_NODE, 0)
+
+
+def node_counts(graph: torch.cuda.CUDAGraph) -> dict[int, int]:
+    """The nodes of ``graph``'s captured CUDA graph by ``CUgraphNodeType``."""
+    return _count_nodes(_driver(), ctypes.c_void_p(graph.raw_cuda_graph()))
+
+
+def _count_nodes(cu, raw: ctypes.c_void_p) -> dict[int, int]:
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind = ctypes.c_int()
+    counts: dict[int, int] = {}
+    for node in nodes[:n.value]:
+        status = cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind))
+        _check(status, "cuGraphNodeGetType")
+        counts[kind.value] = counts.get(kind.value, 0) + 1
+    return counts
+
+
+def _check(status: int, call: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{call} returned CUresult {status}")
 
 
 # one stream per device for every capture: cuBLAS keeps a workspace for

@@ -98,7 +98,7 @@ from tpuvae_torch.train.state import (
     set_learning_rate,
     traced_learning_rate,
 )
-from tpuvae_torch.utils.logging import RunLogger
+from tpuvae_torch.utils.logging import RunLogger, span
 
 # loss_fn(model, batch: tuple, generator, train) -> (loss, aux_dict)
 LossFn = Callable[..., Any]
@@ -501,9 +501,11 @@ class _DeviceControl:
     def counters(self) -> dict:
         """The counters as the checkpoint's metadata takes them (one host
         read)."""
-        v = torch.stack([self.best.double(), self.best_epoch.double(),
-                         self.patience.double(), self.plateau_best.double(),
-                         self.plateau_cnt.double()]).cpu().tolist()
+        with span("fit.host_read"):
+            v = torch.stack([
+                self.best.double(), self.best_epoch.double(),
+                self.patience.double(), self.plateau_best.double(),
+                self.plateau_cnt.double()]).cpu().tolist()
         return {"best": v[0], "best_epoch": int(v[1]),
                 "patience_counter": int(v[2]), "plateau_best": v[3],
                 "plateau_counter": int(v[4])}
@@ -548,8 +550,19 @@ def fit(
 
     ``history["epoch_seconds"]`` (the port's own) holds each epoch's wall
     time up to its host read; under ``scan_epochs > 1`` an epoch gets its
-    chunk's wall time over the epochs that ran in the chunk.
+    chunk's wall time over the epochs that ran in the chunk.  The call is
+    the span ``fit`` and each host read of the losses the span
+    ``fit.host_read`` (:func:`tpuvae_torch.utils.logging.span`).
     """
+    with span("fit"):
+        return _fit(state, loss_fn, train_data, cfg, val_data, logger, mesh,
+                    loss_reduction)
+
+
+def _fit(state: TrainState, loss_fn: LossFn,
+         train_data: Sequence[torch.Tensor], cfg: FitConfig,
+         val_data: Sequence[torch.Tensor] | None, logger: RunLogger | None,
+         mesh, loss_reduction: str) -> FitResult:
     if cfg.monitor == "val" and val_data is None:
         raise ValueError("FitConfig.monitor='val' requires val_data")
     if cfg.host_stream and mesh is not None:
@@ -683,7 +696,9 @@ def fit(
             total_steps += n_batches
 
             # ONE host read for both sums
-            sums = torch.stack([loss_sum, val_total]).double().cpu().tolist()
+            with span("fit.host_read"):
+                sums = (torch.stack([loss_sum, val_total]).double().cpu()
+                        .tolist())
             host_reads += 1
             train_loss = sums[0] / denom
             history["train_loss"].append(train_loss)
@@ -796,7 +811,8 @@ def _fit_chunked(state: TrainState, cfg: FitConfig, ctl: _DeviceControl,
             ctl.begin_chunk(next_epoch)
             for _ in range(k_run):
                 rows = run()
-            rows = rows[:k_run].cpu().tolist()     # ONE host read / chunk
+            with span("fit.host_read"):
+                rows = rows[:k_run].cpu().tolist()  # ONE host read / chunk
             host_reads += 1
             ran = 0
             for i, (tl, vl, lr, live, stf, _) in enumerate(rows):

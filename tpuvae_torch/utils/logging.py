@@ -2,7 +2,13 @@
 ``tpuvae/utils/logging.py``): JSONL event records, one line per event, to
 a stream and/or a file, and per-stage wall-clock / throughput counters,
 each stage optionally traced with ``torch.profiler`` (the preprocess
-pipelines pass ``$TPUVAE_PROFILE_DIR``, which ``cli --profile`` sets)."""
+pipelines pass ``$TPUVAE_PROFILE_DIR``, which ``cli --profile`` sets).
+
+The port's own spans (:func:`span`, :func:`recording`) are kept in memory
+while a :func:`recording` is open and cost one check of a module-level
+flag otherwise.  Their clock is ``time.time_ns()``: nanoseconds since the
+Unix epoch, the clock ``torch.profiler`` stamps its host and device
+records with, so a span can be laid over a profiler trace."""
 
 from __future__ import annotations
 
@@ -84,3 +90,52 @@ class StageTimer:
         self.stages[name] = rec
         if self.logger:
             self.logger.log("stage", name=name, **rec)
+
+
+# the open recording's spans, or None: the one flag a span checks
+_SPANS: list[dict] | None = None
+_OPEN: list[int] = []           # indices of the spans open, innermost last
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, what: str | None = None):
+    """A context manager that records ``name`` from its entry to its exit
+    while a :func:`recording` is open, as a dict: ``name``, ``start_ns``
+    and ``end_ns`` (``time.time_ns()``), ``parent`` (the index of the span
+    that encloses it in the recording, or None) and ``attrs`` (``what``
+    where given).  It enters to the span's ``attrs``, to which the caller
+    may add, or to None while nothing records: then the span costs the
+    check of one flag, allocates nothing and reads no clock.  Spans are
+    recorded from one thread."""
+    if _SPANS is None:
+        return _OFF
+    return _recorded(_SPANS, _OPEN, name, what)
+
+
+@contextlib.contextmanager
+def _recorded(spans: list[dict], open_: list[int], name: str,
+              what: str | None):
+    attrs = {} if what is None else {"what": what}
+    rec = {"name": name, "start_ns": time.time_ns(), "end_ns": None,
+           "parent": open_[-1] if open_ else None, "attrs": attrs}
+    open_.append(len(spans))
+    spans.append(rec)
+    try:
+        yield attrs
+    finally:
+        rec["end_ns"] = time.time_ns()
+        open_.pop()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the spans opened inside; yields the list they go into, in
+    the order they were opened (a span's ``parent`` indexes it).  A
+    recording opened inside another takes the spans until it closes."""
+    global _SPANS, _OPEN
+    outer = _SPANS, _OPEN
+    _SPANS, _OPEN = [], []
+    try:
+        yield _SPANS
+    finally:
+        _SPANS, _OPEN = outer
