@@ -59,12 +59,25 @@ against 1 and a resume at 3 at the CPU tests' tolerances (histories rtol
 1e-6, learning rates 1e-7, weights rtol 1e-5 / atol 1e-7; the resume's
 weights rtol 1e-4 / atol 1e-6 as ``tests/test_train.py``); kernel 6
 counted per replay; a loss that reads the host fails the capture.
+The trunks' BatchNorm + LeakyReLU (``-k bn_leaky``; ``ops/bn_leaky.py``) at
+the ten training layers' shapes at batch 32, a ragged cut view and an NCHW
+tensor: kernel A's means within 1e-6 of max |x| and variances rtol 1e-5 of
+``batch_stats_plain`` (fp32 sums of up to 1 M terms in two orders), B's
+output bit-equal to the plain ops on the statistics it used and within
+1e-5 of the plain version, C and D within 1e-5 of the closed form on the
+same statistics (dx against its largest entry, each per-channel sum
+against the sum of its terms' magnitudes); two runs and a graph replay
+bit-equal to the eager call; 9 / 10 / 10 / 10 launches of A / B / C / D per
+training step of both trunks, none in eval mode or in bfloat16, whose
+results equal the op-by-op path's bit for bit.
 The spans of the compiled epoch (``-k spans``): a chunked ``fit`` records
 its graph's warm, drain, capture and replays in that order under its
 ``fit`` span, the capture's ``kernels`` equals the kernel records the
 profiler shows for one replay, and on an idle card a replay's first device
 record starts after its ``graph.replay`` span starts, on the one clock.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -1854,7 +1867,7 @@ def test_graphed_epoch_equals_the_eager_epoch(cuda):
 
 def _graphed_against_eager(cuda):
     from tpuvae_torch import ops
-    from tpuvae_torch.ops import fusedconv
+    from tpuvae_torch.ops import _build
     from tpuvae_torch.graphs import CapturedGraph, capture_stream
 
     state, gen, epoch, data = _hybrid_epoch(cuda)
@@ -1878,7 +1891,7 @@ def _graphed_against_eager(cuda):
     assert not torch.equal(got[0], first[0])
     # the kernels hand their tickets back as 0: no replay needs a memset
     with torch.cuda.stream(capture_stream(cuda)):
-        tickets = fusedconv.reserve_tickets(cuda, 16)
+        tickets = _build.reserve_tickets(cuda, 16)
     assert int(tickets.count_nonzero()) == 0
     for p, q in zip(state.model.parameters(), clone.model.parameters()):
         for key in ("step", "exp_avg", "exp_avg_sq"):
@@ -2452,3 +2465,226 @@ def test_spans_on_an_idle_card_a_replay_runs_after_its_span(cuda):
     for rep, first in zip(replays, sorted(firsts.values())):
         assert rep["start_ns"] <= first <= rep["start_ns"] + 50_000_000, (
             first - rep["start_ns"])
+
+
+# -- the trunks' BatchNorm + LeakyReLU (ops/bn_leaky.py) -----------------------------
+
+# (N, C, H, W, layout): the ten training layers at batch 32 (encoder 1 with
+# statistics given, 2-5 channels-last, decoder 0-4 the cut view of the
+# transposed convolution's output), a ragged small cut view, an NCHW
+# tensor (the scalar path) and decoder layer 4 with the NCHW gradient the
+# main path hands it (the last transposed convolution has one output
+# channel; the scalar path on the cut view)
+BN_LEAKY_CASES = [
+    (32, 64, 32, 256, "given"), (32, 128, 16, 128, "channels_last"),
+    (32, 256, 8, 64, "channels_last"), (32, 512, 4, 32, "channels_last"),
+    (32, 512, 2, 16, "channels_last"), (32, 512, 4, 32, "cut"),
+    (32, 256, 8, 64, "cut"), (32, 128, 16, 128, "cut"), (32, 64, 32, 256, "cut"),
+    (32, 32, 64, 512, "cut"), (3, 12, 5, 7, "cut"), (3, 5, 7, 9, "nchw"),
+    (32, 32, 64, 512, "cut_nchw_grad")]
+BN_LEAKY_IDS = ["enc1", "enc2", "enc3", "enc4", "enc5", "dec0", "dec1", "dec2",
+                "dec3", "dec4", "ragged", "nchw", "dec4_nchw_grad"]
+
+
+def _bn_leaky_case(dev, n, c, h, w, kind, seed):
+    from tpuvae_torch.models.layers import BatchNorm2d
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "nchw":
+        x = torch.randn((n, c, h, w), generator=g, device=dev) * 1.5 + 0.25
+    elif kind.startswith("cut"):         # the view itself, not a dense copy
+        full = torch.randn((n, h + 1, w + 1, c), generator=g, device=dev)
+        x = (full * 1.5 + 0.25).permute(0, 3, 1, 2)[:, :, :h, :w]
+    else:
+        x = torch.randn((n, h, w, c), generator=g, device=dev)
+        x = (x * 1.5 + 0.25).permute(0, 3, 1, 2)
+    if kind == "cut_nchw_grad":
+        gy = torch.randn((n, c, h, w), generator=g, device=dev)
+    else:
+        gy = torch.randn((n, h, w, c), generator=g,
+                         device=dev).permute(0, 3, 1, 2)
+    bn = BatchNorm2d(c).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand((c,), generator=g, device=dev) + 0.5)
+        bn.bias.copy_(torch.randn((c,), generator=g, device=dev) * 0.2)
+        bn.running_mean.copy_(torch.randn((c,), generator=g, device=dev))
+        bn.running_var.copy_(torch.rand((c,), generator=g, device=dev) + 0.5)
+    stats = None
+    if kind == "given":
+        stats = (x.mean(dim=(0, 2, 3)) + 0.01,
+                 x.var(dim=(0, 2, 3), unbiased=False) * 1.1)
+    return x, gy, bn, stats
+
+
+def _bn_leaky_run(x, gy, bn, stats):
+    """Forward and backward through the kernels: ``(y, grads, running
+    statistics)``, grads by x, weight, bias (and mean, var if given)."""
+    from tpuvae_torch.ops import bn_leaky as bnl
+
+    xl = x.detach().requires_grad_(True)
+    leaves = [xl, bn.weight, bn.bias]
+    if stats is None:
+        y = bnl.bn_leaky(xl, bn)
+    else:
+        mean, var = (t.detach().requires_grad_(True) for t in stats)
+        leaves += [mean, var]
+        y = bnl.bn_leaky_given(xl, mean, var, bn)
+    grads = torch.autograd.grad(y, leaves, gy)
+    # y detached: no autograd graph (and no leaf's gradient accumulator made
+    # on this stream) outlives the run, so a CUDA graph can capture the next
+    return y.detach(), grads, (bn.running_mean.clone(),
+                               bn.running_var.clone(),
+                               bn.num_batches_tracked.clone())
+
+
+@pytest.mark.parametrize("n,c,h,w,kind", BN_LEAKY_CASES, ids=BN_LEAKY_IDS)
+def test_bn_leaky_kernels_match_plain(cuda, n, c, h, w, kind):
+    """Kernels A-D against the plain versions on the card.  A's statistics
+    against ``batch_stats_plain``: means within 1e-6 of max |x|, variances
+    rtol 1e-5 (fp32 sums of n terms in two orders); the running statistics
+    moved by them within rtol 1e-6.  B's output bit-equal to the plain ops
+    on the statistics it normalised with (each op rounds to nearest, as
+    B's intrinsics do), and within rtol / atol 1e-5 of the plain version.
+    C and D against the closed form (``bn_leaky_backward_plain``) on the
+    same statistics, whose LeakyReLU mask is then the same bit for bit: dx
+    within 1e-5 of its largest entry, each per-channel sum within 1e-5 of
+    the sum of its terms' magnitudes.  y and dx in x's layout:
+    channels-last unless x is NCHW."""
+    from tpuvae_torch.ops import bn_leaky as bnl
+
+    x, gy, bn, stats = _bn_leaky_case(cuda, n, c, h, w, kind, n * c + h)
+    twin = copy.deepcopy(bn)
+    if stats is None:        # A again, on a copy: what the op normalises with
+        kstats = bnl._stats(x, copy.deepcopy(bn), bnl._Launch(x))
+        mean, var = kstats[0], kstats[1]
+        pm, pv = bnl.batch_stats_plain(x)
+        assert (mean - pm).abs().max() <= 1e-6 * x.abs().max()
+        torch.testing.assert_close(var, pv, rtol=1e-5, atol=1e-7)
+    else:
+        mean, var = stats
+    y, grads, running = _bn_leaky_run(x, gy, bn, stats)
+    torch.cuda.synchronize()
+    fmt = torch.contiguous_format if kind == "nchw" else torch.channels_last
+    assert y.is_contiguous(memory_format=fmt)
+    assert grads[0].is_contiguous(memory_format=fmt)
+    for got, old, new in zip(running[:2], (twin.running_mean, twin.running_var),
+                             (mean, var)):
+        torch.testing.assert_close(got, old * 0.99 + 0.01 * new, rtol=1e-6,
+                                   atol=1e-7)
+    assert int(running[2]) == int(twin.num_batches_tracked) + 1
+    shape = (1, -1, 1, 1)
+    rstd = 1.0 / torch.sqrt(var + bn.eps)
+    scale = rstd * bn.weight.detach()
+    xm = x - mean.view(shape)
+    pre = xm * scale.view(shape) + bn.bias.detach().view(shape)
+    assert torch.equal(y, torch.nn.functional.leaky_relu(pre, 0.01))
+    plain = (bnl.bn_leaky_plain(x, copy.deepcopy(twin)) if stats is None else
+             bnl.bn_leaky_given_plain(x, mean, var, copy.deepcopy(twin)))
+    torch.testing.assert_close(y, plain, rtol=1e-5, atol=1e-5)
+    back = bnl.bn_leaky_backward_plain(
+        gy, x, mean, var, bn.weight.detach(), bn.bias.detach(), bn.eps,
+        given=stats is not None)
+    assert (grads[0] - back[0]).abs().max() <= 1e-5 * back[0].abs().max()
+    gp = torch.where(pre > 0, gy, gy * 0.01)
+    mag1 = (gp * xm).abs().sum(dim=(0, 2, 3))
+    mag0 = gp.abs().sum(dim=(0, 2, 3))
+    assert ((grads[1] - back[1]).abs() <= 1e-5 * mag1 * rstd).all()
+    assert ((grads[2] - back[2]).abs() <= 1e-5 * mag0).all()
+    if stats is not None:
+        assert ((grads[3] - back[3]).abs() <= 1e-5 * mag0 * scale).all()
+        assert ((grads[4] - back[4]).abs()
+                <= 1e-5 * mag1 * scale * rstd * rstd).all()
+
+
+@pytest.mark.parametrize("n,c,h,w,kind", [BN_LEAKY_CASES[i] for i in (0, 5, 9, 10)],
+                         ids=[BN_LEAKY_IDS[i] for i in (0, 5, 9, 10)])
+def test_bn_leaky_kernels_are_deterministic_and_replay_bit_equal(
+        cuda, n, c, h, w, kind):
+    """Two eager runs from the same state give the same bits (no float
+    atomics), and a CUDA graph's replay of forward + backward equals the
+    eager call bit for bit; the replay counts each kernel once."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.graphs import CapturedGraph
+
+    x, gy, bn, stats = _bn_leaky_case(cuda, n, c, h, w, kind, 7)
+    start = copy.deepcopy(bn.state_dict())
+    runs = []
+    for _ in range(2):
+        bn.load_state_dict(start)
+        runs.append(_bn_leaky_run(x, gy, bn, stats))
+    for a, b in zip(_flat(runs[0]), _flat(runs[1])):
+        assert torch.equal(a, b)
+    bn.load_state_dict(start)
+    graphed = CapturedGraph(lambda: _flat(_bn_leaky_run(x, gy, bn, stats)),
+                            cuda, reserve_batch=n, what="bn_leaky")
+    eager = [t.clone() for t in graphed()]
+    bn.load_state_dict(start)
+    ops.reset_launch_counts()
+    replayed = graphed()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, replayed):
+        assert torch.equal(a, b)
+    counts = ops.launch_counts()
+    assert counts["bn_leaky_stats"] == (0 if stats is not None else 1)
+    assert counts["bn_leaky_norm"] == counts["bn_leaky_grad_sums"] == \
+        counts["bn_leaky_grad_input"] == 1
+    graphed.close()
+
+
+def _flat(run):
+    y, grads, running = run
+    return [y, *grads, *running]
+
+
+def test_bn_leaky_launches_per_trunk_step_and_not_for_eval_or_bf16(cuda):
+    """A training step of both fp32 trunks at batch 32 on 128 x 1024 mel
+    images launches A 9 times, B, C and D 10 times each (encoder layer 1
+    takes kernel 6's statistics; the decoder's last layer has no
+    BatchNorm).  Eval mode and the bf16 trunks launch none, and give the
+    op-by-op path's results bit for bit (the rule patched off)."""
+    from tpuvae_torch import ops
+    from tpuvae_torch.models.layers import (
+        ConvDecoderTrunk,
+        ConvEncoderTrunk,
+        lecun_init_,
+    )
+    from tpuvae_torch.ops import bn_leaky as bnl
+    from tpuvae_torch.parity import deterministic_algorithms
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((32, 128, 1024, 1), generator=g, device=cuda)
+
+    def step(dtype, train):
+        init = torch.Generator().manual_seed(3)
+        enc = lecun_init_(ConvEncoderTrunk(dtype=dtype), init)
+        dec = lecun_init_(ConvDecoderTrunk(feature_hw=(2, 16), dtype=dtype),
+                          init)
+        enc, dec = enc.to(cuda).train(train), dec.to(cuda).train(train)
+        out = dec(enc(x))
+        loss = out.float().square().mean()
+        params = [*enc.parameters(), *dec.parameters()]
+        return [out, *torch.autograd.grad(loss, params),
+                *enc.buffers(), *dec.buffers()]
+
+    ops.reset_launch_counts()
+    step(torch.float32, True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["bn_leaky_stats"], counts["bn_leaky_norm"],
+            counts["bn_leaky_grad_sums"], counts["bn_leaky_grad_input"]) == (
+                9, 10, 10, 10)
+    for dtype, train in ((torch.float32, False), (torch.bfloat16, True),
+                         (torch.bfloat16, False)):
+        ops.reset_launch_counts()
+        with deterministic_algorithms():
+            got = step(dtype, train)
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(bnl, "takes_kernels", lambda x, bn: False)
+                want = step(dtype, train)
+        torch.cuda.synchronize()
+        assert not any(ops.launch_counts()[k] for k in (
+            "bn_leaky_stats", "bn_leaky_norm", "bn_leaky_grad_sums",
+            "bn_leaky_grad_input")), (dtype, train)
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (dtype, train)

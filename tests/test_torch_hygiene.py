@@ -135,8 +135,13 @@ def test_kernel_library_is_not_built_on_import():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # six kernels; kernel 6 counts its two halves apart
-    assert out.stdout.strip() == ("[('fusedconv_conv0', 0), "
+    # seven kernels; kernel 6 counts its two halves apart, BatchNorm +
+    # LeakyReLU its four passes
+    assert out.stdout.strip() == ("[('bn_leaky_grad_input', 0), "
+                                  "('bn_leaky_grad_sums', 0), "
+                                  "('bn_leaky_norm', 0), "
+                                  "('bn_leaky_stats', 0), "
+                                  "('fusedconv_conv0', 0), "
                                   "('fusedconv_conv1', 0), "
                                   "('masked_median_select', 0), "
                                   "('pairwise', 0), ('stft_dense', 0), "

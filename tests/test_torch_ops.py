@@ -264,11 +264,18 @@ def test_wrappers_run_plain_versions_on_cpu_without_launching(clips):
     got = ops.fusedconv.fused_trunk2_forward(*args)
     want = ops.fusedconv.fused_trunk2_forward_plain(*args)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    bn = torch.nn.BatchNorm2d(4)
+    h = torch.from_numpy(clips[:1, :96].reshape(2, 4, 3, 4))
+    torch.testing.assert_close(ops.bn_leaky.bn_leaky(h, bn),
+                               ops.bn_leaky.bn_leaky_plain(h, bn),
+                               rtol=0, atol=0)
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.launch_counts()) == {"stft_features", "tuning",
                                         "masked_median_select", "pairwise",
                                         "stft_dense", "fusedconv_conv0",
-                                        "fusedconv_conv1"}
+                                        "fusedconv_conv1", "bn_leaky_stats",
+                                        "bn_leaky_norm", "bn_leaky_grad_sums",
+                                        "bn_leaky_grad_input"}
 
 
 def test_wrappers_refuse_other_devices():

@@ -21,7 +21,7 @@ import traceback
 
 import torch
 
-from tpuvae_torch.ops import _build, fusedconv
+from tpuvae_torch.ops import _build
 from tpuvae_torch.utils.logging import span
 
 
@@ -43,7 +43,7 @@ class CapturedGraph:
     The first call runs ``fn`` eagerly on the graph's own stream: it is real
     work (an epoch, a step, a chunk of steps), and it sets up what a capture
     cannot (cuBLAS and cuDNN handles and algorithm choice, the kernels'
-    libraries, Adam's state, NCCL's communicator, kernel 6's ticket buffer
+    libraries, Adam's state, NCCL's communicator, the kernels' ticket buffer
     for the stream, reserved for ``reserve_batch`` images where the caller
     trains).  With ``warmup`` the first call runs ``warmup`` eagerly instead
     (work whose result the caller discards, for a loop that runs once) and
@@ -112,7 +112,7 @@ class CapturedGraph:
 
     def _eager(self):
         if self.reserve_batch is not None:
-            fusedconv.reserve_tickets(self.device, self.reserve_batch)
+            _build.reserve_tickets(self.device, self.reserve_batch)
         return (self.fn if self.warmup is None else self.warmup)()
 
     def close(self) -> None:

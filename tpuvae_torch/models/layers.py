@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuvae_torch.ops import bn_leaky as bnl
 from tpuvae_torch.ops.fusedconv import LEAKY_SLOPE, fused_trunk2
 
 # flax's lecun_normal draws a standard normal truncated to [-2, 2] and
@@ -65,30 +66,16 @@ def _flax_batch_norm(bn, x: torch.Tensor, dims, stats=None) -> torch.Tensor:
     ``x`` is widened first: the statistics and the affine map are float32
     (flax's ``force_float32_reductions``), the result ``bn.dtype``."""
     x = x.float()
-    if stats is None:
-        mean = x.mean(dim=dims)
-        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
-    else:
-        mean, var = stats
-    _move_running_stats(bn, mean, var)
+    mean, var = bnl.batch_stats_plain(x, dims) if stats is None else stats
+    bnl.move_running_stats(bn, mean, var)
     return _flax_normalize(bn, x, mean, var)
 
 
 def _flax_normalize(bn, x: torch.Tensor, mean, var) -> torch.Tensor:
     """``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, flax's
     order, rounded once to ``bn.dtype``."""
-    shape = (1, -1) + (1,) * (x.dim() - 2)       # channels are dim 1
-    y = ((x.float() - mean.view(shape))
-         * (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
-         + bn.bias.view(shape))
-    return y.to(bn.dtype)
-
-
-def _move_running_stats(bn, mean: torch.Tensor, var: torch.Tensor) -> None:
-    with torch.no_grad():
-        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
-        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
-        bn.num_batches_tracked.add_(1)
+    return bnl.normalize_plain(x.float(), mean, var, bn.weight, bn.bias,
+                               bn.eps).to(bn.dtype)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -140,6 +127,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return _eval_batch_norm(self, x)
         return _flax_batch_norm(self, x, (0, 2, 3), stats)
+
+    def leaky(self, x: torch.Tensor, stats=None) -> torch.Tensor:
+        """``F.leaky_relu(self(x, stats), 0.01)``: a trunk layer's
+        normalisation and activation.  Where :func:`bn_leaky.takes_kernels`
+        holds (a CUDA float32 tensor in training) through the kernels of
+        ``ops/bn_leaky.py``, else op by op."""
+        if bnl.takes_kernels(x, self):
+            if stats is None:
+                return bnl.bn_leaky(x, self)
+            return bnl.bn_leaky_given(x, *stats, self)
+        return F.leaky_relu(self(x, stats), LEAKY_SLOPE)
 
 
 def apply_dropout(x: torch.Tensor, rate: float, training: bool,
@@ -306,7 +304,7 @@ class ConvEncoderTrunk(nn.Module):
             h = x.permute(0, 3, 1, 2)         # (B, 1, H, W) view, no copy
             layers = zip(self.conv, self.norm)
         for conv, norm in layers:
-            h = F.leaky_relu(norm(conv(h)), LEAKY_SLOPE)
+            h = norm.leaky(conv(h))
         return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
 
     def _fused_layers(self, x: torch.Tensor) -> torch.Tensor:
@@ -318,9 +316,9 @@ class ConvEncoderTrunk(nn.Module):
             x, c0.weight.permute(2, 3, 1, 0), c0.bias, n0.weight, n0.bias,
             c1.weight.permute(2, 3, 1, 0), c1.bias, n0.eps, running0)
         if self.training:
-            _move_running_stats(n0, *stats0)
+            bnl.move_running_stats(n0, *stats0)
         h = y1.permute(0, 3, 1, 2)            # channels-last view, no copy
-        return F.leaky_relu(n1(h, stats1), LEAKY_SLOPE)
+        return n1.leaky(h, stats1)
 
 
 class ConvDecoderTrunk(nn.Module):
@@ -345,5 +343,5 @@ class ConvDecoderTrunk(nn.Module):
         fh, fw = self.feature_hw
         h = x.to(self.dtype).reshape(x.shape[0], fh, fw, 512).permute(0, 3, 1, 2)
         for conv, norm in zip(self.conv[:-1], self.norm):
-            h = F.leaky_relu(norm(conv(h)), LEAKY_SLOPE)
+            h = norm.leaky(conv(h))
         return self.conv[-1](h).permute(0, 2, 3, 1)

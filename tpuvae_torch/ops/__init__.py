@@ -13,6 +13,10 @@ kernel                      replaces (Pallas, tpuvae/ops/)          wrapper
 ``fusedconv_conv0``,        fusedconv.py:67 ``_conv0_kernel``,      :func:`fusedconv.conv0_stats`,
 ``fusedconv_conv1``         :88 ``_conv1_kernel``                   :func:`fusedconv.conv1_norm_stats`,
                                                                     :func:`fusedconv.fused_trunk2`
+``bn_leaky_stats``,         none: BatchNorm + LeakyReLU of the      :func:`bn_leaky.bn_leaky`,
+``bn_leaky_norm``,          trunks' layers 1-5 (encoder) and 0-4    :func:`bn_leaky.bn_leaky_given`
+``bn_leaky_grad_sums``,     (decoder) in training, which the JAX
+``bn_leaky_grad_input``     package leaves to XLA
 ==========================  ======================================  ===========================
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
@@ -25,6 +29,7 @@ the capture, which launches nothing.
 
 from tpuvae_torch.ops import (  # noqa: F401
     _build,
+    bn_leaky,
     fusedconv,
     pairwise,
     select,

@@ -47,6 +47,7 @@ _EXTRA_FLAGS = {
     "pairwise": [],
     "stft_dense": ["-ldl"],      # looks cuTensorMapEncodeTiled up at run time
     "fusedconv": [],
+    "bn_leaky": [],
 }
 
 _LOCK = threading.Lock()
@@ -54,6 +55,9 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _KERNELS: list["Kernel"] = []
 # the launches recorded by the CUDA graph being captured, if one is
 _TALLY: dict["Kernel", int] | None = None
+# per (device, stream): the kernels' tickets, int32 zeros that the kernels
+# set back to 0
+_TICKETS: dict = {}
 
 
 def _nvcc() -> str:
@@ -196,6 +200,33 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def reserve_tickets(device, batch: int):
+    """The current stream's ticket buffer, at least ``batch + 1`` zeros,
+    allocated now if it is missing or short.  The kernels that finish
+    their sums in a fixed order (kernel 6, one ticket per image and one for
+    the batch; ``bn_leaky``, one per channel group) hand their tickets back
+    as 0, so one buffer serves every launch on its stream, replays of a
+    CUDA graph included.  A graph is captured on its own stream: reserve
+    that stream's buffer before the capture, outside the graph's memory
+    pool (``graphs.CapturedGraph`` does, with its eager first call)."""
+    import torch
+
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(index).cuda_stream
+    key = (index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < batch + 1:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the kernels need a ticket buffer of "
+                f"{batch + 1} on the stream being captured: call "
+                "_build.reserve_tickets on that stream before the capture")
+        t = torch.zeros(max(batch + 1, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def ptr(t) -> ctypes.c_void_p:
