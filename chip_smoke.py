@@ -57,13 +57,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    and both variances within their stated tolerances, y1 within 1e-5 of
    its largest magnitude, two runs bit-equal; later, with the kernels'
    timings, the trunks' BatchNorm + LeakyReLU kernels (``bn_leaky``) at
-   decoder layer 4's (cut view, NCHW gradient), encoder layer 2's and
+   decoder layer 4's (NCHW cut view and gradient), encoder layer 2's and
    encoder layer 1's (statistics given) training shapes: a training pass
    held against the plain versions (y, the running statistics, dx, d
    weight, d bias, and d mean, d var where given), then forward, backward
    and a training pass timed as CUDA graphs beside the bound, the plain
    version and ``F.batch_norm`` + ``F.leaky_relu`` (the ``bn_leaky`` row);
-   the Hybrid's training steps launch A / B / C / D 9 / 10 / 10 / 10 times
+   the Hybrid's training steps launch A / B / C / D 9 / 10 / 11 / 11 times
    each (phase 11);
 10. train the Conditional VAE and cluster its latents:
     ``run_conditional_vae`` through the entry point at full width (mel
@@ -903,31 +903,155 @@ def check_fusedconv(torch, args) -> dict:
     return errs
 
 
+def check_fused_trunk2_backward(torch, args, eps: float = 1e-5) -> dict:
+    """Kernel 6's differentiable pair in training (``fused_trunk2``: the
+    kernels forward; backward in closed form, one ``convolution_backward``
+    for layer 1, kernels C and D for layer 0) at the main path's shape,
+    against autograd through the plain forward (``fusedconv``'s plain
+    pieces: layer 0's convolution, its batch statistics and fold, the
+    LeakyReLU, layer 1's convolution and batch statistics) on the same
+    inputs and output gradients (y1, mean1, var1).  The reference's
+    LeakyReLU takes its slope from kernel C's mask (flax's normalisation of
+    kernel 6's y0 with kernel 6's statistics): the plain forward's own
+    statistics part from the kernel's by rounding, which flips the slope of
+    elements within an ulp of 0 and moves dx there by a whole term
+    (``mask_flips`` counts them).  dx within 1e-5 of its largest entry;
+    every entry of d w0, d b0, d gamma0, d beta0, d w1, d b1 within 1e-5
+    of the sum of its terms' magnitudes in the reference's own sums.
+    ``bn_leaky_backward`` (C and D for layer 0) is also held on the
+    arguments the backward handed it (a channels-last y0, a cut view of
+    cuDNN's data gradient) to ``bn_leaky_backward_plain``.  Raises on a
+    miss; returns the largest errors."""
+    import torch.nn.functional as F
+
+    from tpuvae_torch.ops import bn_leaky as bnl
+    from tpuvae_torch.ops import fusedconv as fc
+
+    dev = args[0].device
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    b, h, w = args[0].shape[:3]
+    cot = [torch.randn(s, generator=g, device=dev)
+           for s in ((b, h // 4, w // 4, 64), (64,), (64,))]
+    with torch.no_grad():
+        _, (m0k, v0k), _, y0k, _ = fc._pair_forward(
+            fc._conv0_bn, fc._conv1_bn, *args, eps, None)
+        rstd = 1.0 / torch.sqrt(v0k + eps)
+        pre_c = ((y0k - m0k) * (rstd * args[3]) + args[4])
+        mask = pre_c > 0
+        del pre_c, y0k
+
+    seen = {}
+    real = bnl.bn_leaky_backward
+
+    def spy(*a):
+        seen["args"], seen["out"] = a, real(*a)
+        return seen["out"]
+
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    bnl.bn_leaky_backward = spy
+    try:
+        y1, _, (m1, v1) = fc.fused_trunk2(*leaves, eps)
+        got = torch.autograd.grad([y1, m1, v1], leaves, cot)
+    finally:
+        bnl.bn_leaky_backward = real
+    del y1, m1, v1
+    check("args" in seen, "fused_trunk2: the backward ran no bn_leaky_backward")
+
+    ref = [a.detach().clone().requires_grad_(True) for a in args]
+    x, w0, b0, g0, be0, w1, b1 = ref
+    y0, (m0, v0, _), (sc0, sh0) = fc._conv0_bn_plain(
+        x[..., 0], w0[:, :, 0, :], b0, g0, be0, eps)
+    pre = y0 * sc0 + sh0
+    z = torch.where(mask, pre, pre * fc.LEAKY_SLOPE)
+    y1r = fc._conv_s2_same(z, w1, b1)
+    for t in (y0, pre, y1r):
+        t.retain_grad()
+    m1r, v1r = fc._finalize(*fc._image_sums(y1r),
+                            y1r.shape[0] * y1r.shape[1] * y1r.shape[2])
+    torch.autograd.backward([y1r, m1r, v1r], cot)
+    want = [t.grad for t in ref]
+    with torch.no_grad():
+        flips = int(((pre > 0) != mask).sum())
+        gy0, gpre = y0.grad.permute(0, 3, 1, 2).abs(), pre.grad.abs()
+        gy1 = y1r.grad.permute(0, 3, 1, 2).abs()
+        xp = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1)).abs()
+        zp = F.pad(z.permute(0, 3, 1, 2), (0, 1, 0, 1)).abs()
+        r0 = torch.rsqrt(v0 + eps)
+        mags = [
+            torch.nn.grad.conv2d_weight(xp, (32, 1, 3, 3), gy0, stride=2)
+            .permute(2, 3, 1, 0),
+            gy0.sum(dim=(0, 2, 3)),
+            ((gpre * y0.abs()).sum(dim=(0, 1, 2))
+             + m0.abs() * gpre.sum(dim=(0, 1, 2))) * r0,
+            gpre.sum(dim=(0, 1, 2)),
+            torch.nn.grad.conv2d_weight(zp, (64, 32, 3, 3), gy1, stride=2)
+            .permute(2, 3, 1, 0),
+            gy1.sum(dim=(0, 2, 3))]
+        del xp, zp, gy0, gpre, gy1
+        errs = {"mask_flips": flips,
+                "rel_err_dx": ((got[0] - want[0]).abs().max()
+                               / want[0].abs().max()).item()}
+        check(errs["rel_err_dx"] <= 1e-5,
+              f"fused_trunk2: dx off autograd of the plain forward by "
+              f"{errs['rel_err_dx']:.3g} of its largest entry")
+        for name, a, c, mag in zip(("w0", "b0", "gamma0", "beta0", "w1", "b1"),
+                                   got[1:], want[1:], mags):
+            check(a.shape == c.shape, f"fused_trunk2: d {name} shape "
+                  f"{tuple(a.shape)}, want {tuple(c.shape)}")
+            err = ((a - c).abs() / mag.clamp_min(1e-30)).max().item()
+            errs[f"rel_err_d{name}"] = err
+            check(err <= 1e-5, f"fused_trunk2: d {name} off autograd of the "
+                  f"plain forward by {err:.3g} of the sum of its terms' "
+                  f"magnitudes")
+    del ref, y0, pre, z, y1r, want, got
+
+    gz, y0c, mean, var, raw, gamma, beta, eps_ = seen["args"]
+    layer0 = bn_grads_against_closed_form(
+        torch, seen["out"], gz, y0c, mean, var, gamma, beta, eps_, False,
+        "bn_leaky_backward (layer 0)", raw=raw)
+    errs.update({f"layer0_{k}": v for k, v in layer0.items()})
+    errs["layer0_strides"] = {"g": list(gz.stride()), "x": list(y0c.stride())}
+    log(f"fused_trunk2 at {tuple(args[0].shape)}, training: gradients against "
+        f"autograd of the plain forward ({flips} LeakyReLU slopes taken from "
+        f"kernel C's mask): dx {errs['rel_err_dx']:.3g} of its largest; "
+        + ", ".join(f"d {n} {errs['rel_err_d' + n]:.3g}"
+                    for n in ("w0", "b0", "gamma0", "beta0", "w1", "b1"))
+        + " of their terms' magnitudes; layer 0's bn_leaky_backward (g "
+        f"strides {errs['layer0_strides']['g']}, x "
+        f"{errs['layer0_strides']['x']}): dx {layer0['rel_err_dx']:.3g}, "
+        f"d gamma {layer0['rel_err_d_weight']:.3g}, d beta "
+        f"{layer0['rel_err_d_bias']:.3g}; limits 1e-5")
+    return errs
+
+
 # the trunk layers whose BatchNorm + LeakyReLU chip_smoke checks and times,
 # at batch 32 on 128 x 1024 mel images, each as the main path hands it over:
 # (shape, x's layout, the incoming gradient's layout, statistics given).
-# Decoder layer 4 is the largest: the transposed convolution's cut view, and
-# an NCHW gradient (the last transposed convolution has one output channel),
-# which takes the kernels' scalar path.  Encoder layer 2 is channels-last;
-# encoder layer 1 takes kernel 6's statistics (the given form).
+# Decoder layer 4 is the largest: the float32 decoder's NCHW transposed
+# convolution's cut view, and an NCHW gradient, which the kernels walk
+# pixel-major.  Encoder layer 2 is channels-last; encoder layer 1 takes
+# kernel 6's statistics (the given form).
 BN_LEAKY_SHAPES = {
-    "dec4": ((BATCH, 32, 64, 512), "cut", "nchw", False),
+    "dec4": ((BATCH, 32, 64, 512), "cut_nchw", "nchw", False),
     "enc2": ((BATCH, 128, 16, 128), "channels_last", "channels_last", False),
     "enc1": ((BATCH, 64, 32, 256), "channels_last", "channels_last", True)}
 
 
 def bn_leaky_inputs(torch, dev, shape, layout, grad_layout, seed: int):
-    """A trunk activation in its layout (channels-last, or the cut
-    ``y[:, :, :h, :w]`` of a channels-last (h + 1) x (w + 1) output), a
-    gradient in ``grad_layout`` (channels-last or NCHW) and a BatchNorm
-    with non-trivial parameters and running statistics."""
+    """A trunk activation in its layout (channels-last, or the NCHW cut
+    ``y[:, :, :h, :w]`` of an (h + 1) x (w + 1) output), a gradient in
+    ``grad_layout`` (channels-last or NCHW) and a BatchNorm with
+    non-trivial parameters and running statistics."""
     from tpuvae_torch.models.layers import BatchNorm2d
 
     n, c, h, w = shape
     g = torch.Generator(device=dev).manual_seed(seed)
-    extra = 1 if layout == "cut" else 0
-    full = torch.randn((n, h + extra, w + extra, c), generator=g, device=dev)
-    x = (full * 1.5 + 0.25).permute(0, 3, 1, 2)[:, :, :h, :w]
+    if layout == "cut_nchw":
+        full = torch.randn((n, c, h + 1, w + 1), generator=g, device=dev)
+        x = (full * 1.5 + 0.25)[:, :, :h, :w]
+    else:
+        full = torch.randn((n, h, w, c), generator=g, device=dev)
+        x = (full * 1.5 + 0.25).permute(0, 3, 1, 2)
     if grad_layout == "nchw":
         gy = torch.randn((n, c, h, w), generator=g, device=dev)
     else:
@@ -1017,8 +1141,24 @@ def check_bn_leaky(torch, x, gy, bn, given: bool) -> dict:
                                    rtol=1e-5, atol=1e-6)
     check(int(bn.num_batches_tracked) == int(twin.num_batches_tracked),
           "bn_leaky: num_batches_tracked not moved as the plain version's")
+    return {"max_abs_err_y": (y - want).abs().max().item(),
+            **bn_grads_against_closed_form(torch, grads, gy, x, mean, var, w,
+                                           b, eps, given, "bn_leaky")}
+
+
+def bn_grads_against_closed_form(torch, grads, gy, x, mean, var, w, b,
+                                 eps: float, given: bool, what: str,
+                                 raw=None) -> dict:
+    """``grads = (dx, d weight, d bias[, d mean, d var])`` of the
+    BatchNorm + LeakyReLU kernels against ``bn_leaky_backward_plain`` on
+    the same statistics (``raw`` the caller's unclamped variance, else
+    recomputed from ``x``): dx within 1e-5 of its largest entry; d weight,
+    d bias (and d mean, d var where given) each within 1e-5 of the sum of
+    its terms' magnitudes.  Raises on a miss; returns the largest errors."""
+    from tpuvae_torch.ops import bn_leaky as bnl
+
     back = bnl.bn_leaky_backward_plain(gy, x, mean, var, w, b, eps,
-                                       given=given)
+                                       given=given, raw=raw)
     shape = (1, -1, 1, 1)
     rstd = 1.0 / torch.sqrt(var + eps)
     scale = rstd * w
@@ -1027,11 +1167,11 @@ def check_bn_leaky(torch, x, gy, bn, given: bool) -> dict:
     gp = torch.where(pre > 0, gy, gy * bnl.LEAKY_SLOPE)
     mag0 = gp.abs().sum(dim=(0, 2, 3))
     mag1 = (gp * xm).abs().sum(dim=(0, 2, 3))
-    errs = {"max_abs_err_y": (y - want).abs().max().item(),
-            "rel_err_dx": ((grads[0] - back[0]).abs().max()
+    del pre, gp, xm
+    errs = {"rel_err_dx": ((grads[0] - back[0]).abs().max()
                            / back[0].abs().max()).item()}
     check(errs["rel_err_dx"] <= 1e-5,
-          f"bn_leaky: dx off the closed form by {errs['rel_err_dx']:.3g} of "
+          f"{what}: dx off the closed form by {errs['rel_err_dx']:.3g} of "
           f"its largest entry")
     sums = [("d_weight", 1, mag1 * rstd), ("d_bias", 2, mag0)]
     if given:
@@ -1040,7 +1180,7 @@ def check_bn_leaky(torch, x, gy, bn, given: bool) -> dict:
     for name, i, mag in sums:
         err = ((grads[i] - back[i]).abs() / mag.clamp_min(1e-30)).max().item()
         errs[f"rel_err_{name}"] = err
-        check(err <= 1e-5, f"bn_leaky: {name} off the closed form by {err:.3g} "
+        check(err <= 1e-5, f"{what}: {name} off the closed form by {err:.3g} "
               f"of the sum of its terms' magnitudes")
     return errs
 
@@ -1503,13 +1643,15 @@ def train_hybrid_vae(torch, dev, work: Path, data2: Path) -> dict:
     for name in ("fusedconv_conv0", "fusedconv_conv1"):
         check(counts[name] == forwards, f"{name} launched {counts[name]} times "
               f"for {forwards} trunk forwards")
-    # each training step: B, C, D at all ten BatchNorm layers, A at the nine
-    # that gather their own statistics; eval passes launch none
+    # each training step: B at all ten BatchNorm layers, A at the nine that
+    # gather their own statistics, C and D at those ten and at encoder
+    # layer 0 (kernel 6's backward); eval passes launch none
     bn = [counts[f"bn_leaky_{k}"] for k in ("stats", "norm", "grad_sums",
                                              "grad_input")]
-    check(bn[1] > 0 and bn[1] == bn[2] == bn[3] and 10 * bn[0] == 9 * bn[1],
+    check(bn[1] > 0 and bn[2] == bn[3] and 10 * bn[0] == 9 * bn[1]
+          and 10 * bn[2] == 11 * bn[1],
           f"bn_leaky launched {bn} times (stats, norm, grad_sums, "
-          f"grad_input): not 9 / 10 / 10 / 10 per training step")
+          f"grad_input): not 9 / 10 / 11 / 11 per training step")
     n_rows_db = int((df["n_clusters"] > 1).sum())
     check(counts["pairwise"] == 4 + n_rows_db,
           f"kernel 5 launched {counts['pairwise']} times: one per sweep, one "
@@ -4331,7 +4473,9 @@ def run(torch, dev, work: Path, card: str) -> int:
     # ---- 9. kernel 6 against its plain version --------------------------------
     k6_args = fusedconv_inputs(torch, dev)
     k6_errs = check_fusedconv(torch, k6_args)
-    results["fusedconv"] = {"max_abs_err": k6_errs["y1"]}
+    k6_back = check_fused_trunk2_backward(torch, k6_args)
+    results["fusedconv"] = {"max_abs_err": k6_errs["y1"],
+                            "backward": k6_back}
 
     # ---- 10. train the Conditional VAE, cluster its latents ------------------
     data2 = Path(pre.pop("data2_dir"))
@@ -4704,8 +4848,9 @@ def run(torch, dev, work: Path, card: str) -> int:
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": "bytes", "library_ms": main_row["library_ms"],
         "path": "one training pass (A + B forward, C + D backward) at "
-                "decoder layer 4's cut view, 32 x 32 x 64 x 512; every fp32 "
-                "training step of the conv trunks (encoder 1-5, decoder 0-4)",
+                "decoder layer 4's NCHW cut view, 32 x 32 x 64 x 512; every "
+                "fp32 training step of the conv trunks (encoder 1-5, decoder "
+                "0-4; C + D also at encoder 0, in kernel 6's backward)",
         "bytes": main_row["bytes"], "flops": 0.0, "shapes": bn_rows})
     cvae_step = time_cvae_step(torch, dev, flush)
     log("cvae training step at full width, ms: " + json.dumps(

@@ -60,12 +60,17 @@ def _gen(seed):
 def _layout(kind, n, c, h, w, g, dtype=torch.float32):
     """An (n, c, h, w) tensor in the trunks' layouts: channels-last, NCHW,
     or the decoder's cut ``y[:, :, :h, :w]`` of a channels-last (h + 1) x
-    (w + 1) output."""
+    (w + 1) output or of an NCHW one (``cut_nchw``, the decoder's)."""
     if kind == "channels_last":
         base = torch.randn((n, h, w, c), generator=g, dtype=dtype)
         return (base * 1.5 + 0.3).permute(0, 3, 1, 2)
     if kind == "nchw":
         return torch.randn((n, c, h, w), generator=g, dtype=dtype) * 1.5 + 0.3
+    if kind == "cut_nchw":
+        full = torch.randn((n, c, h + 1, w + 1), generator=g, dtype=dtype)
+        x = (full * 1.5 + 0.3)[:, :, :h, :w]
+        assert not x.is_contiguous()
+        return x
     full = torch.randn((n, h + 1, w + 1, c), generator=g, dtype=dtype)
     x = (full * 1.5 + 0.3).permute(0, 3, 1, 2)[:, :, :h, :w]
     assert not x.is_contiguous(memory_format=torch.channels_last)
@@ -94,7 +99,7 @@ def _given_stats(x):
             x.var(dim=(0, 2, 3), unbiased=False).detach() * 1.1)
 
 
-LAYOUTS = ["channels_last", "nchw", "cut"]
+LAYOUTS = ["channels_last", "nchw", "cut", "cut_nchw"]
 
 
 # -- the plain versions equal the op-by-op code --------------------------------------
@@ -256,8 +261,9 @@ def _trunks(dtype, seed=40):
 
 
 def _today_trunks(enc, dec, x):
-    """Both trunks' forward as the parent ran it (layers 1-5 and 0-4 op by
-    op), through the modules' own convolutions and kernel 6's wrapper."""
+    """Both trunks' forward op by op (layers 1-5 and 0-4 as they ran before
+    the BatchNorm kernels), through the modules' own convolutions and
+    kernel 6's wrapper, in the trunks' layouts."""
     if enc.dtype == torch.float32:
         c0, c1, n0, n1 = enc.conv[0], enc.conv[1], enc.norm[0], enc.norm[1]
         running0 = None if enc.training else (n0.running_mean, n0.running_var)
@@ -275,6 +281,7 @@ def _today_trunks(enc, dec, x):
         h = F.leaky_relu(norm(conv(h)), SLOPE)
     z = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
     h = z.to(dec.dtype).reshape(z.shape[0], 1, 2, 512).permute(0, 3, 1, 2)
+    h = h.contiguous()                        # the decoder is NCHW
     for conv, norm in zip(dec.conv[:-1], dec.norm):
         h = F.leaky_relu(norm(conv(h)), SLOPE)
     return z, dec.conv[-1](h).permute(0, 2, 3, 1)
@@ -413,3 +420,72 @@ def test_output_keeps_the_inputs_memory_format(kind, channels_last):
     assert y.is_contiguous(memory_format=fmt)
     if channels_last:
         assert bnl.vector_width(x, y) == 4
+
+
+@pytest.mark.parametrize("kinds,want", [
+    (("nchw",), True), (("cut_nchw",), True), (("nchw", "cut_nchw"), True),
+    (("channels_last",), False), (("cut",), False),
+    (("cut", "nchw"), False)],
+    ids=["nchw", "cut_nchw", "cut_nchw_with_nchw_grad", "channels_last", "cut",
+         "mixed"])
+def test_pixel_major_where_every_tensor_runs_along_w(kinds, want):
+    ts = [_layout(k, 2, 8, 3, 5, _gen(52 + i)) for i, k in enumerate(kinds)]
+    assert bnl.pixel_major(*ts) is want
+
+
+@pytest.mark.parametrize("shape", TRAINING_SHAPES, ids=SHAPE_IDS)
+def test_pixel_major_plan_is_one_wave_over_every_pixel(shape):
+    """An NCHW launch: one channel a CTA across its 256 threads (a warp
+    reads 32 neighbouring pixels), at most one wave of CTAs, every pixel
+    covered."""
+    sms = 132
+    vec, lanes, groups, ctas, chunk = bnl.plan(shape, 1, sms, by_pixel=True)
+    n, c, h, w = shape
+    pixels = n * h * w
+    assert (vec, lanes, groups) == (1, 1, c)
+    assert ctas * chunk >= pixels > (ctas - 1) * chunk
+    assert groups * ctas <= bnl.CTAS_PER_SM * sms
+    assert groups * ctas >= bnl.CTAS_PER_SM * sms // 2
+    assert chunk >= bnl.THREADS                     # a pixel for every row
+
+
+@pytest.mark.parametrize("kind", ["channels_last", "cut_nchw"])
+def test_bn_leaky_backward_is_the_gradient_of_the_forward(kind):
+    """The backward a caller that normalised x itself with x's batch
+    statistics takes (kernel 6's layer 0): on the CPU the closed form,
+    equal in float64 to autograd of :func:`bn_leaky_plain`."""
+    x0 = _layout(kind, 3, 8, 5, 6, _gen(60), torch.float64)
+    g = torch.randn(x0.shape, generator=_gen(61), dtype=torch.float64)
+    bn = _bn(8, 62).double()
+    x = x0.detach().requires_grad_(True)
+    want = torch.autograd.grad(bnl.bn_leaky_plain(x, bn),
+                               [x, bn.weight, bn.bias], g)
+    mean, var = bnl.batch_stats_plain(x0)
+    raw = (x0 * x0).mean(dim=(0, 2, 3)) - mean * mean
+    got = bnl.bn_leaky_backward(g, x0, mean, var, raw, bn.weight.detach(),
+                                bn.bias.detach(), bn.eps)
+    for name, a, b in zip(("dx", "dweight", "dbias"), got, want):
+        assert (a - b).abs().max() <= 1e-12 * b.abs().max(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_float32_decoder_convolutions_take_nchw_inputs(dtype):
+    """Every transposed convolution of the decoder gets an NCHW-contiguous
+    input, in float32 (cuDNN's float32 engines compute in NCHW, so no
+    layout transposes and no weight copied to another layout) and in
+    bfloat16 (whose training pass is faster so on the card); the
+    encoder's layers 2-5 keep kernel 6's channels-last layout either
+    way."""
+    enc, dec = _trunks(dtype)
+    seen = {}
+    for trunk, tag in ((enc, "enc"), (dec, "dec")):
+        for i, conv in enumerate(trunk.conv):
+            conv.register_forward_pre_hook(
+                lambda mod, args, name=f"{tag}{i}": seen.setdefault(
+                    name, args[0]))
+    dec(enc(torch.randn((2, 64, 128, 1), generator=_gen(44))))
+    for i in range(6):
+        assert seen[f"dec{i}"].is_contiguous(), i
+    for i in range(2, 6):
+        assert seen[f"enc{i}"].stride(1) == 1, i

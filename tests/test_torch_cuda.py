@@ -749,7 +749,9 @@ def test_fusedconv_halves_run_the_main_paths_kernels(cuda):
     """conv0_stats / conv1_norm_stats run the kernel bodies the trunk's
     forward runs, the batch finalise included: y0, y1 and the per-image
     sums are the forward's bits, and the finalised batch statistics (the
-    images added in order) agree with _finalize of those sums."""
+    images added in order) agree with _finalize of those sums; each
+    variance is the kernel's unclamped one (its last row) clamped at 0,
+    bit for bit."""
     from tpuvae_torch.ops import fusedconv as fc
 
     x, w0, b0, g0, be0, w1, b1 = _pair_inputs(5, 68, 196, cuda)
@@ -762,6 +764,8 @@ def test_fusedconv_halves_run_the_main_paths_kernels(cuda):
     mean0, var0 = fc._finalize(s0, ss0, n0)
     torch.testing.assert_close(st0[0], mean0, rtol=0, atol=1e-5)
     torch.testing.assert_close(st0[1], var0, rtol=1e-4, atol=1e-6)
+    assert st0.shape == (5, 32)
+    assert torch.equal(torch.clamp_min(st0[4], 0.0), st0[1])
     scale0, shift0 = st0[2], st0[3]
     y1, s1, ss1 = fc.conv1_norm_stats(y0, scale0, shift0, w1, b1)
     y1_bn, s1_bn, ss1_bn, st1 = fc._conv1(y0, scale0, shift0, w1, b1)
@@ -770,6 +774,8 @@ def test_fusedconv_halves_run_the_main_paths_kernels(cuda):
     mean1, var1 = fc._finalize(s1, ss1, n0 // 4)
     torch.testing.assert_close(st1[0], mean1, rtol=0, atol=1e-5)
     torch.testing.assert_close(st1[1], var1, rtol=1e-4, atol=1e-6)
+    assert st1.shape == (3, 64)
+    assert torch.equal(torch.clamp_min(st1[2], 0.0), st1[1])
 
 
 @pytest.mark.parametrize("mode", ["train", "eval"])
@@ -1899,6 +1905,59 @@ def _graphed_against_eager(cuda):
                                clone.optimizer.state[q][key])
 
 
+def test_captured_hybrid_epoch_at_the_benchmarks_shapes_keeps_its_layouts(
+        cuda):
+    """The Hybrid training epoch at the benchmark's shapes (batch 32, mel
+    128 x 1024, text 768, float32, cuDNN's default algorithms; 96 training
+    and 32 validation rows) captured through ``CapturedGraph``, one replay
+    profiled.  cuDNN's layout transposes (``nhwcToNchw``, ``nchwToNhwc``)
+    take under 4% of the replay's device time: the float32 decoder runs in
+    NCHW, where cuDNN's float32 engines compute, and kernel 6's backward
+    runs no forward convolution; what is left is the channels-last
+    encoder's.  cuDNN's legacy float32 engines (``dgrad_engine``,
+    ``wgrad_alg0_engine``) stay: no other engine computes these stride-2
+    data and weight gradients in float32 with TF32 off.  Legacy engines
+    and transposes together are held under 50% of the replay, a guard
+    above the level they read (45.7% on an H100, whose shorter replay
+    makes the unchanged legacy time a larger share)."""
+    from tpuvae_torch.graphs import CapturedGraph
+    from tpuvae_torch.models import HybridVAE
+    from tpuvae_torch.train import create_state, hybrid_objective
+    from tpuvae_torch.train.loop import resident_epoch
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    audio = torch.randn((128, 128, 1024, 1), generator=g, device=cuda)
+    text = torch.randn((128, 768), generator=g, device=cuda) * 0.1
+    model = HybridVAE(generator=torch.Generator().manual_seed(5)).to(cuda)
+    state = create_state(model, 1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    epoch = resident_epoch(model, state.optimizer, hybrid_objective(),
+                           (audio[:96], text[:96]), (audio[96:], text[96:]),
+                           32, gen)
+    graphed = CapturedGraph(epoch, cuda, generator=gen, reserve_batch=32)
+    graphed()                                   # eager
+    graphed()                                   # capture and first replay
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        graphed()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    total = sum(by_name.values())
+    share = {key: sum(t for n, t in by_name.items() if key in n) / total
+             for key in ("nhwcToNchwKernel", "nchwToNhwcKernel",
+                         "dgrad_engine", "wgrad_alg0_engine")}
+    print("device time shares of one replay:", share)
+    assert total > 0
+    assert share["nhwcToNchwKernel"] + share["nchwToNhwcKernel"] < 0.04, share
+    assert sum(share.values()) < 0.50, share
+    graphed.close()
+
+
 def test_replays_draw_new_dropout_masks(cuda):
     """The Simple VAE's forward in train mode (dropout 0.2 and the noise
     from the generator) captured alone: two replays draw different masks,
@@ -2338,13 +2397,43 @@ def test_a_closed_graph_hands_its_pool_back(cuda):
     assert after_close <= before, (before, after_capture, after_close)
 
 
+_LEAD_IN = "spin_kernel"       # torch.cuda._sleep's kernel
+
+
 def _kernel_records(prof) -> list:
     """The profiler's device records that are kernels, not copies or fills
-    (``Memcpy ...``, ``Memset ...``), in order of their start."""
+    (``Memcpy ...``, ``Memset ...``) or a lead-in's, in order of their
+    start."""
     return sorted((e for e in prof.profiler.kineto_results.events()
                    if e.device_type() == torch.autograd.DeviceType.CUDA
-                   and not e.name().startswith(("Memcpy", "Memset"))),
+                   and not e.name().startswith(("Memcpy", "Memset"))
+                   and _LEAD_IN not in e.name()),
                   key=lambda e: e.start_ns())
+
+
+def _lead_in():
+    """32 one-thread kernels of their own launches, the card synchronised.
+    A profiled session can come up short of its first few kernel records:
+    first in a fresh process, and after the profiled replay of the
+    benchmark-sized Hybrid epoch (a replay's count 5 short, or the first
+    two of five replays missing).  The tests that count records start
+    each session with this, so what goes missing is the lead-in's."""
+    for _ in range(32):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _profiled(fn):
+    """``fn()`` under the profiler (host and device activity) after a
+    lead-in, the card synchronised before the profiler stops; the
+    profile."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _lead_in()
+        fn()
+        torch.cuda.synchronize()
+    return prof
 
 
 def test_spans_of_a_chunked_fit_come_warm_drain_capture_replays(cuda):
@@ -2417,11 +2506,7 @@ def test_spans_capture_counts_the_kernels_a_replay_runs(cuda, arch):
     (capture,) = [s for s in spans if s["name"] == "graph.capture"]
     copies = node_counts(graphed.graph).get(MEMCPY_NODE, 0)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        graphed()
-        torch.cuda.synchronize()
+    prof = _profiled(graphed)
     by_launch = collections.Counter(
         e.correlation_id() for e in prof.profiler.kineto_results.events()
         if e.device_type() == torch.autograd.DeviceType.CUDA
@@ -2452,6 +2537,7 @@ def test_spans_on_an_idle_card_a_replay_runs_after_its_span(cuda):
             torch.profiler.ProfilerActivity.CUDA]
     with recording() as spans, \
             torch.profiler.profile(activities=acts) as prof:
+        _lead_in()
         for _ in range(5):
             with span("test.idle"):
                 torch.cuda.synchronize()
@@ -2481,9 +2567,11 @@ BN_LEAKY_CASES = [
     (32, 512, 2, 16, "channels_last"), (32, 512, 4, 32, "cut"),
     (32, 256, 8, 64, "cut"), (32, 128, 16, 128, "cut"), (32, 64, 32, 256, "cut"),
     (32, 32, 64, 512, "cut"), (3, 12, 5, 7, "cut"), (3, 5, 7, 9, "nchw"),
-    (32, 32, 64, 512, "cut_nchw_grad")]
+    (32, 32, 64, 512, "cut_nchw_grad"), (32, 512, 4, 32, "cut_nchw"),
+    (32, 32, 64, 512, "cut_nchw"), (3, 12, 5, 7, "cut_nchw")]
 BN_LEAKY_IDS = ["enc1", "enc2", "enc3", "enc4", "enc5", "dec0", "dec1", "dec2",
-                "dec3", "dec4", "ragged", "nchw", "dec4_nchw_grad"]
+                "dec3", "dec4", "ragged", "nchw", "dec4_nchw_grad",
+                "dec0_nchw", "dec4_nchw", "ragged_nchw"]
 
 
 def _bn_leaky_case(dev, n, c, h, w, kind, seed):
@@ -2492,13 +2580,16 @@ def _bn_leaky_case(dev, n, c, h, w, kind, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     if kind == "nchw":
         x = torch.randn((n, c, h, w), generator=g, device=dev) * 1.5 + 0.25
+    elif kind == "cut_nchw":             # the float32 decoder's cut view
+        full = torch.randn((n, c, h + 1, w + 1), generator=g, device=dev)
+        x = (full * 1.5 + 0.25)[:, :, :h, :w]
     elif kind.startswith("cut"):         # the view itself, not a dense copy
         full = torch.randn((n, h + 1, w + 1, c), generator=g, device=dev)
         x = (full * 1.5 + 0.25).permute(0, 3, 1, 2)[:, :, :h, :w]
     else:
         x = torch.randn((n, h, w, c), generator=g, device=dev)
         x = (x * 1.5 + 0.25).permute(0, 3, 1, 2)
-    if kind == "cut_nchw_grad":
+    if kind in ("cut_nchw_grad", "cut_nchw"):
         gy = torch.randn((n, c, h, w), generator=g, device=dev)
     else:
         gy = torch.randn((n, h, w, c), generator=g,
@@ -2549,7 +2640,8 @@ def test_bn_leaky_kernels_match_plain(cuda, n, c, h, w, kind):
     same statistics, whose LeakyReLU mask is then the same bit for bit: dx
     within 1e-5 of its largest entry, each per-channel sum within 1e-5 of
     the sum of its terms' magnitudes.  y and dx in x's layout:
-    channels-last unless x is NCHW."""
+    channels-last unless x is NCHW (dense or the float32 decoder's cut
+    view, with an NCHW gradient: the pixel-major launch plan)."""
     from tpuvae_torch.ops import bn_leaky as bnl
 
     x, gy, bn, stats = _bn_leaky_case(cuda, n, c, h, w, kind, n * c + h)
@@ -2564,7 +2656,8 @@ def test_bn_leaky_kernels_match_plain(cuda, n, c, h, w, kind):
         mean, var = stats
     y, grads, running = _bn_leaky_run(x, gy, bn, stats)
     torch.cuda.synchronize()
-    fmt = torch.contiguous_format if kind == "nchw" else torch.channels_last
+    nchw = kind in ("nchw", "cut_nchw")
+    fmt = torch.contiguous_format if nchw else torch.channels_last
     assert y.is_contiguous(memory_format=fmt)
     assert grads[0].is_contiguous(memory_format=fmt)
     for got, old, new in zip(running[:2], (twin.running_mean, twin.running_var),
@@ -2638,9 +2731,9 @@ def _flat(run):
 
 def test_bn_leaky_launches_per_trunk_step_and_not_for_eval_or_bf16(cuda):
     """A training step of both fp32 trunks at batch 32 on 128 x 1024 mel
-    images launches A 9 times, B, C and D 10 times each (encoder layer 1
-    takes kernel 6's statistics; the decoder's last layer has no
-    BatchNorm).  Eval mode and the bf16 trunks launch none, and give the
+    images launches A 9 times, B 10 times, C and D 11 times each (encoder
+    layer 1 takes kernel 6's statistics; the decoder's last layer has no
+    BatchNorm; kernel 6's backward runs C and D for layer 0).  Eval mode and the bf16 trunks launch none, and give the
     op-by-op path's results bit for bit (the rule patched off)."""
     from tpuvae_torch import ops
     from tpuvae_torch.models.layers import (
@@ -2672,7 +2765,7 @@ def test_bn_leaky_launches_per_trunk_step_and_not_for_eval_or_bf16(cuda):
     counts = ops.launch_counts()
     assert (counts["bn_leaky_stats"], counts["bn_leaky_norm"],
             counts["bn_leaky_grad_sums"], counts["bn_leaky_grad_input"]) == (
-                9, 10, 10, 10)
+                9, 10, 11, 11)
     for dtype, train in ((torch.float32, False), (torch.bfloat16, True),
                          (torch.bfloat16, False)):
         ops.reset_launch_counts()
@@ -2688,3 +2781,4 @@ def test_bn_leaky_launches_per_trunk_step_and_not_for_eval_or_bf16(cuda):
         assert all(bool(torch.isfinite(t).all()) for t in got)
         for a, b in zip(got, want):
             assert torch.equal(a, b), (dtype, train)
+

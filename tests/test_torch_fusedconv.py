@@ -7,8 +7,8 @@ atol 1e-4 (fp32 sums of up to 288 products in two orders; var1 inherits
 var0's error through the folded scale).  The gradient of the
 ``autograd.Function`` is held to PyTorch's own gradient of the plain
 composition at rtol 1e-4 / atol 1e-5 x the largest entry (the backward
-recomputes layer 0's statistics from the raw y0 instead of taking the
-forward's partial sums: the same numbers in another summation order).
+takes the forward's statistics and raw outputs and sums the statistics'
+gradients in closed form: the same numbers in another summation order).
 """
 
 import numpy as np
@@ -166,6 +166,90 @@ def test_fused_trunk2_gradient_matches_autograd_of_plain(mode):
             scale = float(rgrads[names.index("beta0")].abs().max())
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5 * scale,
                                    msg=name)
+
+
+@pytest.mark.parametrize("which", ["all", "y1_only", "stats_only"])
+def test_stats_grad_is_autograd_through_the_batch_statistics(which):
+    """Layer 1's statistics gradient in closed form against autograd of
+    ``mean = mean(y1)``, ``var = max(mean(y1^2) - mean^2, 0)`` over
+    (B, H, W) in float64, a constant channel (variance clamped) included;
+    a gradient left out (None) counts as 0."""
+    from tpuvae_torch.ops.fusedconv import _stats_grad
+
+    g = torch.Generator().manual_seed(3)
+    y1 = torch.randn((2, 3, 4, 5), generator=g, dtype=torch.float64)
+    y1[..., 2] = 0.1
+    cot = [torch.randn(s, generator=g, dtype=torch.float64)
+           for s in (y1.shape, (5,), (5,))]
+    if which == "y1_only":
+        cot[1] = cot[2] = None
+    elif which == "stats_only":
+        cot[0] = None
+    leaf = y1.clone().requires_grad_(True)
+    mean = leaf.mean(dim=(0, 1, 2))
+    var = torch.clamp_min((leaf * leaf).mean(dim=(0, 1, 2)) - mean * mean, 0)
+    terms = [(o * c).sum() for o, c in zip((leaf, mean, var), cot)
+             if c is not None]
+    (want,) = torch.autograd.grad(sum(terms), [leaf])
+    m = mean.detach()
+    raw = (y1 * y1).mean(dim=(0, 1, 2)) - m * m
+    got = _stats_grad(cot[0], y1, m, raw, cot[1], cot[2])
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shift", [0.0, 1e4], ids=["centred", "offset"])
+def test_pair_hands_its_backward_the_unclamped_variances(shift):
+    """The pair's forward returns, for its backward's clamp masks, each
+    layer's variance before the clamp: ``var = max(raw, 0)`` bit for bit,
+    and ``raw`` the finalisation's own ``mean(y^2) - mean^2`` (an input
+    far off zero makes it cancel, so the sign it gives is the forward's
+    and not one recomputed in another order)."""
+    from tpuvae_torch.ops import fusedconv as fc
+
+    args = [torch.tensor(a) for a in _inputs(2, 8, 16)]
+    args[2] = args[2] + shift                       # b0: y0 far off zero
+    y1, (m0, v0), (m1, v1), y0, (raw0, raw1) = fc._pair_forward(
+        fc._conv0_bn, fc._conv1_bn, *args, 1e-5, None)
+    assert torch.equal(torch.clamp_min(raw0, 0.0), v0)
+    assert torch.equal(torch.clamp_min(raw1, 0.0), v1)
+    for y, m, raw in ((y0, m0, raw0), (y1, m1, raw1)):
+        n = y.shape[0] * y.shape[1] * y.shape[2]
+        s, ss = y.sum(dim=(1, 2))[:, None], (y * y).sum(dim=(1, 2))[:, None]
+        assert torch.equal(raw, ss.sum(dim=(0, 1)) / n - m * m)
+        assert torch.equal(m, s.sum(dim=(0, 1)) / n)
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_fused_trunk2_backward_runs_no_forward_convolution(mode):
+    """The backward takes layer 1 from the saved raw y1 and rebuilds only
+    its input: no forward convolution, one convolution backward for
+    layer 1 and one for layer 0's weight gradient."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpuvae_torch.ops.fusedconv import fused_trunk2
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    x, *params = [torch.tensor(a) for a in _inputs(2, 8, 16)]
+    for p in params:
+        p.requires_grad_(True)
+    running0 = None
+    if mode == "eval":
+        running0 = (torch.full((32,), 0.05), torch.full((32,), 1.3))
+    y1, _, (m1, v1) = fused_trunk2(x, *params, running0=running0)
+    loss = y1.square().sum() + m1.sum() + v1.sum()
+    with Ops() as ops:
+        loss.backward()
+    assert "aten.convolution" not in ops.seen
+    assert ops.seen.count("aten.convolution_backward") == 2   # x is data
+    assert all(p.grad is not None for p in params)
 
 
 def test_fused_trunk2_eval_uses_running_statistics():

@@ -111,7 +111,9 @@ __device__ __forceinline__ float image_sum(const float* src, int tiles,
 // `sums` (2, B, F), the images added one after another: mean = S / n,
 // var = max(SS / n - mean^2, 0), no contraction into FMAs; with kFold, the
 // fold of _fold: scale = gamma / sqrt(var + eps), shift = beta - mean *
-// scale.  stats: (2, F) mean, var, then (kFold) (2, F) scale, shift.
+// scale.  stats: (2, F) mean, var, then (kFold) (2, F) scale, shift, then
+// (F) the unclamped SS / n - mean^2, whose sign is the clamp's gradient
+// mask in the backward.
 template <bool kFold>
 __device__ __forceinline__ void finalize_channel(
     const float* sums, int batch, int features, int ch, float n,
@@ -123,10 +125,11 @@ __device__ __forceinline__ void finalize_channel(
                                         features + ch));
   }
   const float mean = __fdiv_rn(s, n);
-  float var = __fsub_rn(__fdiv_rn(ss, n), __fmul_rn(mean, mean));
-  var = var < 0.f ? 0.f : var;
+  const float raw = __fsub_rn(__fdiv_rn(ss, n), __fmul_rn(mean, mean));
+  const float var = raw < 0.f ? 0.f : raw;
   stats[ch] = mean;
   stats[features + ch] = var;
+  stats[(kFold ? 4 : 2) * features + ch] = raw;
   if (kFold) {
     const float scale = __fmul_rn(gamma[ch], rsqrtf(__fadd_rn(var, eps)));
     stats[2 * features + ch] = scale;
@@ -650,8 +653,9 @@ int sm_count() {
 // per-image sums / sums of squares `sums` (2, B, 32).  `part` is scratch of
 // B * tiles * 2 * 32 floats, `tickets` B + 1 ints that are 0 (and are 0
 // again when the kernel ends); `tiles` is the wrapper's count of CTAs per
-// image and must be this file's.  `stats` (4, 32): the batch mean and
-// variance, and their fold with gamma, beta and eps into scale and shift.
+// image and must be this file's.  `stats` (5, 32): the batch mean and
+// variance, their fold with gamma, beta and eps into scale and shift, and
+// the variance before its clamp at 0.
 extern "C" int tpuvae_fusedconv_conv0(const void* x, const void* w,
                                       const void* bias, int batch, int height,
                                       int width, int features, int tiles,
@@ -680,7 +684,8 @@ extern "C" int tpuvae_fusedconv_conv0(const void* x, const void* w,
 // y1 (B, H/2, W/2, 64) and the per-image sums / sums of squares `sums`
 // (2, B, 64).  `part` is scratch of B * tiles * 2 * 64 floats, `tickets` as
 // for conv0; `tiles` is the count of 8 x 8 output tiles per image.
-// `stats` (2, 64): the batch mean and variance.
+// `stats` (3, 64): the batch mean and variance, and the variance before
+// its clamp at 0.
 extern "C" int tpuvae_fusedconv_conv1(const void* y0, const void* scale,
                                       const void* shift, const void* w,
                                       const void* bias, int batch, int height,

@@ -326,7 +326,8 @@ class ConvDecoderTrunk(nn.Module):
     (``tpuvae/models/layers.py:206``).  Input ``(B, 512 * fh * fw)`` in
     (H, W, C) order -> ``(B, 64 fh, 64 fw, 1)`` NHWC; no BatchNorm or
     activation after the last layer.  The input is cast to ``dtype`` on
-    entry and every layer computes there."""
+    entry and every layer computes there, on NCHW activations (each
+    convolution's output follows its input's layout)."""
 
     def __init__(self, features: Sequence[int] = (512, 256, 128, 64, 32),
                  feature_hw: tuple = (2, 16), dtype=torch.float32):
@@ -342,6 +343,11 @@ class ConvDecoderTrunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fh, fw = self.feature_hw
         h = x.to(self.dtype).reshape(x.shape[0], fh, fw, 512).permute(0, 3, 1, 2)
+        # NCHW from here on (a copy of 16 K values a row): cuDNN's float32
+        # engines without TF32 compute in NCHW and wrap every channels-last
+        # call in layout transposes; bfloat16's training pass is faster
+        # NCHW too
+        h = h.contiguous()
         for conv, norm in zip(self.conv[:-1], self.norm):
             h = norm.leaky(conv(h))
         return self.conv[-1](h).permute(0, 2, 3, 1)

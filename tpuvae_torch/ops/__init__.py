@@ -14,8 +14,8 @@ kernel                      replaces (Pallas, tpuvae/ops/)          wrapper
 ``fusedconv_conv1``         :88 ``_conv1_kernel``                   :func:`fusedconv.conv1_norm_stats`,
                                                                     :func:`fusedconv.fused_trunk2`
 ``bn_leaky_stats``,         none: BatchNorm + LeakyReLU of the      :func:`bn_leaky.bn_leaky`,
-``bn_leaky_norm``,          trunks' layers 1-5 (encoder) and 0-4    :func:`bn_leaky.bn_leaky_given`
-``bn_leaky_grad_sums``,     (decoder) in training, which the JAX
+``bn_leaky_norm``,          trunks' layers 0-5 (encoder) and 0-4    :func:`bn_leaky.bn_leaky_given`,
+``bn_leaky_grad_sums``,     (decoder) in training, which the JAX    :func:`bn_leaky.bn_leaky_backward`
 ``bn_leaky_grad_input``     package leaves to XLA
 ==========================  ======================================  ===========================
 

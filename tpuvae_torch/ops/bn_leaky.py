@@ -21,12 +21,17 @@ LeakyReLU mask from ``x``: the per-channel sums, ``d gamma``, ``d beta``)
 and kernel D (``dx``).  The gradient is the exact gradient of the forward,
 clamp included: no variance gradient where ``mean(x^2) - mean^2 < 0``
 (:func:`bn_leaky_backward_plain` writes C and D out in PyTorch).
+:func:`bn_leaky_backward` runs C and D alone, for encoder layer 0, which
+kernel 6 normalises on load.
 
 The kernels take any strides and write the output (and ``dx``) in the
 input's memory format: channels-last when the channel axis is contiguous
-(the trunks' activations and the decoder's cut view), NCHW otherwise.  They
-replace no Pallas kernel (the JAX package leaves these passes to XLA); each
-is bound by bytes (``plan`` fills the card at every trunk layer).  A CUDA
+(the encoder's activations), NCHW otherwise (the float32 decoder's, and
+its cut view).  A launch walks the channels across a warp, or the pixels
+where every tensor runs along W at stride 1 (:func:`pixel_major`: NCHW),
+so that loads and stores coalesce.  They replace no Pallas kernel (the JAX
+package leaves these passes to XLA); each is bound by bytes (``plan``
+fills the card at every trunk layer).  A CUDA
 tensor goes through the kernels or the call raises; a CPU tensor through
 the plain versions (``*_plain``).  The trunks call the kernels only where
 :func:`takes_kernels` says so: a CUDA float32 tensor, a float32 BatchNorm
@@ -114,7 +119,7 @@ def bn_leaky_given_plain(x: torch.Tensor, mean, var, bn) -> torch.Tensor:
 
 
 def bn_leaky_backward_plain(g, x, mean, var, weight, bias, eps: float,
-                            given: bool):
+                            given: bool, raw=None):
     """The backward that kernels C and D compute, in closed form:
     ``(dx, d weight, d bias, d mean, d var)``.  ``d mean`` and ``d var`` are
     the derivatives through the normalisation alone (what
@@ -122,7 +127,8 @@ def bn_leaky_backward_plain(g, x, mean, var, weight, bias, eps: float,
     (``given=False``) they reach ``dx`` through ``mean = sum(x) / n`` and
     ``raw = sum(x^2) / n - mean^2``, and ``d var`` only where the clamp
     ``var = max(raw, 0)`` lets it (``raw >= 0``, as ``clamp_min``'s
-    gradient):
+    gradient; ``raw`` as the forward computed it, or from ``x`` when not
+    given):
 
         g'  = g * (pre > 0 ? 1 : 0.01),  pre = (x - mean) * scale + bias
         S0  = sum(g'),  S1 = sum(g' (x - mean)),  scale = rsqrt(var+eps) w
@@ -143,7 +149,8 @@ def bn_leaky_backward_plain(g, x, mean, var, weight, bias, eps: float,
     dx = scale.view(shape) * gp
     if not given:
         n = x.numel() // x.shape[1]
-        raw = (x * x).mean(dim=_DIMS) - mean * mean
+        if raw is None:
+            raw = (x * x).mean(dim=_DIMS) - mean * mean
         gv = torch.where(raw >= 0, d_var, torch.zeros_like(d_var))
         dx = dx + (2.0 * gv / n).view(shape) * xm + (d_mean / n).view(shape)
     return dx, s1 * rstd, s0, d_mean, d_var
@@ -179,20 +186,35 @@ def vector_width(*tensors: torch.Tensor) -> int:
     return 4
 
 
-def plan(shape, vec: int, sms: int) -> tuple[int, int, int, int, int]:
+def pixel_major(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's pixels run along W at stride 1 while its
+    channels do not (NCHW and the cut views of it): a launch then walks
+    the pixels across a warp, so that its loads and stores coalesce."""
+    for t in tensors:
+        _, sc, _, sw = _dense_strides(t)
+        if sw != 1 or sc == 1:
+            return False
+    return True
+
+
+def plan(shape, vec: int, sms: int,
+         by_pixel: bool = False) -> tuple[int, int, int, int, int]:
     """``(vec, lanes, groups, ctas, chunk)`` of a launch over ``shape``
     ``(N, C, H, W)``: a CTA is ``lanes`` channel vectors of ``vec`` by
     ``THREADS / lanes`` pixel rows; ``groups`` CTAs across the channels
     (``gridDim.x``) and ``ctas`` along the pixels (``gridDim.y``), each
     over ``chunk`` contiguous pixels.  About ``CTAS_PER_SM`` CTAs an SM
-    where the pixels allow, at least one pixel a thread."""
+    where the pixels allow, at least one pixel a thread.  ``by_pixel``
+    (:func:`pixel_major` layouts) makes a CTA one channel by ``THREADS``
+    pixel rows, and at most one wave of CTAs."""
     n, c, h, w = shape
     pixels = n * h * w
     nvec = -(-c // vec)
-    lanes = min(32, 1 << max(nvec - 1, 0).bit_length())
+    lanes = 1 if by_pixel else min(32, 1 << max(nvec - 1, 0).bit_length())
     rows = THREADS // lanes
     groups = -(-nvec // lanes)
-    want = max(1, -(-CTAS_PER_SM * sms // groups))
+    slots = CTAS_PER_SM * sms
+    want = max(1, slots // groups if by_pixel else -(-slots // groups))
     ctas = max(1, min(want, -(-pixels // rows), 65535))
     chunk = -(-pixels // ctas)
     return vec, lanes, groups, -(-pixels // chunk), chunk
@@ -237,7 +259,8 @@ class _Launch:
         dev = x.device
         index = dev.index if dev.index is not None else torch.cuda.current_device()
         self.vec = vector_width(x, *others)
-        self.plan = plan(tuple(x.shape), self.vec, _sm_count(index))
+        self.plan = plan(tuple(x.shape), self.vec, _sm_count(index),
+                         self.vec == 1 and pixel_major(x, *others))
         self.dims = _i64(x.shape)
         self.plan_arg = (ctypes.c_int * 5)(*self.plan)
         self.stream = _build.stream_ptr(dev)
@@ -296,7 +319,8 @@ def _backward(g, x, mean, var, raw, weight, bias, eps: float):
     D's two coefficients, d mean, d var; ``raw`` None for given
     statistics."""
     c = x.shape[1]
-    launch = _Launch(x, g)
+    dx = _layout_out(x)
+    launch = _Launch(x, g, dx)
     back = torch.empty((6, c), dtype=torch.float32, device=x.device)
     part = launch.part(x)
     sg, sx = _i64(_dense_strides(g)), _i64(_dense_strides(x))
@@ -306,7 +330,6 @@ def _backward(g, x, mean, var, raw, weight, bias, eps: float):
               _PTR(None) if given else _build.ptr(raw), _build.ptr(weight),
               _build.ptr(bias), _F32(eps), int(given), _build.ptr(part),
               launch.tickets, _build.ptr(back), launch.stream)
-    dx = _layout_out(x)
     GRAD_INPUT(_build.ptr(g), sg, _build.ptr(x), sx, _build.ptr(dx),
                _i64(_dense_strides(dx)), launch.dims, launch.plan_arg,
                _build.ptr(mean), _build.ptr(var), _build.ptr(weight),
@@ -386,3 +409,27 @@ def bn_leaky_given(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     if x.device.type == "cpu":
         return bn_leaky_given_plain(x, mean, var, bn)
     return _BnLeakyGiven.apply(x, mean, var, bn.weight, bn.bias, bn)
+
+
+def bn_leaky_backward(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                      var: torch.Tensor, raw: torch.Tensor,
+                      weight: torch.Tensor, bias: torch.Tensor, eps: float):
+    """The backward of ``leaky(bn(x))`` in training, for a caller that
+    normalised ``x`` itself with its batch statistics ``(mean, var)``
+    (kernel 6 normalises trunk layer 0 on load), ``var = max(raw, 0)``
+    with ``raw`` the caller's own unclamped variance: ``(dx, d weight,
+    d bias)`` from the output's gradient ``g``, the gradient reaching
+    ``x`` through the statistics too, as :func:`bn_leaky`'s.  ``dx`` is in
+    ``x``'s memory format.  A CUDA tensor goes through kernels C and D, a
+    CPU tensor through :func:`bn_leaky_backward_plain`."""
+    if x.device.type == "cpu":
+        return bn_leaky_backward_plain(g, x, mean, var, weight, bias, eps,
+                                       False, raw)[:3]
+    c = x.shape[1]
+    mean = _channel_vec(mean, c, "mean")
+    var = _channel_vec(var, c, "var")
+    raw = _channel_vec(raw, c, "raw")
+    dx, back = _backward(g, x, mean, var, raw,
+                         _channel_vec(weight, c, "weight"),
+                         _channel_vec(bias, c, "bias"), eps)
+    return dx, back[0], back[1]

@@ -27,8 +27,9 @@ image, found by an integer ticket) and finalise the batch statistics, so a
 wrapper makes one launch and no reduction; :func:`conv0_stats` and
 :func:`conv1_norm_stats` run the same kernels and drop the batch
 statistics.  The JAX package has no backward kernel for the pair, so the
-gradient goes through PyTorch's convolution gradients, from the saved
-input, the raw ``y0`` and the statistics.
+gradient goes through PyTorch's convolution gradients and the trunks'
+BatchNorm kernels (``ops.bn_leaky``), from the saved input, the raw ``y0``
+and ``y1`` and the statistics.
 """
 
 from __future__ import annotations
@@ -93,12 +94,18 @@ def conv1_norm_stats_plain(y0: torch.Tensor, scale: torch.Tensor,
     return (y1, *_image_sums(y1))
 
 
-def _finalize(s: torch.Tensor, ss: torch.Tensor, n: int):
-    """Batch mean and biased variance from the partial sums, in the op
-    order of ``tpuvae/ops/fusedconv.py:142-143``."""
+def _finalize_raw(s: torch.Tensor, ss: torch.Tensor, n: int):
+    """Batch mean, biased variance and the variance before its clamp at 0
+    (``raw``, whose sign is the clamp's gradient mask) from the partial
+    sums, in the op order of ``tpuvae/ops/fusedconv.py:142-143``."""
     mean = s.sum(dim=(0, 1)) / n
-    var = torch.clamp_min(ss.sum(dim=(0, 1)) / n - mean * mean, 0.0)
-    return mean, var
+    raw = ss.sum(dim=(0, 1)) / n - mean * mean
+    return mean, torch.clamp_min(raw, 0.0), raw
+
+
+def _finalize(s: torch.Tensor, ss: torch.Tensor, n: int):
+    """Batch mean and biased variance from the partial sums."""
+    return _finalize_raw(s, ss, n)[:2]
 
 
 def _fold(mean, var, gamma, beta, eps: float):
@@ -108,13 +115,13 @@ def _fold(mean, var, gamma, beta, eps: float):
 
 def _conv0_bn_plain(x, w0, b0, gamma0, beta0, eps):
     y0, s0, ss0 = conv0_stats_plain(x, w0, b0)
-    mean0, var0 = _finalize(s0, ss0, y0.shape[0] * y0.shape[1] * y0.shape[2])
-    return y0, (mean0, var0), _fold(mean0, var0, gamma0, beta0, eps)
+    stats = _finalize_raw(s0, ss0, y0.shape[0] * y0.shape[1] * y0.shape[2])
+    return y0, stats, _fold(*stats[:2], gamma0, beta0, eps)
 
 
 def _conv1_bn_plain(y0, scale, shift, w1, b1):
     y1, s1, ss1 = conv1_norm_stats_plain(y0, scale, shift, w1, b1)
-    return y1, _finalize(s1, ss1, y1.shape[0] * y1.shape[1] * y1.shape[2])
+    return y1, _finalize_raw(s1, ss1, y1.shape[0] * y1.shape[1] * y1.shape[2])
 
 
 def fused_trunk2_forward_plain(x, w0, b0, gamma0, beta0, w1, b1,
@@ -185,7 +192,8 @@ def _launch_args(*tensors):
 
 def _conv0(x, w0, b0, gamma, beta, eps):
     """Kernel 6's first half on the card: ``(y0, s, ss, stats)``, its last
-    reducer finalising the batch ``stats = (mean, var, scale, shift)``."""
+    reducer finalising the batch ``stats = (mean, var, scale, shift,
+    raw)``, ``raw`` the variance before its clamp."""
     f0 = w0.shape[-1]
     if f0 != _KERNEL_WIDTHS[0]:
         raise ValueError(f"the conv0 kernel is built for F0 = "
@@ -201,7 +209,7 @@ def _conv0(x, w0, b0, gamma, beta, eps):
     part = torch.empty((b * tiles, 2, f0), dtype=torch.float32,
                        device=x.device)
     sums = torch.empty((2, b, 1, f0), dtype=torch.float32, device=x.device)
-    stats = torch.empty((4, f0), dtype=torch.float32, device=x.device)
+    stats = torch.empty((5, f0), dtype=torch.float32, device=x.device)
     if b:
         (px, pw, pb, py, pp, ps, pg, pbe, pst), dev = _launch_args(
             x, w0, b0, y0, part, sums, gamma, beta, stats)
@@ -232,7 +240,7 @@ def conv0_stats(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor):
 
 def _conv1(y0, scale, shift, w1, b1):
     """Kernel 6's second half on the card: ``(y1, s, ss, stats)``, its last
-    reducer finalising the batch ``stats = (mean, var)``, (2, F1)."""
+    reducer finalising the batch ``stats = (mean, var, raw)``, (3, F1)."""
     b, h, w, c = y0.shape
     f1 = w1.shape[-1]
     if (c, f1) != _KERNEL_WIDTHS[1:]:
@@ -249,7 +257,7 @@ def _conv1(y0, scale, shift, w1, b1):
     part = torch.empty((b * tiles, 2, f1), dtype=torch.float32,
                        device=y0.device)
     sums = torch.empty((2, b, 1, f1), dtype=torch.float32, device=y0.device)
-    stats = torch.empty((2, f1), dtype=torch.float32, device=y0.device)
+    stats = torch.empty((3, f1), dtype=torch.float32, device=y0.device)
     if b:
         (py0, psc, psh, pw, pb, py1, pp, ps, pst), dev = _launch_args(
             y0, scale, shift, w1, b1, y1, part, sums, stats)
@@ -279,23 +287,23 @@ def conv1_norm_stats(y0: torch.Tensor, scale: torch.Tensor,
 
 def _conv0_bn(x, w0, b0, gamma0, beta0, eps):
     """conv0 with layer 0's batch statistics and their BatchNorm fold:
-    ``(y0, (mean0, var0), (scale0, shift0))``.  On the card one launch,
-    the kernel finalising; on a CPU tensor the plain version."""
+    ``(y0, (mean0, var0, raw0), (scale0, shift0))``.  On the card one
+    launch, the kernel finalising; on a CPU tensor the plain version."""
     _check_conv0(x, w0, b0)
     if x.device.type == "cpu":
         return _conv0_bn_plain(x, w0, b0, gamma0, beta0, eps)
     y0, _, _, st = _conv0(x, w0, b0, gamma0, beta0, eps)
-    return y0, (st[0], st[1]), (st[2], st[3])
+    return y0, (st[0], st[1], st[4]), (st[2], st[3])
 
 
 def _conv1_bn(y0, scale, shift, w1, b1):
-    """conv1 with layer 1's batch statistics: ``(y1, (mean1, var1))``; on
-    the card one launch, on a CPU tensor the plain version."""
+    """conv1 with layer 1's batch statistics: ``(y1, (mean1, var1,
+    raw1))``; on the card one launch, on a CPU tensor the plain version."""
     _check_conv1(y0, scale, shift, w1, b1)
     if y0.device.type == "cpu":
         return _conv1_bn_plain(y0, scale, shift, w1, b1)
     y1, _, _, st = _conv1(y0, scale, shift, w1, b1)
-    return y1, (st[0], st[1])
+    return y1, (st[0], st[1], st[2])
 
 
 def _pair_forward(conv0_bn, conv1_bn, x, w0, b0, gamma0, beta0, w1, b1, eps,
@@ -303,16 +311,17 @@ def _pair_forward(conv0_bn, conv1_bn, x, w0, b0, gamma0, beta0, w1, b1, eps,
     """The pair through ``conv0_bn`` / ``conv1_bn`` (:func:`_conv0_bn`,
     :func:`_conv1_bn` or their plain versions); layer 0 is normalised with
     its batch statistics, or with ``running0 = (mean, var)`` when given.
-    Returns ``(y1, (mean0, var0), (mean1, var1), y0)`` with the batch
-    statistics of both raw outputs."""
+    Returns ``(y1, (mean0, var0), (mean1, var1), y0, (raw0, raw1))`` with
+    the batch statistics of both raw outputs and their variances before
+    the clamp."""
     if x.dim() != 4 or x.shape[-1] != 1:
         raise ValueError(f"x must be (B, H, W, 1), got {tuple(x.shape)}")
-    y0, (mean0, var0), (scale0, shift0) = conv0_bn(
+    y0, (mean0, var0, raw0), (scale0, shift0) = conv0_bn(
         x[..., 0], w0[:, :, 0, :], b0, gamma0, beta0, eps)
     if running0 is not None:
         scale0, shift0 = _fold(*running0, gamma0, beta0, eps)
-    y1, (mean1, var1) = conv1_bn(y0, scale0, shift0, w1, b1)
-    return y1, (mean0, var0), (mean1, var1), y0
+    y1, (mean1, var1, raw1) = conv1_bn(y0, scale0, shift0, w1, b1)
+    return y1, (mean0, var0), (mean1, var1), y0, (raw0, raw1)
 
 
 def fused_trunk2_forward(x, w0, b0, gamma0, beta0, w1, b1, eps: float = 1e-5):
@@ -329,65 +338,86 @@ def fused_trunk2_forward(x, w0, b0, gamma0, beta0, w1, b1, eps: float = 1e-5):
 
 # -- the differentiable pair -------------------------------------------------------
 
-def _batch_stats(y: torch.Tensor):
-    mean = y.mean(dim=(0, 1, 2))
-    var = torch.clamp_min((y * y).mean(dim=(0, 1, 2)) - mean * mean, 0.0)
-    return mean, var
+def _stats_grad(g_y1, y1, mean1, raw1, g_mean1, g_var1):
+    """The gradient reaching the raw ``y1`` from its own use and from its
+    batch statistics ``mean1 = mean(y1)``, ``var1 = max(raw1, 0)``,
+    ``raw1 = mean(y1^2) - mean1^2`` over (B, H, W): ``g_y1 + g_mean1 / n
+    + 2 g_var1 (y1 - mean1) / n``, no variance gradient where the forward's
+    clamp cut (``raw1 < 0``, as ``clamp_min``'s)."""
+    n = y1.shape[0] * y1.shape[1] * y1.shape[2]
+    g = g_y1 if g_y1 is not None else torch.zeros_like(y1)
+    if g_mean1 is not None:
+        g = g + g_mean1 / n
+    if g_var1 is not None:
+        g_var1 = torch.where(raw1 >= 0, g_var1, torch.zeros_like(g_var1))
+        g = g + (y1 - mean1) * (2.0 * g_var1 / n)
+    return g
 
 
 class _FusedTrunk2(torch.autograd.Function):
     """``(y1, mean0, var0, mean1, var1)`` of the pair.  ``forward`` runs the
-    wrappers (the kernels on the card); ``backward`` rebuilds layer 1 from
-    the saved raw ``y0`` with PyTorch operations and takes the convolution
-    gradients from PyTorch (the JAX package has no backward kernel)."""
+    wrappers (the kernels on the card).  ``backward`` (the JAX package has
+    no backward kernel) takes layer 1's statistics into its gradient from
+    the saved raw ``y1`` (the clamps' masks from the forward's own
+    unclamped variances), rebuilds layer 1's normalised input ``z`` from
+    the saved raw ``y0`` with one pass of PyTorch operations, takes
+    layer 1's convolution gradients from one ``convolution_backward``
+    call, layer 0's normalisation backward in training from the BatchNorm
+    kernels (``ops.bn_leaky``, C and D) and layer 0's weight gradient from
+    PyTorch."""
 
     @staticmethod
     def forward(ctx, x, w0, b0, gamma0, beta0, w1, b1, eps, run_mean, run_var):
         running0 = None if run_mean is None else (run_mean, run_var)
-        y1, (mean0, var0), (mean1, var1), y0 = _pair_forward(
+        y1, (mean0, var0), (mean1, var1), y0, (raw0, raw1) = _pair_forward(
             _conv0_bn, _conv1_bn, x, w0, b0, gamma0, beta0, w1, b1,
             eps, running0)
         ctx.eps = eps
         ctx.batch_stats = running0 is None
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, w0, gamma0, beta0, w1, b1, y0,
-                              *(() if running0 is None else running0))
+        ctx.save_for_backward(x, w0, gamma0, beta0, w1, y0, y1, mean1, raw1,
+                              raw0, *((mean0, var0) if running0 is None
+                                      else running0))
         ctx.mark_non_differentiable(mean0, var0)
         return y1, mean0, var0, mean1, var1
 
     @staticmethod
     def backward(ctx, g_y1, _g_mean0, _g_var0, g_mean1, g_var1):
-        x, w0, gamma0, beta0, w1, b1, y0, *running0 = ctx.saved_tensors
-        with torch.enable_grad():
-            y0v = y0.detach().requires_grad_(True)
-            leaves = [t.detach().requires_grad_(True)
-                      for t in (gamma0, beta0, w1, b1)]
-            g0, be0, w1v, b1v = leaves
-            mean0, var0 = _batch_stats(y0v) if ctx.batch_stats else running0
-            scale0, shift0 = _fold(mean0, var0, g0, be0, ctx.eps)
-            z = F.leaky_relu(y0v * scale0 + shift0, LEAKY_SLOPE)
-            y1 = _conv_s2_same(z, w1v, b1v)
-            mean1, var1 = _batch_stats(y1)
-            outs, grads = [y1], [g_y1]
-            for out, g in ((mean1, g_mean1), (var1, g_var1)):
-                if g is not None:
-                    outs.append(out)
-                    grads.append(g)
-            g_y0, g_g0, g_be0, g_w1, g_b1 = torch.autograd.grad(
-                outs, [y0v, *leaves], grads)
-        # layer 0: y0 = conv(pad(x), w0) + b0
-        g_nchw = g_y0.permute(0, 3, 1, 2)
+        # imported here: ops.bn_leaky imports this module
+        from tpuvae_torch.ops import bn_leaky as bnl
+
+        (x, w0, gamma0, beta0, w1, y0, y1, mean1, raw1, raw0, mean0,
+         var0) = ctx.saved_tensors
+        g = _stats_grad(g_y1, y1, mean1, raw1, g_mean1, g_var1)
+        # layer 1: y1 = conv(pad(z), w1) + b1, z = leaky(y0 scale0 + shift0)
+        scale0, shift0 = _fold(mean0, var0, gamma0, beta0, ctx.eps)
+        z = F.leaky_relu(y0 * scale0 + shift0, LEAKY_SLOPE)
+        zp = F.pad(z.permute(0, 3, 1, 2), (0, 1, 0, 1))
+        g_zp, g_w1, g_b1 = torch.ops.aten.convolution_backward(
+            g.permute(0, 3, 1, 2), zp, w1.permute(3, 2, 0, 1),
+            [w1.shape[-1]], [2, 2], [0, 0], [1, 1], False, [0, 0], 1,
+            [True, True, True])
+        g_z = g_zp[:, :, :z.shape[1], :z.shape[2]]
+        y0c = y0.permute(0, 3, 1, 2)
+        if ctx.batch_stats:
+            g_y0, g_g0, g_be0 = bnl.bn_leaky_backward(
+                g_z, y0c, mean0, var0, raw0, gamma0, beta0, ctx.eps)
+        else:       # eval mode, as the trunks' other layers: no kernels
+            g_y0, g_g0, g_be0, _, _ = bnl.bn_leaky_backward_plain(
+                g_z, y0c, mean0, var0, gamma0, beta0, ctx.eps, True)
+        # layer 0: y0 = conv(pad(x), w0) + b0; g_y0 is (B, F0, H0, W0)
         xp = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1))
         w0_oihw = w0.permute(3, 2, 0, 1)
         g_w0 = torch.nn.grad.conv2d_weight(
-            xp, w0_oihw.shape, g_nchw, stride=2).permute(2, 3, 1, 0)
-        g_b0 = g_y0.sum(dim=(0, 1, 2))
+            xp, w0_oihw.shape, g_y0, stride=2).permute(2, 3, 1, 0)
+        g_b0 = g_y0.sum(dim=(0, 2, 3))
         g_x = None
         if ctx.needs_input_grad[0]:
             g_xp = torch.nn.grad.conv2d_input(
-                xp.shape, w0_oihw, g_nchw, stride=2)
+                xp.shape, w0_oihw, g_y0, stride=2)
             g_x = g_xp[:, :, :x.shape[1], :x.shape[2]].permute(0, 2, 3, 1)
-        return g_x, g_w0, g_b0, g_g0, g_be0, g_w1, g_b1, None, None, None
+        return (g_x, g_w0, g_b0, g_g0, g_be0, g_w1.permute(2, 3, 1, 0), g_b1,
+                None, None, None)
 
 
 def fused_trunk2(x, w0, b0, gamma0, beta0, w1, b1, eps: float = 1e-5,
