@@ -905,8 +905,10 @@ def check_fusedconv(torch, args) -> dict:
 
 def check_fused_trunk2_backward(torch, args, eps: float = 1e-5) -> dict:
     """Kernel 6's differentiable pair in training (``fused_trunk2``: the
-    kernels forward; backward in closed form, one ``convolution_backward``
-    for layer 1, kernels C and D for layer 0) at the main path's shape,
+    kernels forward; backward in closed form, layer 1's data gradient from
+    the ``s2_dgrad`` kernel and its weight and bias gradients from one
+    ``convolution_backward``, kernels C and D for layer 0) at the main
+    path's shape,
     against autograd through the plain forward (``fusedconv``'s plain
     pieces: layer 0's convolution, its batch statistics and fold, the
     LeakyReLU, layer 1's convolution and batch statistics) on the same
@@ -919,8 +921,8 @@ def check_fused_trunk2_backward(torch, args, eps: float = 1e-5) -> dict:
     every entry of d w0, d b0, d gamma0, d beta0, d w1, d b1 within 1e-5
     of the sum of its terms' magnitudes in the reference's own sums.
     ``bn_leaky_backward`` (C and D for layer 0) is also held on the
-    arguments the backward handed it (a channels-last y0, a cut view of
-    cuDNN's data gradient) to ``bn_leaky_backward_plain``.  Raises on a
+    arguments the backward handed it (a channels-last y0, the kernel's
+    channels-last data gradient) to ``bn_leaky_backward_plain``.  Raises on a
     miss; returns the largest errors."""
     import torch.nn.functional as F
 
@@ -1022,6 +1024,119 @@ def check_fused_trunk2_backward(torch, args, eps: float = 1e-5) -> dict:
         f"d gamma {layer0['rel_err_d_weight']:.3g}, d beta "
         f"{layer0['rel_err_d_bias']:.3g}; limits 1e-5")
     return errs
+
+
+# the four calls of a float32 Hybrid or CVAE training step that take the
+# s2_dgrad kernel, at batch 32 on 128 x 1024 mel images, each as the main
+# path hands it over: (x (B, C, h, w), F, x's layout, bias, weight form).
+# Decoder layers 3 and 4 forward (NCHW, with bias); the data gradients of
+# encoder layer 2 (a channels-last gradient, the convolution's (F_out,
+# C_in, 3, 3) weight) and of kernel 6's conv1 (channels-last, its w1 (3, 3,
+# C_in, F_out) read through a permuted view).
+S2_DGRAD_CALLS = {
+    "dec3": ((BATCH, 128, 16, 128), 64, "nchw", True, "oihw"),
+    "dec4": ((BATCH, 64, 32, 256), 32, "nchw", True, "oihw"),
+    "enc2_dgrad": ((BATCH, 128, 16, 128), 64, "channels_last", False, "oihw"),
+    "k6_conv1_dgrad": ((BATCH, 64, 32, 256), 32, "channels_last", False,
+                       "hwio")}
+
+
+def s2_dgrad_inputs(torch, dev, name: str, seed: int):
+    """``(x, weight, bias)`` of one of :data:`S2_DGRAD_CALLS`, seeded, in
+    its layout; the weight at flax's initial scale."""
+    (n, c, h, w), f, layout, with_bias, form = S2_DGRAD_CALLS[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "nchw":
+        x = torch.randn((n, c, h, w), generator=g, device=dev)
+    else:
+        x = torch.randn((n, h, w, c), generator=g,
+                        device=dev).permute(0, 3, 1, 2)
+    std = (9 * c) ** -0.5
+    if form == "hwio":
+        weight = (torch.randn((3, 3, f, c), generator=g, device=dev)
+                  * std).permute(3, 2, 0, 1)
+    else:
+        weight = torch.randn((c, f, 3, 3), generator=g, device=dev) * std
+    bias = (torch.randn((f,), generator=g, device=dev) * 0.1
+            if with_bias else None)
+    return x, weight, bias
+
+
+def check_s2_dgrad(torch, dev, flush) -> dict:
+    """The s2_dgrad kernel at each of :data:`S2_DGRAD_CALLS`: against its
+    plain version (the same phase-split sums in fp32 PyTorch) within 1e-5
+    of the plain output's largest entry, and both against the plain
+    version in float64 (logged); two calls bit-equal; the output's layout
+    the input's.  Then timed (CUDA events, L2 flushed) beside its bound
+    (bytes of x and the output at the HBM rate, or three TF32 products at
+    the tensor cores' rate), the plain version and the library call the
+    port made before (``F.conv_transpose2d`` for the decoder, cuDNN's data
+    gradient through ``torch.nn.grad.conv2d_input`` for the encoder; a
+    yardstick the port no longer calls).  Raises on a miss."""
+    import torch.nn.functional as F
+
+    from tpuvae_torch.ops import s2_dgrad as s2
+
+    rows = {}
+    for i, name in enumerate(S2_DGRAD_CALLS):
+        x, weight, bias = s2_dgrad_inputs(torch, dev, name, SEED + 250 + i)
+        check(s2.takes_kernel(x, weight), f"s2_dgrad {name}: not the kernel's")
+        n, c, h, w = x.shape
+        f = weight.shape[1]
+        got = s2.s2_conv_transpose(x, weight, bias)
+        again = s2.s2_conv_transpose(x, weight, bias)
+        plain = s2.s2_conv_transpose_plain(x, weight, bias)
+        exact = s2.s2_conv_transpose_plain(
+            x.double(), weight.double(),
+            None if bias is None else bias.double())
+        torch.cuda.synchronize()
+        check(got.shape == (n, f, 2 * h, 2 * w),
+              f"s2_dgrad {name}: shape {tuple(got.shape)}")
+        channels_last = x.stride()[1] == 1
+        check(got.is_contiguous(memory_format=torch.channels_last)
+              if channels_last else got.is_contiguous(),
+              f"s2_dgrad {name}: output strides {got.stride()}")
+        peak = plain.abs().max().item()
+        err = (got - plain).abs().max().item()
+        row = {"shape": [n, c, h, w], "features": f,
+               "layout": "channels_last" if channels_last else "nchw",
+               "max_abs": peak, "err_vs_plain": err,
+               "err_vs_fp64": (got.double() - exact).abs().max().item(),
+               "plain_err_vs_fp64": (plain.double() - exact).abs().max().item(),
+               "bit_equal": bool(torch.equal(got, again))}
+        del again, exact
+        check(err <= 1e-5 * peak, f"s2_dgrad {name}: off its plain version by "
+              f"{err:.3g} > 1e-5 x {peak:.4g}")
+        check(row["bit_equal"], f"s2_dgrad {name}: two calls differ")
+        if bias is not None:
+            def library():
+                return F.conv_transpose2d(x, weight, bias, stride=2)
+        else:
+            def library():
+                return torch.nn.grad.conv2d_input(
+                    (n, f, 2 * h + 1, 2 * w + 1), weight, x, stride=2)
+        nbytes = 4.0 * (x.numel() + got.numel() + weight.numel())
+        flops = 2.0 * 9 * c * f * n * h * w
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 3 * flops,
+                                                 PEAK_TF32_FLOPS)
+        row["bytes"], row["flops"] = int(nbytes), flops
+        row["ms"] = time_ms(torch, lambda: s2.s2_conv_transpose(x, weight,
+                                                                 bias), flush)
+        row["plain_ms"] = time_ms(
+            torch, lambda: s2.s2_conv_transpose_plain(x, weight, bias), flush,
+            runs=5)
+        row["library_ms"] = time_ms(torch, library, flush)
+        row["tflops"] = flops / row["ms"] / 1e9
+        del got, plain
+        rows[name] = row
+        log(f"s2_dgrad {name} {tuple(x.shape)} -> F {f} ({row['layout']}): "
+            f"max abs err {err:.4g} of max |out| {peak:.4g} against plain "
+            f"(limit 1e-5 x), against fp64 kernel {row['err_vs_fp64']:.4g} "
+            f"plain {row['plain_err_vs_fp64']:.4g}; two calls bit-equal; "
+            f"kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}")
+    return rows
 
 
 # the trunk layers whose BatchNorm + LeakyReLU chip_smoke checks and times,
@@ -3727,6 +3842,14 @@ def scanned_hybrid(torch, work: Path, data2: Path, dtype: str,
               f"{name} launched {counts[name]} times in the scanned {dtype} "
               f"run, {want} expected (steps x epochs through the replays "
               f"and the latents' batches)")
+    # s2_dgrad: 4 a training step (decoder layers 3 and 4, the data
+    # gradients of encoder layers 1 and 2), 2 a validation batch; none
+    # under bfloat16 or in the latents' encoder-only batches
+    want_s2 = (fit4["epochs"] * (4 * -(-n_train // BATCH)
+                                 + 2 * -(-n_val // BATCH)) if fp32 else 0)
+    check(counts["s2_dgrad"] == want_s2,
+          f"s2_dgrad launched {counts['s2_dgrad']} times in the scanned "
+          f"{dtype} run, {want_s2} expected")
     check(fit4["host_reads"] == -(-fit4["epochs"] // 4),
           f"host reads {fit4['host_reads']} for {fit4['epochs']} epochs")
     check(all(np.isfinite(fit4["train_loss"] + fit4["val_loss"])),
@@ -3744,7 +3867,8 @@ def scanned_hybrid(torch, work: Path, data2: Path, dtype: str,
                    epoch_s_k1=fit1["epoch_seconds"])
     log(f"scanned Hybrid VAE {dtype}: {fit4['epochs']} epochs at K = 4, host "
         f"reads {fit4['host_reads']}, kernel 6 launches "
-        f"{counts['fusedconv_conv1']} of {want} expected"
+        f"{counts['fusedconv_conv1']} of {want} expected, s2_dgrad "
+        f"{counts['s2_dgrad']} of {want_s2}"
         + (", histories equal to K = 1's" if dtype == "float32" else ""))
     return out
 
@@ -4183,7 +4307,8 @@ def main() -> int:
     log(f"build: {build_s:.1f} s (0 = already built)")
     for name in ("stft_features", "stft_small", "stft_large_a",
                  "stft_large_b", "stft_large_c", "tuning", "select",
-                 "pairwise", "stft_dense", "fusedconv", "bn_leaky"):
+                 "pairwise", "stft_dense", "fusedconv", "bn_leaky",
+                 "s2_dgrad"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -4476,6 +4601,9 @@ def run(torch, dev, work: Path, card: str) -> int:
     k6_back = check_fused_trunk2_backward(torch, k6_args)
     results["fusedconv"] = {"max_abs_err": k6_errs["y1"],
                             "backward": k6_back}
+    s2_rows = check_s2_dgrad(torch, dev, flush)
+    results["s2_dgrad"] = {"max_abs_err": max(
+        r["err_vs_plain"] for r in s2_rows.values())}
 
     # ---- 10. train the Conditional VAE, cluster its latents ------------------
     data2 = Path(pre.pop("data2_dir"))
@@ -4852,6 +4980,24 @@ def run(torch, dev, work: Path, card: str) -> int:
                 "fp32 training step of the conv trunks (encoder 1-5, decoder "
                 "0-4; C + D also at encoder 0, in kernel 6's backward)",
         "bytes": main_row["bytes"], "flops": 0.0, "shapes": bn_rows})
+    s2_main = s2_rows["dec4"]
+    kernels.append({
+        "name": "s2_dgrad", "route": "cuda",
+        "source": "tpuvae_torch/csrc/s2_dgrad.cu",
+        "replaces": "none: the trunks' stride-2 transposed convolutions and "
+                    "data gradients at 32 and 64 output channels, which the "
+                    "JAX package leaves to XLA",
+        "launches": hybrid["counts"]["s2_dgrad"],
+        "max_abs_err": results["s2_dgrad"]["max_abs_err"],
+        "ms": s2_main["ms"], "plain_ms": s2_main["plain_ms"],
+        "bound_ms": s2_main["bound_ms"], "bound_by": s2_main["bound_by"],
+        "library_ms": s2_main["library_ms"],
+        "path": "decoder layer 4 forward, 32 x 64 x 32 x 256 -> 32 channels "
+                "(NCHW); every fp32 trunk training step runs decoder layers "
+                "3 and 4 and the data gradients of encoder layers 1 and 2 "
+                "through it, every validation batch decoder layers 3 and 4",
+        "bytes": s2_main["bytes"], "flops": s2_main["flops"],
+        "calls": s2_rows})
     cvae_step = time_cvae_step(torch, dev, flush)
     log("cvae training step at full width, ms: " + json.dumps(
         {k: round(v, 4) for k, v in cvae_step.items()

@@ -2553,6 +2553,114 @@ def test_spans_on_an_idle_card_a_replay_runs_after_its_span(cuda):
             first - rep["start_ns"])
 
 
+# -- the narrow stride-2 transposed convolutions (ops/s2_dgrad.py) ------------------
+
+def _s2_case(dev, n, c, f, h, w, layout, seed, with_bias=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "channels_last":
+        x = torch.randn((n, h, w, c), generator=g, device=dev).permute(0, 3, 1, 2)
+    elif layout == "cut_nchw":
+        x = torch.randn((n, c, h + 1, w + 1), generator=g, device=dev)[
+            :, :, :h, :w]
+    else:
+        x = torch.randn((n, c, h, w), generator=g, device=dev)
+    weight = torch.randn((c, f, 3, 3), generator=g, device=dev) * (9 * c) ** -0.5
+    bias = (torch.randn((f,), generator=g, device=dev) * 0.1
+            if with_bias else None)
+    return x, weight, bias
+
+
+@pytest.mark.parametrize("n,c,f,h,w,layout", [
+    (32, 128, 64, 16, 128, "nchw"),             # decoder layer 3
+    (32, 64, 32, 32, 256, "nchw"),              # decoder layer 4
+    (32, 128, 64, 16, 128, "channels_last"),    # encoder layer 2's dx
+    (32, 64, 32, 32, 256, "channels_last"),     # kernel 6's conv1's dx
+    (3, 64, 64, 5, 9, "nchw"),                  # partial tiles, 2 slices
+    (2, 100, 32, 7, 13, "channels_last"),       # C not a multiple of 32
+    (1, 1, 32, 1, 1, "channels_last"),          # one position, one channel
+    (2, 48, 64, 6, 5, "nchw"),                  # rows off 16 bytes: a copy
+    (2, 96, 32, 9, 20, "cut_nchw"),
+])
+def test_s2_dgrad_kernel_matches_plain(cuda, n, c, f, h, w, layout):
+    """The kernel within 1e-5 of the plain version's largest entry (three
+    TF32 products, 9 C-term sums in two orders), its output in the input's
+    layout, two calls bit-equal."""
+    from tpuvae_torch.ops import s2_dgrad as s2
+
+    x, weight, bias = _s2_case(cuda, n, c, f, h, w, layout, 5 + c + h)
+    got = s2.s2_conv_transpose(x, weight, bias)
+    again = s2.s2_conv_transpose(x, weight, bias)
+    want = s2.s2_conv_transpose_plain(x, weight, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (n, f, 2 * h, 2 * w)
+    if layout == "nchw" and w % 4 == 0:
+        assert got.is_contiguous()
+    else:
+        assert got.is_contiguous(memory_format=torch.channels_last)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    assert torch.equal(got, again)
+
+
+def test_s2_dgrad_kernel_reads_a_permuted_weight_and_no_bias(cuda):
+    """Kernel 6's conv1 weight (3, 3, C_in, F_out) read through a permuted
+    view as the transposed convolution's (F_out, C_in, 3, 3), no bias."""
+    from tpuvae_torch.ops import s2_dgrad as s2
+
+    x, _, _ = _s2_case(cuda, 4, 64, 32, 8, 16, "channels_last", 3)
+    w1 = torch.randn((3, 3, 32, 64), device=cuda) / 24
+    weight = w1.permute(3, 2, 0, 1)
+    got = s2.s2_conv_transpose(x, weight)
+    want = s2.s2_conv_transpose_plain(x, weight.contiguous())
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_s2_dgrad_counts_launches_and_refuses_other_widths(cuda):
+    from tpuvae_torch import ops
+    from tpuvae_torch.ops import s2_dgrad as s2
+
+    x, weight, bias = _s2_case(cuda, 2, 64, 32, 4, 8, "nchw", 1)
+    ops.reset_launch_counts()
+    s2.s2_conv_transpose(x, weight, bias)
+    assert ops.launch_counts()["s2_dgrad"] == 1
+    s2.s2_conv_transpose_plain(x, weight, bias)
+    assert ops.launch_counts()["s2_dgrad"] == 1
+    for bad in (weight[:, :16], weight.to(torch.bfloat16)):
+        with pytest.raises(ValueError, match="s2_dgrad kernel takes"):
+            s2.s2_conv_transpose(x if bad.dtype == torch.float32
+                                 else x.to(torch.bfloat16), bad)
+    wide, _, _ = _s2_case(cuda, 1, 256, 64, 2, 2, "nchw", 2)
+    with pytest.raises(ValueError, match="s2_dgrad kernel takes"):
+        s2.s2_conv_transpose(wide, torch.zeros((256, 64, 3, 3), device=cuda))
+
+
+@pytest.mark.parametrize("dtype,want", [("float32", 4), ("bfloat16", 0)])
+def test_s2_dgrad_launches_in_a_hybrid_training_step(cuda, dtype, want):
+    """A Hybrid VAE training step sends decoder layers 3 and 4 and the data
+    gradients of encoder layers 1 and 2 through the kernel in float32, an
+    eval forward decoder layers 3 and 4; bfloat16 none.  (The trunks'
+    gradients against the CPU: ``test_conv_trunk_on_the_card_matches_the_cpu``.)"""
+    from tpuvae_torch import ops
+    from tpuvae_torch.models import HybridVAE
+
+    torch.manual_seed(0)
+    model = HybridVAE(latent_dim=16, text_dim=32, input_hw=(64, 128),
+                      dtype=getattr(torch, dtype)).to(cuda)
+    mel = torch.randn((4, 64, 128, 1), device=cuda)
+    text = torch.randn((4, 32), device=cuda)
+    eps = torch.randn((4, 16), device=cuda)
+    ops.reset_launch_counts()
+    out = model(mel, text, eps)
+    (out[0].float().square().mean() + out[1].float().square().mean()).backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["s2_dgrad"] == want
+    model.eval()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        model(mel, text, eps)
+    assert ops.launch_counts()["s2_dgrad"] == want // 2
+
+
 # -- the trunks' BatchNorm + LeakyReLU (ops/bn_leaky.py) -----------------------------
 
 # (N, C, H, W, layout): the ten training layers at batch 32 (encoder 1 with

@@ -135,7 +135,7 @@ def test_kernel_library_is_not_built_on_import():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # seven kernels; kernel 6 counts its two halves apart, BatchNorm +
+    # eight kernels; kernel 6 counts its two halves apart, BatchNorm +
     # LeakyReLU its four passes
     assert out.stdout.strip() == ("[('bn_leaky_grad_input', 0), "
                                   "('bn_leaky_grad_sums', 0), "
@@ -144,7 +144,8 @@ def test_kernel_library_is_not_built_on_import():
                                   "('fusedconv_conv0', 0), "
                                   "('fusedconv_conv1', 0), "
                                   "('masked_median_select', 0), "
-                                  "('pairwise', 0), ('stft_dense', 0), "
+                                  "('pairwise', 0), ('s2_dgrad', 0), "
+                                  "('stft_dense', 0), "
                                   "('stft_features', 0), ('tuning', 0)]")
 
 

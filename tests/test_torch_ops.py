@@ -269,13 +269,17 @@ def test_wrappers_run_plain_versions_on_cpu_without_launching(clips):
     torch.testing.assert_close(ops.bn_leaky.bn_leaky(h, bn),
                                ops.bn_leaky.bn_leaky_plain(h, bn),
                                rtol=0, atol=0)
+    w_t = torch.from_numpy(clips[:1, :4 * 32 * 9].reshape(4, 32, 3, 3))
+    torch.testing.assert_close(ops.s2_dgrad.s2_conv_transpose(h, w_t),
+                               ops.s2_dgrad.s2_conv_transpose_plain(h, w_t),
+                               rtol=0, atol=0)
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.launch_counts()) == {"stft_features", "tuning",
                                         "masked_median_select", "pairwise",
                                         "stft_dense", "fusedconv_conv0",
                                         "fusedconv_conv1", "bn_leaky_stats",
                                         "bn_leaky_norm", "bn_leaky_grad_sums",
-                                        "bn_leaky_grad_input"}
+                                        "bn_leaky_grad_input", "s2_dgrad"}
 
 
 def test_wrappers_refuse_other_devices():

@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuvae_torch.ops import bn_leaky as bnl
+from tpuvae_torch.ops import s2_dgrad as s2
 from tpuvae_torch.ops.fusedconv import LEAKY_SLOPE, fused_trunk2
 
 # flax's lecun_normal draws a standard normal truncated to [-2, 2] and
@@ -215,7 +216,11 @@ class Stride2Conv(nn.Module):
     there, one zero row and column at the high edge only.  ``weight`` is
     ``(F, C, 3, 3)``; flax's ``kernel`` is its (3, 3, C, F) transpose.
     ``dtype`` as :class:`Dense`'s: under bfloat16 the bias is added after
-    the rounded convolution."""
+    the rounded convolution.  In float32, where the data gradient takes the
+    ``s2_dgrad`` kernel (:func:`s2_dgrad.takes_kernel` of ``weight`` read
+    as a transposed convolution's), the call is
+    :class:`s2_dgrad.Stride2ConvFn`: the same cuDNN forward and weight
+    gradient, the data gradient from the kernel."""
 
     def __init__(self, in_channels: int, features: int, dtype=torch.float32):
         super().__init__()
@@ -229,6 +234,8 @@ class Stride2Conv(nn.Module):
         if x.shape[2] % 2 or x.shape[3] % 2:
             raise ValueError(f"H and W must be even, got {tuple(x.shape)}")
         if self.dtype == torch.float32:
+            if s2.takes_kernel(x, self.weight):
+                return s2.Stride2ConvFn.apply(x, self.weight, self.bias)
             return F.conv2d(F.pad(x, (0, 1, 0, 1)), self.weight, self.bias,
                             stride=2)
         y = narrow_product(F.conv2d, F.pad(x.to(self.dtype), (0, 1, 0, 1)),
@@ -249,7 +256,10 @@ class Stride2ConvTranspose(nn.Module):
     ``conv_transpose2d(stride=2, padding=0)`` with the kernel flipped on
     both spatial axes, cut to the first 2H x 2W outputs.  ``weight`` holds
     the flipped kernel as ``(C, F, 3, 3)`` (``convert.py`` flips flax's).
-    ``dtype`` as :class:`Stride2Conv`'s."""
+    ``dtype`` as :class:`Stride2Conv`'s.  In float32, where
+    :func:`s2_dgrad.takes_kernel` says so, the ``s2_dgrad`` kernel writes
+    the 2H x 2W outputs directly (:class:`s2_dgrad.S2ConvTranspose`, whose
+    backward is autograd's of the library composition)."""
 
     def __init__(self, in_channels: int, features: int, dtype=torch.float32):
         super().__init__()
@@ -262,6 +272,8 @@ class Stride2ConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]
         if self.dtype == torch.float32:
+            if s2.takes_kernel(x, self.weight):
+                return s2.S2ConvTranspose.apply(x, self.weight, self.bias)
             y = F.conv_transpose2d(x, self.weight, self.bias, stride=2)
             return y[:, :, :2 * h, :2 * w]
         y = narrow_product(F.conv_transpose2d, x, self.weight, self.dtype,

@@ -17,6 +17,10 @@ kernel                      replaces (Pallas, tpuvae/ops/)          wrapper
 ``bn_leaky_norm``,          trunks' layers 0-5 (encoder) and 0-4    :func:`bn_leaky.bn_leaky_given`,
 ``bn_leaky_grad_sums``,     (decoder) in training, which the JAX    :func:`bn_leaky.bn_leaky_backward`
 ``bn_leaky_grad_input``     package leaves to XLA
+``s2_dgrad``                none: the trunks' stride-2 transposed   :func:`s2_dgrad.s2_conv_transpose`,
+                            convolutions and data gradients at F    :class:`s2_dgrad.S2ConvTranspose`,
+                            in {32, 64}, which the JAX package      :class:`s2_dgrad.Stride2ConvFn`
+                            leaves to XLA
 ==========================  ======================================  ===========================
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
@@ -32,6 +36,7 @@ from tpuvae_torch.ops import (  # noqa: F401
     bn_leaky,
     fusedconv,
     pairwise,
+    s2_dgrad,
     select,
     stft,
     tuning,

@@ -48,6 +48,7 @@ _EXTRA_FLAGS = {
     "stft_dense": ["-ldl"],      # looks cuTensorMapEncodeTiled up at run time
     "fusedconv": [],
     "bn_leaky": [],
+    "s2_dgrad": [],
 }
 
 _LOCK = threading.Lock()

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuvae_torch.ops import _build
+from tpuvae_torch.ops import s2_dgrad as s2
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -362,7 +363,8 @@ class _FusedTrunk2(torch.autograd.Function):
     unclamped variances), rebuilds layer 1's normalised input ``z`` from
     the saved raw ``y0`` with one pass of PyTorch operations, takes
     layer 1's convolution gradients from one ``convolution_backward``
-    call, layer 0's normalisation backward in training from the BatchNorm
+    call (its data gradient from the ``s2_dgrad`` kernel where
+    :func:`s2_dgrad.takes_kernel` says so), layer 0's normalisation backward in training from the BatchNorm
     kernels (``ops.bn_leaky``, C and D) and layer 0's weight gradient from
     PyTorch."""
 
@@ -393,11 +395,15 @@ class _FusedTrunk2(torch.autograd.Function):
         scale0, shift0 = _fold(mean0, var0, gamma0, beta0, ctx.eps)
         z = F.leaky_relu(y0 * scale0 + shift0, LEAKY_SLOPE)
         zp = F.pad(z.permute(0, 3, 1, 2), (0, 1, 0, 1))
+        # its data gradient from the s2_dgrad kernel where it takes it
+        # (float32 on the card), H x W with no cut
+        g_n, w1_oihw = g.permute(0, 3, 1, 2), w1.permute(3, 2, 0, 1)
+        own_dx = s2.takes_kernel(g_n, w1_oihw)
         g_zp, g_w1, g_b1 = torch.ops.aten.convolution_backward(
-            g.permute(0, 3, 1, 2), zp, w1.permute(3, 2, 0, 1),
-            [w1.shape[-1]], [2, 2], [0, 0], [1, 1], False, [0, 0], 1,
-            [True, True, True])
-        g_z = g_zp[:, :, :z.shape[1], :z.shape[2]]
+            g_n, zp, w1_oihw, [w1.shape[-1]], [2, 2], [0, 0], [1, 1], False,
+            [0, 0], 1, [not own_dx, True, True])
+        g_z = (s2.s2_conv_transpose(g_n, w1_oihw) if own_dx
+               else g_zp[:, :, :z.shape[1], :z.shape[2]])
         y0c = y0.permute(0, 3, 1, 2)
         if ctx.batch_stats:
             g_y0, g_g0, g_be0 = bnl.bn_leaky_backward(
