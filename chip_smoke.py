@@ -272,9 +272,9 @@ PEAK_TF32_FLOPS = 495e12
 # earlier designs' times at the shapes timed here, as PERF.md records them
 # (NVIDIA H100 80GB HBM3, 700.00 W; earlier runs on other hosts, not
 # measured here): printed in the log beside the new times, never in the
-# kernels line.  `tools/stft_ab.py` and `tools/kernel_ab.py --old` time the
-# earlier designs in one process with the new.  The STFT kernels: a
-# radix-2 FFT in shared memory, an fp32 GEMM on the CUDA cores.  Kernel 2:
+# kernels line.  `tools/kernel_ab.py --old` times the earlier designs
+# against the new, alternating.  The STFT kernels: a radix-2 FFT in shared
+# memory, an fp32 GEMM on the CUDA cores.  Kernel 2:
 # one CTA per clip, six passes over the band.  Kernel 6: a CUDA-core conv1
 # whose wrapper summed the per-CTA partials.  Kernel 3: one CTA per row,
 # five passes over the keys.  Kernel 5: 64 x 64 tiles of 4 x 4 register

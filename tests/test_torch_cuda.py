@@ -1500,6 +1500,36 @@ def test_kernel_plan_is_the_plan_that_ran(cuda):
         assert ops.launch_counts()["stft_features"] == 1
 
 
+def test_stft_features_kernel_refuses_every_size_but_2048(cuda):
+    """``STFT_FEATURES`` (the radix-32 x 32 plan) takes n_fft 2048 alone:
+    at 4096 its C entry returns ``cudaErrorInvalidValue`` and
+    ``_build.Kernel`` raises, launching nothing; the same arguments at 2048
+    launch."""
+    from tpuvae_torch.ops import _build
+    from tpuvae_torch.ops.stft import STFT_FEATURES, _fft_consts
+
+    n_samples, hop = 8192, 1024
+    t = 1 + n_samples // hop
+    y = torch.zeros((1, n_samples), device=cuda)
+    window, tw, xtw = _fft_consts(str(cuda), 2048)
+    ptr = _build.ptr
+
+    def call(n_fft):
+        power = torch.empty((1, n_fft // 2 + 1, t), device=cuda)
+        STFT_FEATURES(ptr(y), 1, n_samples, 0, n_samples, n_fft, hop, t,
+                      ptr(window), ptr(tw), ptr(xtw), None, None, None, 0, 0,
+                      ptr(power), 0, None, None, _build.stream_ptr(cuda))
+        return power
+
+    before = STFT_FEATURES.launches
+    with pytest.raises(RuntimeError,
+                       match=r"failed to launch: error 1 \(invalid argument"):
+        call(4096)
+    assert STFT_FEATURES.launches == before
+    assert float(call(2048).abs().max()) == 0.0
+    assert STFT_FEATURES.launches == before + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("n_fft", [1024, 3072])

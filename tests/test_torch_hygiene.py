@@ -4,12 +4,17 @@
   flax or the JAX package — checked on the source, by AST;
 * entry points default to the card and raise without one; nothing drops
   to the CPU by itself;
+* every kernel entry's ``argtypes`` match the ``extern "C"`` prototype of
+  its symbol in ``csrc/`` (a mismatch shows only as corrupt arguments on
+  the card);
 * serving bundles unpickle only the normalizer classes and numpy arrays;
 * the WAV decoder reproduces the JAX package's.
 """
 
 import ast
+import ctypes
 import pickle
+import re
 import wave
 from pathlib import Path
 
@@ -147,6 +152,40 @@ def test_kernel_library_is_not_built_on_import():
                                   "('pairwise', 0), ('s2_dgrad', 0), "
                                   "('stft_dense', 0), "
                                   "('stft_features', 0), ('tuning', 0)]")
+
+
+def _kernel_entries():
+    from tpuvae_torch.ops import _build
+
+    return _build.kernels()
+
+
+def _c_prototypes() -> dict:
+    """``{symbol: [ctypes type of each parameter]}`` of every ``extern "C"
+    int`` entry in ``tpuvae_torch/csrc/``: a pointer is ``c_void_p``."""
+    scalars = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+               "float": ctypes.c_float}
+    protos = {}
+    for src in sorted((REPO / "tpuvae_torch" / "csrc").glob("*.cu*")):
+        for symbol, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                         src.read_text()):
+            kinds = []
+            for param in params.split(","):
+                decl = " ".join(param.replace("const ", "").split())
+                kinds.append(ctypes.c_void_p if "*" in decl
+                             else scalars[decl.rsplit(" ", 1)[0]])
+            assert symbol not in protos, f"{symbol} defined twice"
+            protos[symbol] = kinds
+    return protos
+
+
+@pytest.mark.parametrize("kernel", _kernel_entries(),
+                         ids=lambda k: k.symbol)
+def test_kernel_argtypes_match_the_c_prototype(kernel):
+    want = _c_prototypes()[kernel.symbol]
+    assert len(kernel.argtypes) == len(want), kernel.symbol
+    for i, (got, c_type) in enumerate(zip(kernel.argtypes, want)):
+        assert got is c_type, (kernel.symbol, i, got, c_type)
 
 
 def test_matplotlib_is_imported_only_to_draw(tmp_path):

@@ -11,10 +11,12 @@ what ``auto`` resolves to, against the JAX package.
   mode (an FFT against fp32 Cooley-Tukey dots, sums in another order),
   bf16 power within one bf16 step, and rolloff within one bin, sr / n_fft
   (two prefix sums may straddle the 85% threshold differently).
-* The kernel's mixed-radix plan in shared memory (kept in the tree; no
-  size runs it), emulated in float64 on the host tables the kernel reads at
-  every size but 2048, equals ``numpy.fft``: the digit reversal, the
-  in-place stages, the twiddle strides and the real-input split.
+* Its radix-32 x 32 register plan of n_fft 2048 (``csrc/stft_features.cu``),
+  emulated in float64 on its host tables and the literal roots of its
+  source, equals ``numpy.fft``: the lanes' points, the two 32-point FFTs in
+  bit-reversed register order, the W_1024 twiddles, the exchange and the
+  partners of the split; ``_fft_consts`` hands each size the tables of the
+  plan ``kernel_plan`` names, in the shapes its C entry reads.
 * Its register plan of n_fft 256 .. 1,792 (``csrc/stft_small.cu``),
   emulated in float64 on its host tables and the literal roots of its
   source, equals ``numpy.fft``: the lanes' points, the r-point DFT, the
@@ -239,89 +241,129 @@ def test_ct_pallas_takes_the_pad_modes_of_the_jax_kernel(pad_mode):
                                         pad_mode=pad_mode), fe, 1024, True)
 
 
-# -- the mixed-radix plan the kernel runs -------------------------------------
+# -- the radix-32 x 32 register plan of n_fft 2048 ----------------------------
 
-def _emulate_general_plan(x: np.ndarray, n_fft: int) -> np.ndarray:
-    """``csrc/stft_features.cu``'s general plan in float64 on its own
-    tables: window, scatter point n to iperm[n], the in-place radix stages
-    (butterfly j of a stage of radix R after L points: block j // L, k1 =
-    j % L, points base + r L, twiddles tw_m[r k1 m / (L R)]), then the
-    real-input split of each bin from Z[k] and Z[m - k]."""
-    from tpuvae_torch.ops.stft import _general_tables
-
-    window, split_tw, tw_m, iperm, code = _general_tables(n_fft)
-    m = n_fft // 2
-    plan = []
-    while code:
-        plan.append(code & 63)
-        code >>= 6
-    tw_m = tw_m[:, 0].astype(np.float64) + 1j * tw_m[:, 1]
-    split_tw = split_tw[:, 0].astype(np.float64) + 1j * split_tw[:, 1]
-    xw = x * window
-    buf = np.empty(m, complex)
-    buf[iperm] = xw[0::2] + 1j * xw[1::2]
-    span = 1
-    for radix in plan:
-        block = span * radix
-        dft = tw_m[(np.outer(np.arange(radix), np.arange(radix)) % radix)
-                   * (m // radix)]
-        j = np.arange(m // radix)
-        base = (j // span) * block + j % span
-        idx = base[:, None] + span * np.arange(radix)[None, :]
-        v = buf[idx] * tw_m[np.outer(j % span, np.arange(radix))
-                            * (m // block)]
-        buf[idx] = v @ dft
-        span = block
-    k = np.arange(m + 1)
-    zk, zm = buf[k % m], buf[(m - k) % m]
-    even = 0.5 * (zk + np.conj(zm))
-    odd = -0.5j * (zk - np.conj(zm))
-    return np.abs(even + split_tw * odd) ** 2
-
-
-@pytest.mark.parametrize("q", [q for q in range(1, 24) if q != 8])
-def test_mixed_radix_plan_with_the_kernel_tables_equals_rfft(q):
-    from tpuvae_torch.ops.stft import _radix_plan
-
-    n_fft = 256 * q
-    plan = _radix_plan(n_fft // 2)
-    assert int(np.prod(plan)) == n_fft // 2
-    assert all(r in (2, 4, 8, 16, 3, 5, 7, 11, 13, 17, 19, 23) for r in plan)
-    # every stage has a butterfly for each of the warp's 32 lanes
-    assert all(n_fft // 2 // r >= 32 for r in plan)
-    x = np.random.default_rng(q).standard_normal(n_fft)
-    from tpuvae_torch.dsp.primitives import hann_window
-
-    want = np.abs(np.fft.rfft(x * hann_window(n_fft))) ** 2
-    # float64 arithmetic on the kernel's fp32 tables: ~1e-7 of the largest
-    # power; a wrong index or twiddle would be off by its order
-    np.testing.assert_allclose(_emulate_general_plan(x, n_fft), want,
-                               rtol=1e-5, atol=1e-6 * want.max())
-
-
-# -- the register plan of n_fft 256 .. 1,792 -----------------------------------
-
-def _source_roots() -> dict:
-    """The literal roots ``cos, sin (2 pi e / R)`` of ``csrc/stft_small.cu``
-    (its r-point DFTs' twiddles and odd factors), by R, as fp32."""
+def _source_roots(name: str = "stft_small.cu") -> dict:
+    """The literal roots ``cos, sin (2 pi e / R)`` of ``csrc/<name>`` (its
+    DFTs' twiddles and odd factors), by R, as fp32."""
     import re
     from pathlib import Path
 
     src = (Path(__file__).resolve().parents[1] / "tpuvae_torch" / "csrc"
-           / "stft_small.cu").read_text()
+           / name).read_text()
     roots = {}
-    for name, size, body in re.findall(
+    for kind, size, body in re.findall(
             r"constexpr float (kC|kS)\[(\d+)\] = \{([^}]*)\};", src):
         vals = np.array([float(v.strip().rstrip("f")) for v in body.split(",")],
                         np.float32)
         assert vals.size == int(size)
-        roots.setdefault(int(size), {})[name] = vals
+        roots.setdefault(int(size), {})[kind] = vals
     return {r: (v["kC"], v["kS"]) for r, v in roots.items()}
 
 
 def _brev(k: int, bits: int) -> int:
     return int(f"{k:0{bits}b}"[::-1], 2) if bits else 0
 
+
+def _emulate_radix32_plan(x: np.ndarray) -> np.ndarray:
+    """``csrc/stft_features.cu`` in float64 on its own tables: lane l takes
+    points l + 32 j into register j; the 32-point FFT over the registers
+    (five radix-2 decimation-in-frequency stages on the source's literal
+    W_32 roots, register i ending with output brev5(i)); output k1 times
+    xtw[k1, l]; the exchange (lane c takes output c of every lane l into
+    register l); the second 32-point FFT, after which register brev5(k2) of
+    lane c holds Z[c + 32 k2]; the split of bin k = c + 32 r with its
+    partner from register brev5(31 - r) of lane 32 - c (lane 0: its own
+    register brev5((32 - r) & 31)); the Nyquist bin from lane 0's
+    register 0."""
+    from tpuvae_torch.ops.stft import _fft_tables
+
+    window, split_tw, xtw = _fft_tables(2048)
+    cos_t, sin_t = (t.astype(np.float64) for t in
+                    _source_roots("stft_features.cu")[16])
+    cplx = lambda t: t[..., 0].astype(np.float64) + 1j * t[..., 1]  # noqa: E731
+    split_tw, xtw = cplx(split_tw), cplx(xtw)
+
+    def fft32(v):                              # v[register, lane]
+        v = v.copy()
+        for s in range(5):
+            half = 16 >> s
+            for g in range(1 << s):
+                for q in range(half):
+                    i0 = g * 2 * half + q
+                    a, b = v[i0].copy(), v[i0 + half].copy()
+                    t = q << s
+                    v[i0] = a + b
+                    v[i0 + half] = (a - b) * (cos_t[t] - 1j * sin_t[t])
+        return v
+
+    br = np.array([_brev(i, 5) for i in range(32)])
+    xw = x * window
+    z = xw[0::2] + 1j * xw[1::2]
+    y = fft32(z.reshape(32, 32))[br] * xtw     # y[k1, l] = Y_l[k1] W^(l k1)
+    out = fft32(y.T)                           # out[brev5(k2), c]
+    lane = np.arange(32)
+    power = np.empty(1025)
+    for r in range(32):
+        zk = out[br[r], lane]
+        zm = out[br[31 - r], (32 - lane) & 31]
+        zm[0] = out[br[(32 - r) & 31], 0]
+        k = lane + 32 * r
+        even = 0.5 * (zk + np.conj(zm))
+        odd = -0.5j * (zk - np.conj(zm))
+        power[k] = np.abs(even + split_tw[k] * odd) ** 2
+    z0 = out[0, 0]                             # the Nyquist bin from Z[0]
+    power[1024] = np.abs(z0.real + split_tw[1024] * z0.imag) ** 2
+    return power
+
+
+def test_radix32_plan_with_the_kernel_tables_equals_rfft():
+    from tpuvae_torch.dsp.primitives import hann_window
+
+    roots = _source_roots("stft_features.cu")
+    assert sorted(roots) == [16]
+    ang = 2.0 * np.pi * np.arange(16) / 32
+    np.testing.assert_allclose(roots[16][0], np.cos(ang), rtol=0, atol=6e-8)
+    np.testing.assert_allclose(roots[16][1], np.sin(ang), rtol=0, atol=6e-8)
+    x = np.random.default_rng(8).standard_normal(2048)
+    want = np.abs(np.fft.rfft(x * hann_window(2048))) ** 2
+    # float64 arithmetic on the kernel's fp32 tables and roots: ~1e-7 of
+    # the largest power; a wrong index or twiddle would be off by its order
+    np.testing.assert_allclose(_emulate_radix32_plan(x), want, rtol=1e-5,
+                               atol=1e-6 * want.max())
+
+
+@pytest.mark.parametrize("q", range(1, 24))
+def test_fft_consts_are_the_tables_of_the_plan_that_runs(q):
+    from tpuvae_torch.dsp.primitives import hann_window
+    from tpuvae_torch.ops.stft import (
+        _fft_consts,
+        _fft_tables,
+        _group_tables,
+        _register_tables,
+        kernel_plan,
+    )
+
+    n_fft = 256 * q
+    m = n_fft // 2
+    plan = kernel_plan(n_fft)
+    tables = {"register32x32": _fft_tables, "register_r": _register_tables,
+              "register_w": _group_tables}[plan](n_fft)
+    window, twiddle, xtw = _fft_consts("cpu", n_fft)
+    # the shapes the C entries document for xtw
+    assert tuple(xtw.shape) == {"register32x32": (32, 32, 2),
+                                "register_r": (m // 32 + 5, 32, 2),
+                                "register_w": (m + 288, 2)}[plan]
+    assert tuple(window.shape) == (n_fft,)
+    assert tuple(twiddle.shape) == (m + 1, 2)
+    for got, want in zip((window, twiddle, xtw), tables):
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(window.numpy(), hann_window(n_fft))
+
+
+# -- the register plan of n_fft 256 .. 1,792 -----------------------------------
 
 def _emulate_register_plan(x: np.ndarray, n_fft: int) -> np.ndarray:
     """``csrc/stft_small.cu`` in float64 on its own tables: lane l takes
@@ -398,7 +440,7 @@ def test_register_plan_with_the_kernel_tables_equals_rfft(q):
     assert xtw.shape == (4 * q + 5, 32, 2) and xtw.dtype == np.float32
     x = np.random.default_rng(100 + q).standard_normal(n_fft)
     want = np.abs(np.fft.rfft(x * hann_window(n_fft))) ** 2
-    # float64 arithmetic on fp32 tables and roots, as the mixed-radix test
+    # float64 arithmetic on fp32 tables and roots, as the 2048 test
     np.testing.assert_allclose(_emulate_register_plan(x, n_fft), want,
                                rtol=1e-5, atol=1e-6 * want.max())
 
@@ -440,24 +482,6 @@ def test_kernel_plan_routes_each_size(q):
 
 # -- the group register plan of n_fft 2,304 .. 5,888 ---------------------------
 
-def _group_source_roots() -> dict:
-    """The literal roots ``cos, sin (2 pi e / Q)`` of ``csrc/stft_large.cuh``
-    (its q-point DFTs' twiddles and odd factors), by Q, as fp32."""
-    import re
-    from pathlib import Path
-
-    src = (Path(__file__).resolve().parents[1] / "tpuvae_torch" / "csrc"
-           / "stft_large.cuh").read_text()
-    roots = {}
-    for name, size, body in re.findall(
-            r"constexpr float (kC|kS)\[(\d+)\] = \{([^}]*)\};", src):
-        vals = np.array([float(v.strip().rstrip("f")) for v in body.split(",")],
-                        np.float32)
-        assert vals.size == int(size)
-        roots.setdefault(int(size), {})[name] = vals
-    return {q: (v["kC"], v["kS"]) for q, v in roots.items()}
-
-
 def _emulate_group_plan(x: np.ndarray, n_fft: int) -> np.ndarray:
     """``csrc/stft_large.cuh`` in float64 on its own tables: thread t of
     the group takes points t + 128 j (j < q); pass A's q-point DFT as the
@@ -493,7 +517,8 @@ def _emulate_group_plan(x: np.ndarray, n_fft: int) -> np.ndarray:
     if big_s == 1:
         y[:] = a[:, 0]
     else:
-        cos_t, sin_t = (t.astype(np.float64) for t in _group_source_roots()[q])
+        cos_t, sin_t = (t.astype(np.float64)
+                        for t in _source_roots("stft_large.cuh")[q])
         root = lambda e: cos_t[e % q] - 1j * sin_t[e % q]  # noqa: E731
         for kp in range(big_p):
             b = np.stack([a[kp, js] * root(js * kp) for js in range(big_s)])
@@ -540,13 +565,13 @@ def test_group_register_plan_with_the_kernel_tables_equals_rfft(q):
     assert xtw.shape == (128 * q + 288, 2) and xtw.dtype == np.float32
     x = np.random.default_rng(200 + q).standard_normal(n_fft)
     want = np.abs(np.fft.rfft(x * hann_window(n_fft))) ** 2
-    # float64 arithmetic on fp32 tables and roots, as the mixed-radix test
+    # float64 arithmetic on fp32 tables and roots, as the 2048 test
     np.testing.assert_allclose(_emulate_group_plan(x, n_fft), want,
                                rtol=1e-5, atol=1e-6 * want.max())
 
 
 def test_group_register_plan_roots_are_cos_and_sin_in_fp32():
-    roots = _group_source_roots()
+    roots = _source_roots("stft_large.cuh")
     assert sorted(roots) == [q for q in range(9, 24) if q != 16]
     for q, (cos_t, sin_t) in roots.items():
         ang = 2.0 * np.pi * np.arange(q) / q

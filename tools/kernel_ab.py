@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
-"""Check and time kernels 2 (chroma tuning), 3 (masked-median select), 5
-(pairwise distances) and 6 (the fused conv + BatchNorm-statistics pair)
-of ``tpuvae_torch`` on one GPU, and time them against an earlier design of
-the same kernels in alternating rounds in one process.
+"""Check and time kernels 1 (the fused STFT), 2 (chroma tuning), 3
+(masked-median select), 4 (the dense-DFT STFT), 5 (pairwise distances) and
+6 (the fused conv + BatchNorm-statistics pair) of ``tpuvae_torch`` on one
+GPU, and time them against an earlier design of the same kernels in
+alternating rounds.
 
     python3 tools/kernel_ab.py                     # check + time this tree
-    python3 tools/kernel_ab.py --old DIR           # ... and A/B against DIR
     python3 tools/kernel_ab.py --kernels select,pairwise --old DIR
     python3 tools/kernel_ab.py --ablate            # ... and kernels' parts
+    python3 tools/kernel_ab.py --kernels stft_features,stft_dense \
+        [--geometries 2048/512,1024/256] [--old CHECKOUT]
 
-``--kernels`` picks among ``tuning``, ``select``, ``pairwise`` and
-``fusedconv`` (default: all).  ``DIR`` holds the earlier design's sources
-of the kernels picked and the headers they include: ``tuning.cu`` (one
-CTA per clip with six passes over the band; or a later one with this
-tree's C interface), ``fusedconv.cu`` (a CUDA-core conv1 whose wrapper
-sums per-CTA partials), ``select.cu`` (one CTA per row, five passes over
-the keys), ``pairwise.cu`` (64 x 64 tiles, 4 x 4 micro-tiles, both
-triangles), e.g.
+``--kernels`` picks among ``tuning``, ``select``, ``pairwise``,
+``fusedconv``, ``stft_features`` and ``stft_dense`` (default: all).
+
+Kernels 1 and 4 run through their public wrappers on 32 seeded clips of
+30 s.  Kernel 1 is checked against its plain version in fast mode at each
+of ``--geometries`` (``n_fft/hop`` pairs, default 2048/512), and in exact
+mode, power-only and on a ragged tile at 2048/512; it is timed in fast mode
+with 128 mels at each geometry and power-only at 2048/512.  Kernel 4 is
+checked at 2048/512 and four smaller geometries and timed at 2048/512.
+With ``--old``, ``CHECKOUT`` is the root of another checkout
+(e.g. a parent commit unpacked with ``git archive`` into a git-ignored
+directory): it and this tree run in alternating processes, each building
+its own kernels at first use and timing the same clips through its own
+wrappers, so a change of C interface between them does not matter.
+
+For kernels 2, 3, 5 and 6, ``--old DIR`` names a directory of the earlier
+design's sources of the kernels picked and the headers they include:
+``tuning.cu`` (one CTA per clip with six passes over the band; or a later
+one with this tree's C interface), ``fusedconv.cu`` (a CUDA-core conv1
+whose wrapper sums per-CTA partials), ``select.cu`` (one CTA per row, five
+passes over the keys), ``pairwise.cu`` (64 x 64 tiles, 4 x 4 micro-tiles,
+both triangles), e.g.
 
     mkdir -p build/old_csrc
     for f in select.cu radix_select.cuh pairwise.cu tuning.cu \
@@ -25,20 +41,23 @@ triangles), e.g.
 
 They are compiled here with the flags of ``tpuvae_torch/ops/_build.py``
 (the common ones plus each kernel's own, ``-fmad=false`` for kernels 2 and
-3) and called through their own C interface; the earlier pair runs with
-the earlier wrapper's reductions.  Each round times old, new, new, old
-(median of ``--runs`` CUDA-event timings each, L2 flushed before every
-launch), once as ``chip_smoke.py`` times (``*_ms``: the card's waits for
-the host's launches included) and once with the card kept busy while the
-host enqueues (``*_device_ms``: a 1 ms sleep kernel before the start
-event, so only device time counts); the card's name and power limit are
-printed beside the numbers.  Shapes: kernel 2 on the bf16 power of 32 and
-128 seeded 30 s clips (n_fft 2048, hop 512); kernel 3 on those clips'
-piptrack keys (32 and 128 rows x 475,456) and on 32 all-valid rows (its
-lists spill to global memory); kernel 5 ``self_distances`` at N = 186,
-1,336 and 10,240, D = 32 (also at both tile sides, 64 and 128, through
-the C interface); kernel 6 at 32 x 128 x 1024.  Exits non-zero if
-a kernel disagrees with its plain version or with its earlier design.
+3) and called through their own C interface in this process; the earlier
+pair runs with the earlier wrapper's reductions.  So one ``--old`` takes
+kernels 1 and 4, or the others.
+
+Each round times old, new, new, old (median of ``--runs`` CUDA-event
+timings each, L2 flushed before every launch), once as ``chip_smoke.py``
+times (``*_ms``: the card's waits for the host's launches included) and
+once with the card kept busy while the host enqueues (``*_device_ms``: a 1
+ms sleep kernel before the start event, so only device time counts); the
+card's name and power limit are printed beside the numbers.  Shapes:
+kernel 2 on the bf16 power of 32 and 128 seeded 30 s clips (n_fft 2048,
+hop 512); kernel 3 on those clips' piptrack keys (32 and 128 rows x
+475,456) and on 32 all-valid rows (its lists spill to global memory);
+kernel 5 ``self_distances`` at N = 186, 1,336 and 10,240, D = 32 (also at
+both tile sides, 64 and 128, through the C interface); kernel 6 at 32 x
+128 x 1024.  Exits non-zero if a kernel disagrees with its plain version
+or (kernels 2, 3, 5 and 6) with its earlier design.
 
 ``--ablate`` also builds conv1 (``fusedconv``), kernel 3 (``select``) and
 kernel 5 (``pairwise``, self mode at N = 10,240) of this tree, where
@@ -99,7 +118,8 @@ def time_ms(torch, fn, flush, runs: int, busy_cycles: int = 0) -> float:
     return statistics.median(times)
 
 
-KERNELS = ("tuning", "select", "pairwise", "fusedconv")
+STFT_KERNELS = ("stft_features", "stft_dense")
+KERNELS = ("tuning", "select", "pairwise", "fusedconv", *STFT_KERNELS)
 
 
 def build_old(old_dir: Path, names) -> dict:
@@ -449,10 +469,128 @@ def check_pairwise_self(torch, x, got) -> None:
     cs.check(err <= (2e-5 * sq) ** 0.5, f"kernel 5 off by {err} at {x.shape}")
 
 
+def per_round(new: list, old: list) -> list:
+    """New over old in each round of old, new, new, old."""
+    return [(new[2 * i] + new[2 * i + 1]) / (old[2 * i] + old[2 * i + 1])
+            for i in range(len(new) // 2)]
+
+
+def stft_clips(torch, dev):
+    """Kernels 1 and 4's input: 32 seeded clips of 30 s."""
+    return torch.from_numpy(cs.tones(cs.BATCH, int(cs.SR * cs.DURATION),
+                                     cs.SEED)).to(dev)
+
+
+def stft_entries(y, picked, geometries) -> dict:
+    """Closures that run kernels 1 and 4 on ``y`` through the public
+    wrappers of the ``tpuvae_torch`` this process imported, by name."""
+    from tpuvae_torch.ops.stft import (
+        stft_fused_features,
+        stft_power,
+        stft_power_dense,
+    )
+
+    fns = {}
+    if "stft_features" in picked:
+        for n_fft, hop in geometries:
+            fns[f"stft_features_{n_fft}_{hop}"] = (
+                lambda n_fft=n_fft, hop=hop: stft_fused_features(
+                    y, n_fft, hop, sr=cs.SR, n_mels=cs.N_MELS))
+        # without the epilogue: the share of the FFT and the store
+        fns["stft_power_only"] = lambda: stft_power(y, cs.N_FFT, cs.HOP)
+    if "stft_dense" in picked:
+        fns["stft_dense"] = lambda: stft_power_dense(y, cs.N_FFT, cs.HOP)
+    return fns
+
+
+def check_stft(torch, y, picked, geometries) -> None:
+    """Kernels 1 and 4 against their plain versions on ``y`` (see the
+    module's docstring for where)."""
+    from tpuvae_torch.ops.stft import stft_power
+
+    if "stft_features" in picked:
+        _, plain, pmax, err, roll = cs.check_stft_features(torch, y, True)
+        torch.testing.assert_close(stft_power(y, cs.N_FFT, cs.HOP),
+                                   plain.power, rtol=1e-4, atol=1e-6 * pmax)
+        del plain
+        cs.log(f"kernel 1 exact: power max abs err {err:.4g} = "
+               f"{err / pmax:.3g} of max power; rolloff max err {roll:.4g} "
+               "Hz; power-only within tolerance")
+        odd = y[:3, :2 * cs.SR + 101].contiguous()   # ragged tile, odd length
+        for exact in (True, False):
+            cs.check_stft_features(torch, odd, exact)
+        for n_fft, hop in geometries:
+            *_, err, roll = cs.check_stft_features(torch, y, False, n_fft, hop)
+            cs.log(f"kernel 1 fast at {n_fft}/{hop}: bf16 power max abs err "
+                   f"{err:.4g}; rolloff max err {roll:.4g} Hz")
+    if "stft_dense" in picked:
+        ragged = y[:3, :2 * cs.SR].contiguous()
+        cs.check_stft_dense(torch, ragged[:, :5000].contiguous(), 512, 512)
+        cs.check_stft_dense(torch, ragged, cs.N_FFT, cs.HOP)
+        cs.check_stft_dense(torch, ragged[:, :30001].contiguous(), 1024, 256)
+        cs.check_stft_dense(torch, ragged[:, :5003].contiguous(), 48, 6)
+        cs.check_stft_dense(torch, y, cs.N_FFT, cs.HOP)
+
+
+def tree_times(picked, geometries, runs: int) -> None:
+    """Prints one JSON line: the checkout whose ``tpuvae_torch`` this
+    process imported (``package``) and each of :func:`stft_entries`' times
+    there, ``[ms, device_ms]``.  :func:`checkout_ab` runs it."""
+    import torch
+    import tpuvae_torch
+
+    dev = torch.device("cuda")
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    out = {"package": str(Path(tpuvae_torch.__file__).resolve().parents[1])}
+    fns = stft_entries(stft_clips(torch, dev), picked, geometries)
+    for name, fn in fns.items():
+        out[name] = [time_ms(torch, fn, flush, runs, busy)
+                     for busy in (0, BUSY_CYCLES)]
+    print(json.dumps(out), flush=True)
+
+
+def checkout_ab(old: Path, picked, geometries, rounds: int,
+                runs: int) -> dict:
+    """Kernels 1 and 4 of the checkout at ``old`` against this tree's:
+    old, new, new, old in each round, each a process of its own that
+    imports ``tpuvae_torch`` from its checkout first, then runs
+    :func:`tree_times`."""
+    times = {}
+    for _ in range(rounds):
+        for side, tree in (("old", old), ("new", REPO), ("new", REPO),
+                           ("old", old)):
+            code = (f"import sys; sys.path.insert(0, {str(tree)!r}); "
+                    "import tpuvae_torch; "
+                    f"sys.path.insert(0, {str(REPO / 'tools')!r}); "
+                    "import kernel_ab; "
+                    f"kernel_ab.tree_times({picked!r}, {geometries!r}, {runs})")
+            res = subprocess.run([sys.executable, "-c", code],
+                                 capture_output=True, text=True, timeout=900)
+            if res.returncode:
+                raise RuntimeError(f"timing {tree} failed:\n"
+                                   f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            got = json.loads(res.stdout.strip().splitlines()[-1])
+            cs.check(got.pop("package") == str(tree),
+                     f"the process for {tree} imported another tpuvae_torch")
+            for name, (ms, device_ms) in got.items():
+                t = times.setdefault(name, {
+                    f"{s}_{tag}ms": [] for s in ("old", "new")
+                    for tag in ("", "device_")})
+                t[f"{side}_ms"].append(ms)
+                t[f"{side}_device_ms"].append(device_ms)
+    for t in times.values():
+        for tag in ("", "device_"):
+            t[f"new_over_old_{tag}per_round"] = per_round(
+                t[f"new_{tag}ms"], t[f"old_{tag}ms"])
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, default=None)
     ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--geometries", default=f"{cs.N_FFT}/{cs.HOP}",
+                    help="kernel 1's n_fft/hop pairs, comma-separated")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--runs", type=int, default=15)
     ap.add_argument("--ablate", action="store_true")
@@ -460,6 +598,12 @@ def main() -> int:
     picked = [k for k in args.kernels.split(",") if k]
     if not picked or set(picked) - set(KERNELS):
         ap.error(f"--kernels: a comma list of {', '.join(KERNELS)}")
+    stft = [k for k in picked if k in STFT_KERNELS]
+    if args.old is not None and stft and len(stft) < len(picked):
+        ap.error("--old: a checkout for stft_features and stft_dense, a "
+                 "source directory for the others; pick one kind")
+    geometries = [tuple(int(v) for v in g.split("/"))
+                  for g in args.geometries.split(",")]
 
     import torch
 
@@ -486,7 +630,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     new, old, libs = {}, {}, {}
-    if args.old is not None:
+    if args.old is not None and not stft:
         libs = build_old(args.old, picked)
 
     if "tuning" in picked or "select" in picked:
@@ -588,6 +732,11 @@ def main() -> int:
     if libs:
         cs.log("earlier designs agree with the new ones (kernels 2 and 3 "
                "equal, 5 and 6 within their tolerances)")
+    if stft:
+        y_stft = stft_clips(torch, dev)
+        check_stft(torch, y_stft, picked, geometries)
+        if args.old is None:
+            new.update(stft_entries(y_stft, picked, geometries))
 
     result = {"card": card, "runs": args.runs}
     for name, fn in new.items():
@@ -606,13 +755,18 @@ def main() -> int:
                                (f"old_{tag}ms", old[name])):
                     times[key].append(time_ms(torch, f, flush, args.runs,
                                               busy))
-            n, o = times[f"new_{tag}ms"], times[f"old_{tag}ms"]
-            times[f"new_over_old_{tag}per_round"] = [
-                (n[2 * i] + n[2 * i + 1]) / (o[2 * i] + o[2 * i + 1])
-                for i in range(args.rounds)]
+            times[f"new_over_old_{tag}per_round"] = per_round(
+                times[f"new_{tag}ms"], times[f"old_{tag}ms"])
         result[name] = times
         cs.log(f"time {name}, ms: " + json.dumps(
             {k: [round(v, 4) for v in vs] for k, vs in times.items()}))
+    if stft and args.old is not None:
+        ab = checkout_ab(args.old.resolve(), stft, geometries, args.rounds,
+                         args.runs)
+        for name, times in ab.items():
+            result[name] = times
+            cs.log(f"time {name} against {args.old}, ms: " + json.dumps(
+                {k: [round(v, 4) for v in vs] for k, vs in times.items()}))
     if pairwise_x:
         # kernel 5 at both tile sides, alternating (device time): what
         # ops/pairwise.py:tile_size chooses between

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """What the compiler made of the kernel libraries: per kernel its SASS
 instruction count and local-memory loads and stores, and, against another
-build of the same library, whether each kernel's SASS is identical.
+build of the same library, whether each kernel's SASS is identical, or
+identical but for the constant-bank offsets of its parameters (a kernel
+whose parameter struct changed layout).
 
     python3 tools/kernel_sass.py build/tpuvae_torch/libstft_small-*.so
     python3 tools/kernel_sass.py NEW.so OLD.so    # e.g. OLD from a parent
@@ -43,6 +45,10 @@ def functions(lib: str) -> dict[str, list[str]]:
     return funcs
 
 
+def _masked(ins: list[str]) -> list[str]:
+    return [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][*]", i) for i in ins]
+
+
 def main() -> int:
     if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
@@ -55,7 +61,9 @@ def main() -> int:
         line = f"{len(ins):6d} instr  LDL {ldl:3d}  STL {stl:3d}  {name}"
         if old:
             line += ("  identical" if old.get(name) == ins else
-                     "  DIFFERENT" if name in old else "  (not in old)")
+                     "  (not in old)" if name not in old else
+                     "  identical but parameter offsets"
+                     if _masked(old[name]) == _masked(ins) else "  DIFFERENT")
         print(line)
     return 0
 

@@ -53,29 +53,8 @@
 // * The power-only entry (stats == nullptr) is the same kernel without the
 //   epilogue.
 //
-// n_fft 256 .. 1,792 run the register plan of csrc/stft_small.cu.  Every
-// larger size runs the general plan (stft_general_kernel), a simple kernel
-// that is right first:
-// * Still one warp per frame, but the frame's m = n_fft / 2 complex points
-//   live in the warp's shared memory (two planes, one pad word per 32), not
-//   in registers: m = 128 q holds an odd factor up to 23 and reaches 2,944
-//   points, 184 floats a lane.  The host factors m into radices (ops/stft.py
-//   _radix_plan: the odd primes first, then powers of two up to 16 and up to
-//   m / 32 so every lane has a butterfly) and tabulates the digit reversal
-//   and W_m^k in float64.  Lanes load points n = lane + 32 i coalesced (four
-//   in flight), window them and scatter each to its digit-reversed place;
-//   each stage then runs in place (a butterfly reads and writes the same
-//   points): power-of-two radices as the W_32 stages above, odd primes as
-//   direct DFTs with the points r and R - r paired.  The split, the
-//   statistics, the mel projection and the rolloff scan are the register
-//   plan's, over runtime bin counts, from the same buffer.
-// * Shared memory: the stored-type tile (up to 32 frames), 8 (m + m / 32)
-//   bytes a warp and the mel weights.  Two CTAs of 8 warps an SM where a tile
-//   of 8 or more frames fits 113 KB; else one CTA with the most warps that
-//   fit 227 KB (5 to 8 at n_fft 5,376 and up).  The carveout asks for that
-//   much and leaves the rest of the SM's 256 KB to L1 for the tables.
-// * Two instantiations by register class: radices up to 16 at 128 registers
-//   (two CTAs an SM), and the plans with an odd prime of 11 .. 23 at 255.
+// Kernel 1 has three plans, all in registers: n_fft 2048 here, 256 .. 1,792
+// in csrc/stft_small.cu, 2,304 .. 5,888 in csrc/stft_large.cuh.
 #include "stft_frame.cuh"
 
 namespace {
@@ -438,371 +417,32 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-
-// ---- the general plan: n_fft = 256 q, 9 <= q <= 23 -------------------------
-
-// A direct R-point DFT for odd R, the points r and R - r paired:
-// v_r W^(rk) + v_(R-r) W^(-rk) = c (v_r + v_(R-r)) + i s (v_r - v_(R-r))
-// with W^(rk) = c + i s, (wr, wi)[t] = W_R^t.
-// (wr, wi)[t] = W_R^t = tw_m[t m / R], read once a butterfly.
-template <int R>
-__device__ __forceinline__ void dft_odd(float (&re)[R], float (&im)[R],
-                                        const float2* __restrict__ tw_m,
-                                        int stride) {
-  constexpr int H = (R - 1) / 2;
-  float wr[R], wi[R];
-#pragma unroll
-  for (int t = 0; t < R; ++t) {
-    const float2 w = __ldg(tw_m + t * stride);
-    wr[t] = w.x;
-    wi[t] = w.y;
-  }
-  float sr[H], si[H], dr[H], di[H];
-  const float r0 = re[0], i0 = im[0];
-  float a0r = r0, a0i = i0;
-#pragma unroll
-  for (int r = 1; r <= H; ++r) {
-    sr[r - 1] = re[r] + re[R - r];
-    si[r - 1] = im[r] + im[R - r];
-    dr[r - 1] = re[r] - re[R - r];
-    di[r - 1] = im[r] - im[R - r];
-    a0r += sr[r - 1];
-    a0i += si[r - 1];
-  }
-  re[0] = a0r;
-  im[0] = a0i;
-#pragma unroll
-  for (int k = 1; k < R; ++k) {
-    float ar = r0, ai = i0;
-#pragma unroll
-    for (int r = 1; r <= H; ++r) {
-      const int t = (r * k) % R;
-      ar += wr[t] * sr[r - 1] - wi[t] * di[r - 1];
-      ai += wr[t] * si[r - 1] + wi[t] * dr[r - 1];
-    }
-    re[k] = ar;
-    im[k] = ai;
-  }
-}
-
-// One in-place decimation-in-time stage of radix R over a warp's frame:
-// blocks of L R points; butterfly (block, k1 < L) takes the points
-// base + r L, twiddles them by W_(L R)^(r k1) = W_m^(r k1 m / (L R)), runs
-// the R-point DFT and writes output k2 back to base + k2 L.  The points
-// it reads are the points it writes, so a stage needs no second buffer.
-// A lane reads the points of U butterflies before it computes any (they
-// are disjoint), so that their shared-memory loads are in flight together;
-// the block index is j / L in fp32 (exact: j < 2^12, and (j + 0.5) / L
-// stays 0.5 / L from an integer).
-template <int R>
-__device__ __forceinline__ void gen_stage(float* bre, float* bim, int m, int L,
-                                          const float2* __restrict__ tw_m,
-                                          int lane) {
-  constexpr int U = R <= 8 ? 8 / R : 1;
-  const int block = L * R;
-  const int tstep = m / block;
-  const int n_bfly = m / R;
-  const float inv_l = 1.0f / static_cast<float>(L);
-  for (int j0 = lane; j0 < n_bfly; j0 += 32 * U) {
-    float re[U][R], im[U][R];
-    int base[U], k1s[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = j0 + 32 * u;
-      const int blk = __float2int_rz((static_cast<float>(j) + 0.5f) * inv_l);
-      k1s[u] = j - blk * L;
-      base[u] = blk * block + k1s[u];
-      if (j < n_bfly) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          re[u][r] = bre[pad32(base[u] + r * L)];
-          im[u][r] = bim[pad32(base[u] + r * L)];
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (j0 + 32 * u >= n_bfly) break;
-      if (k1s[u] != 0) {
-#pragma unroll
-        for (int r = 1; r < R; ++r) {
-          const float2 w = __ldg(tw_m + r * k1s[u] * tstep);
-          const float ar = re[u][r], ai = im[u][r];
-          re[u][r] = ar * w.x - ai * w.y;
-          im[u][r] = ar * w.y + ai * w.x;
-        }
-      }
-      if constexpr (R % 2 == 1) {
-        dft_odd<R>(re[u], im[u], tw_m, m / R);
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          bre[pad32(base[u] + k * L)] = re[u][k];
-          bim[pad32(base[u] + k * L)] = im[u][k];
-        }
-      } else {
-        fftp2<R>(re[u], im[u]);
-        constexpr int kBits = Log2<R>::value;
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          bre[pad32(base[u] + k * L)] = re[u][brev_bits(k, kBits)];
-          bim[pad32(base[u] + k * L)] = im[u][brev_bits(k, kBits)];
-        }
-      }
-    }
-  }
-}
-
-// The plan's stages.  kLarge instantiates the odd radices 11 .. 23 as
-// well (n_fft 256 q for q = 11, 13, 17, 19, 22, 23): their butterflies
-// hold up to 23 points and their sums, so that kernel is given 255
-// registers (one CTA an SM; their shared memory allows no more); the rest
-// keep to 128 (two CTAs an SM).
-template <bool kLarge>
-__device__ __forceinline__ void gen_fft(float* bre, float* bim,
-                                        const Params& p, int lane) {
-  int L = 1;
-  for (long long code = p.plan; code != 0; code >>= 6) {
-    const int r = static_cast<int>(code & 63);
-    switch (r) {
-      case 2: gen_stage<2>(bre, bim, p.m, L, p.xtw, lane); break;
-      case 4: gen_stage<4>(bre, bim, p.m, L, p.xtw, lane); break;
-      case 8: gen_stage<8>(bre, bim, p.m, L, p.xtw, lane); break;
-      case 16: gen_stage<16>(bre, bim, p.m, L, p.xtw, lane); break;
-      case 3: gen_stage<3>(bre, bim, p.m, L, p.xtw, lane); break;
-      case 5: gen_stage<5>(bre, bim, p.m, L, p.xtw, lane); break;
-      case 7: gen_stage<7>(bre, bim, p.m, L, p.xtw, lane); break;
-      default:
-        if constexpr (kLarge) {
-          switch (r) {
-            case 11: gen_stage<11>(bre, bim, p.m, L, p.xtw, lane); break;
-            case 13: gen_stage<13>(bre, bim, p.m, L, p.xtw, lane); break;
-            case 17: gen_stage<17>(bre, bim, p.m, L, p.xtw, lane); break;
-            case 19: gen_stage<19>(bre, bim, p.m, L, p.xtw, lane); break;
-            default: gen_stage<23>(bre, bim, p.m, L, p.xtw, lane); break;
-          }
-        }
-        break;
-    }
-    __syncwarp();
-    L *= r;
-  }
-}
-
-template <typename TOut, bool kLarge>
-__global__ void __launch_bounds__(kThreads, kLarge ? 1 : 2)
-stft_general_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int m = p.m;
-  const int nb = m + 1;
-  const int row = nb + 1;
-  const int frames = p.frames;
-  const int n_warps = blockDim.x >> 5;
-  TOut* tile = reinterpret_cast<TOut*>(smem);            // [frames][row]
-  const size_t tile_bytes =
-      (static_cast<size_t>(frames) * row * sizeof(TOut) + 15) & ~size_t{15};
-  float* xbufs = reinterpret_cast<float*>(smem + tile_bytes);
-  const int plane_m = pad32(m);              // a padded plane of m points
-  float* melw = xbufs + static_cast<size_t>(n_warps) * 2 * plane_m;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = __shfl_sync(kFull, tid >> 5, 0);
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * frames;
-  const bool fused = p.stats != nullptr;
-
-  if (fused) {
-    for (int i = tid; i < p.mel_nnz; i += blockDim.x) melw[i] = p.mel_w[i];
-  }
-  __syncthreads();
-
-  const float* y = p.y + static_cast<long long>(b) * p.n_samples;
-  const long long n_s = p.n_samples;
-  const long long last_t = p.n_true - 1;
-  float* bre = xbufs + static_cast<size_t>(warp) * 2 * plane_m;
-  float* bim = bre + plane_m;
-  const float2* win2 = reinterpret_cast<const float2*>(p.window);
-  const long long plane = static_cast<long long>(gridDim.y) * p.n_frames;
-
-  for (int lf = warp; lf < frames; lf += n_warps) {
-    const int f = f0 + lf;
-    if (f >= p.n_frames) break;
-    const long long start =
-        static_cast<long long>(f) * p.hop - m + p.origin;
-    const bool interior = start >= 0 && start + 2 * m <= n_s;
-    const long long start_t = start - p.origin;
-
-    // ---- load point n = lane + 32 it (coalesced), zcr / rms, window, and
-    //      scatter to its digit-reversed position
-    float zcr, rms;
-    load_frame(
-        p, y, n_s, win2, start, start_t, last_t, interior, m, lane, fused,
-        [&](int n) { return pad32(__ldg(p.iperm + n)); },
-        [&](int, int pos, float a, float c) {
-          bre[pos] = a;
-          bim[pos] = c;
-        },
-        zcr, rms);
-    __syncwarp();
-    gen_fft<kLarge>(bre, bim, p, lane);
-
-    // ---- real-input split, in place: the lane of bin k also takes bin
-    //      m - k, so each reads and then overwrites its own two slots; the
-    //      powers land in bre at pad32(k) and, for the Nyquist bin, at
-    //      pad32(m), bim's first word
-    TOut* trow = tile + static_cast<size_t>(lf) * row;
-    float* pw = bre;
-    const int n_split = m / 2 + 1;               // bins 0 .. m / 2
-    for (int k0 = lane; k0 < n_split; k0 += 64) {
-      float zr[2], zi[2], mr[2], mi[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int k = k0 + 32 * u;
-        if (k < n_split) {
-          const int pk_i = pad32(k), pm_i = pad32(k == 0 ? 0 : m - k);
-          zr[u] = bre[pk_i];
-          zi[u] = bim[pk_i];
-          mr[u] = bre[pm_i];
-          mi[u] = bim[pm_i];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int k = k0 + 32 * u;
-        if (k >= n_split) break;
-        const int km = k == 0 ? 0 : m - k;
-        const float pk =
-            split_power(zr[u], zi[u], mr[u], mi[u], __ldg(p.twiddle + k));
-        if (k == 0) {
-          const float pm =
-              split_power(zr[u], zi[u], zr[u], zi[u], __ldg(p.twiddle + m));
-          pw[plane_m] = pm;
-          trow[m] = Tile<TOut>::cast(pm);
-        } else if (k != m / 2) {
-          const float pmk =
-              split_power(mr[u], mi[u], zr[u], zi[u], __ldg(p.twiddle + km));
-          pw[pad32(km)] = pmk;
-          trow[km] = Tile<TOut>::cast(pmk);
-        }
-        pw[pad32(k)] = pk;
-        trow[k] = Tile<TOut>::cast(pk);
-      }
-    }
-    __syncwarp();
-    if (!fused) continue;
-    frame_epilogue(pw, nb, p, melw, b, f, zcr, rms, lane, plane);
-  }
-  __syncthreads();
-  store_power_tile<TOut>(tile, frames, row, nb, p, b, f0, warp, n_warps,
-                         lane);
-}
-
-size_t general_smem(const Params& p, int frames, int warps, size_t out_size) {
-  const size_t tile = (static_cast<size_t>(frames) * (p.m + 2) * out_size +
-                       15) & ~size_t{15};
-  const size_t plane = p.m + p.m / 32;
-  return tile + sizeof(float) * (static_cast<size_t>(warps) * 2 * plane +
-                                 static_cast<size_t>(p.mel_nnz));
-}
-
-// Two CTAs of 8 warps an SM where a tile of at least 8 frames allows it;
-// else one CTA with the most warps (then the largest tile) that fit.
-template <typename TOut, bool kLarge>
-int launch_general(Params p, int batch, cudaStream_t stream) {
-  int frames = 0, warps = 0;
-  for (int f = Tile<TOut>::kFrames; f >= 8 && frames == 0 && !kLarge;
-       f /= 2) {
-    if (general_smem(p, f, kWarps, sizeof(TOut)) <= kSmemTwoCtas) {
-      frames = f;
-      warps = kWarps;
-    }
-  }
-  if (frames == 0) {
-    for (int f = Tile<TOut>::kFrames; f >= 1; f /= 2) {
-      int w = f < kWarps ? f : kWarps;
-      while (w > warps && general_smem(p, f, w, sizeof(TOut)) > kSmemPerCta) {
-        --w;
-      }
-      if (w > warps) {
-        frames = f;
-        warps = w;
-      }
-    }
-  }
-  if (frames == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = general_smem(p, frames, warps, sizeof(TOut));
-  p.frames = frames;
-  const auto kernel = stft_general_kernel<TOut, kLarge>;
-  // the shared memory the resident CTAs take and no more: the rest stays L1
-  // for the twiddles, window, digit reversal and freqs
-  const size_t resident = (warps == kWarps && smem <= kSmemTwoCtas ? 2 : 1) *
-                          (smem + 1024);
-  const cudaError_t err = set_smem(kernel, smem, resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.n_frames + frames - 1) / frames, batch);
-  kernel<<<grid, 32 * warps, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool radix_supported(int r) {
-  switch (r) {
-    case 2: case 4: case 8: case 16: case 3: case 5: case 7: case 11:
-    case 13: case 17: case 19: case 23:
-      return true;
-    default:
-      return false;
-  }
-}
-
 }  // namespace
 
 // y (batch, n_samples) fp32, or rows padded by n_fft / 2 a side with the
 // true samples from `origin` on (n_true of them); window (n_fft,), twiddle
-// (m + 1, 2) fp32 with m = n_fft / 2; xtw (32, 32, 2) for the register plan
-// (n_fft 2048), else (m, 2) with iperm (m,) int32 and the radices packed 6
-// bits each in `plan` (any other size; n_fft <= 1,792 runs
-// tpuvae_stft_small); freqs (m + 1,) fp32; mel_w (mel_nnz,) fp32 with
-// mel_meta (n_mels, 3) int32 = first bin, one past the last, offset into
-// mel_w; power (batch, m + 1, n_frames) bf16 or fp32; mel (batch, n_mels,
-// n_frames) and stats (6, batch, n_frames) fp32, both null for the
-// power-only entry.
+// (m + 1, 2) fp32 with m = n_fft / 2; xtw (32, 32, 2); freqs (m + 1,) fp32;
+// mel_w (mel_nnz,) fp32 with mel_meta (n_mels, 3) int32 = first bin, one
+// past the last, offset into mel_w; power (batch, m + 1, n_frames) bf16 or
+// fp32; mel (batch, n_mels, n_frames) and stats (6, batch, n_frames) fp32,
+// both null for the power-only entry.  Any n_fft but 2048 is refused.
 extern "C" int tpuvae_stft_features(
     const void* y, long long batch, long long n_samples, long long origin,
     long long n_true, int n_fft, int hop, int n_frames, const void* window,
-    const void* twiddle, const void* xtw, const void* iperm, long long plan,
-    const void* freqs, const void* mel_w, const void* mel_meta, int n_mels,
-    int mel_nnz, void* power, int power_bf16, void* mel, void* stats,
-    void* stream) {
+    const void* twiddle, const void* xtw, const void* freqs,
+    const void* mel_w, const void* mel_meta, int n_mels, int mel_nnz,
+    void* power, int power_bf16, void* mel, void* stats, void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
   Params p;
   const int bad = make_params(p, y, batch, n_samples, origin, n_true, n_fft,
-                              hop, n_frames, window, twiddle, xtw, iperm,
-                              plan, freqs, mel_w, mel_meta, n_mels, mel_nnz,
-                              power, mel, stats);
+                              hop, n_frames, window, twiddle, xtw, freqs,
+                              mel_w, mel_meta, n_mels, mel_nnz, power, mel,
+                              stats);
   if (bad != 0) return bad;
+  if (n_fft != kN) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_fft == kN) {
-    return power_bf16 ? launch<__nv_bfloat16>(p, static_cast<int>(batch), s)
-                      : launch<float>(p, static_cast<int>(batch), s);
-  }
-  long long prod = 1;
-  bool large = false;
-  for (long long code = plan; code != 0; code >>= 6) {
-    const int r = static_cast<int>(code & 63);
-    if (!radix_supported(r)) return static_cast<int>(cudaErrorInvalidValue);
-    prod *= r;
-    large = large || r >= 11;
-  }
-  if (prod != p.m || iperm == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int nb = static_cast<int>(batch);
-  if (large) {
-    return power_bf16 ? launch_general<__nv_bfloat16, true>(p, nb, s)
-                      : launch_general<float, true>(p, nb, s);
-  }
-  return power_bf16 ? launch_general<__nv_bfloat16, false>(p, nb, s)
-                    : launch_general<float, false>(p, nb, s);
+  return power_bf16 ? launch<__nv_bfloat16>(p, static_cast<int>(batch), s)
+                    : launch<float>(p, static_cast<int>(batch), s);
 }
 
 extern "C" const char* tpuvae_error_string(int code) {

@@ -47,9 +47,8 @@ struct Params {
   const float2* twiddle;   // (m + 1,) exp(-2 pi i k / n_fft): the split
   const float2* xtw;       // 2048: (32, 32) [k1][l] exp(-2 pi i l k1 / 1024);
                            // m = 32 r: (r + 5, 32), exp(-2 pi i l k1 / m)
-                           // then the lane twiddles; shared: (m,)
-                           // exp(-2 pi i k / m)
-  const int* iperm;        // shared plan: (m,) position of point n
+                           // then the lane twiddles; m = 128 q:
+                           // (128 q + 288), stft_large.cuh's twiddles
   const float* freqs;      // (n_bins,) bin centre frequencies
   const float* mel_w;      // (mel_nnz,) each filter's non-zero weights
   const int* mel_meta;     // (n_mels, 3) first bin, one past last, offset
@@ -65,10 +64,13 @@ struct Params {
   int n_mels;
   int mel_nnz;
   int vec2;                // frames start 8-byte aligned
-  int m;                   // complex points, n_fft / 2
-  int frames;              // frames a CTA (a power of two <= 32)
-  long long plan;          // shared plan: the radices, 6 bits each
+  // No plan reads these 8 bytes, but without them (Params 128 B) ptxas
+  // spilled at the 128-register bound in 29 of the 46 kernels and the group
+  // plan ran up to 16% slower on an H100.  Keep the size, or compare each
+  // kernel's SASS with tools/kernel_sass.py after a change here.
+  int pad[2] = {0, 0};
 };
+static_assert(sizeof(Params) == 136, "the size the plans were tuned at");
 
 // The C entry points' arguments, checked, as Params; returns 0 or a CUDA
 // error code.
@@ -76,10 +78,9 @@ inline int make_params(Params& p, const void* y, long long batch,
                        long long n_samples, long long origin,
                        long long n_true, int n_fft, int hop, int n_frames,
                        const void* window, const void* twiddle,
-                       const void* xtw, const void* iperm, long long plan,
-                       const void* freqs, const void* mel_w,
-                       const void* mel_meta, int n_mels, int mel_nnz,
-                       void* power, void* mel, void* stats) {
+                       const void* xtw, const void* freqs,
+                       const void* mel_w, const void* mel_meta, int n_mels,
+                       int mel_nnz, void* power, void* mel, void* stats) {
   if (batch > 65535 || hop <= 0 || mel_nnz < 0 || mel_nnz > 16384 ||
       n_fft < 256 || n_fft > 5888 || n_fft % 256 != 0 || origin < 0 ||
       n_true <= 0 || origin + n_true > n_samples) {
@@ -89,7 +90,6 @@ inline int make_params(Params& p, const void* y, long long batch,
   p.window = static_cast<const float*>(window);
   p.twiddle = static_cast<const float2*>(twiddle);
   p.xtw = static_cast<const float2*>(xtw);
-  p.iperm = static_cast<const int*>(iperm);
   p.freqs = static_cast<const float*>(freqs);
   p.mel_w = static_cast<const float*>(mel_w);
   p.mel_meta = static_cast<const int*>(mel_meta);
@@ -105,9 +105,6 @@ inline int make_params(Params& p, const void* y, long long batch,
   p.mel_nnz = stats != nullptr ? mel_nnz : 0;
   p.vec2 = ((n_samples | hop | origin) & 1) == 0 &&
            reinterpret_cast<uintptr_t>(y) % 8 == 0;
-  p.m = n_fft / 2;
-  p.frames = 0;
-  p.plan = plan;
   return 0;
 }
 
@@ -148,12 +145,6 @@ __host__ __device__ constexpr int brev5(int k) {
          ((k & 16) >> 4);
 }
 
-__host__ __device__ constexpr int brev_bits(int k, int bits) {
-  int r = 0;
-  for (int i = 0; i < bits; ++i) r |= ((k >> i) & 1) << (bits - 1 - i);
-  return r;
-}
-
 template <int R>
 struct Log2 {
   static constexpr int value = 1 + Log2<R / 2>::value;
@@ -163,8 +154,8 @@ struct Log2<1> {
   static constexpr int value = 0;
 };
 
-// A frame's points sit one word of padding per 32 apart, so that the
-// first stage's reads at a stride of the radix spread over the 32 banks.
+// One word of padding per 32: a padded power row or plane read at a stride
+// of 32 or more words spreads over the 32 banks.
 __device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
 
 // One radix-2 decimation-in-frequency stage of an R-point FFT held in
@@ -265,17 +256,15 @@ __device__ __forceinline__ void lane_fft32(float (&re)[R], float (&im)[R],
 // lies inside the row.  With the epilogue it counts the zero crossings
 // (pairs inside the true samples, which start at start_t and end at
 // last_t: librosa's edges) and sums the squares for rms.  Each windowed
-// point goes to put(it, pos(n), re, im); pos is read with the loads.  The
-// loop unrolls where m is a compile-time constant (the points then stay in
-// registers) and not at all where it is not, as the shared-memory plan's
-// own loop did.  A warp's frame gets zcr and rms; a group's frame gets its
-// warp's crossings and sum of squares, which the group adds up.
-template <int kStride = 32, typename Pos, typename Put>
+// point goes to put(it, re, im); m is a compile-time constant, so the loop
+// unrolls and the points stay in registers.  A warp's frame gets zcr and
+// rms; a group's frame gets its warp's crossings and sum of squares, which
+// the group adds up.
+template <int kStride = 32, typename Put>
 __device__ __forceinline__ void load_frame(
     const Params& p, const float* y, long long n_s, const float2* win2,
     long long start, long long start_t, long long last_t, bool interior,
-    int m, int thread, bool fused, Pos pos, Put put, float& zcr,
-    float& rms) {
+    int m, int thread, bool fused, Put put, float& zcr, float& rms) {
   const int lane = kStride == 32 ? thread : (thread & 31);
   float sumsq = 0.0f;
   int crossings = 0, prev_sign = 0;
@@ -283,7 +272,6 @@ __device__ __forceinline__ void load_frame(
   for (int it0 = 0; it0 < m / kStride; it0 += 4) {
     float av[4], cv[4];
     float2 wv[4];
-    int posv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       if (kStride != 32 && it0 + u >= m / kStride) break;
@@ -298,7 +286,6 @@ __device__ __forceinline__ void load_frame(
         cv[u] = (s0 + 1 >= 0 && s0 + 1 < n_s) ? __ldg(y + s0 + 1) : 0.0f;
       }
       wv[u] = __ldg(win2 + n);
-      posv[u] = pos(n);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -335,7 +322,7 @@ __device__ __forceinline__ void load_frame(
           }
         }
       }
-      put(it, posv[u], a * wv[u].x, c * wv[u].y);
+      put(it, a * wv[u].x, c * wv[u].y);
     }
   }
   zcr = 0.0f;

@@ -6,10 +6,8 @@
 // instantiate it for five sizes each, so that they build in parallel.
 //
 // A frame's m = n_fft / 2 = 128 q complex points stay in the registers of
-// 128 threads, q a thread, from the load to the split; the shared-memory
-// plan's scatter, its radix stages and their per-butterfly twiddle reads are
-// gone.  The four-step split m = q x 128, the group's thread t = 32 w + l as
-// the 128-point axis:
+// 128 threads, q a thread, from the load to the split.  The four-step split
+// m = q x 128, the group's thread t = 32 w + l as the 128-point axis:
 //
 // 1. Load: thread t takes points n = t + 128 j, j < q (the shared loader of
 //    stft_frame.cuh at a stride of 128: coalesced 8-byte loads, four in
@@ -32,11 +30,11 @@
 //    then holds X[k1 + q (c + 4 brev5(l))] and stores it at pad32 of that bin
 //    (natural order: at most two-way bank conflicts, three-way at q = 15).
 // 5. Group barrier; the real-input split in place over 128 threads (bin k
-//    and its partner m - k: the shared plan's loop), the powers to the
-//    plane and to the CTA's stored-type tile; group barrier; the group
-//    epilogue of stft_frame.cuh (two more barriers); the T-contiguous store
-//    of stft_frame.cuh.  A group barrier before pass A's stores keeps the
-//    next frame off the plane until the epilogue has read it.
+//    and its partner m - k), the powers to the plane and to the CTA's
+//    stored-type tile; group barrier; the group epilogue of stft_frame.cuh
+//    (two more barriers); the T-contiguous store of stft_frame.cuh.  A group
+//    barrier before pass A's stores keeps the next frame off the plane until
+//    the epilogue has read it.
 //
 // Every thread of a group takes the same frames and the same branches, so
 // every group barrier is reached by all 128; the group and the warp in it
@@ -484,8 +482,7 @@ stft_large_kernel(Params p) {
     float crossings, sumsq;
     load_frame<kGroupThreads>(
         p, y, n_s, win2, start, start - p.origin, p.n_true - 1, interior, m,
-        gt, fused, [](int) { return 0; },
-        [&](int it, int, float a, float c) {
+        gt, fused, [&](int it, float a, float c) {
           re[it] = a;
           im[it] = c;
         },
@@ -585,7 +582,7 @@ size_t group_smem(int groups, int mel_nnz) {
 // Two CTAs of two groups (8 warps) an SM where one takes at most 113 KB;
 // else one CTA of the most groups, up to four, that fit 227 KB.
 template <typename TOut, int Q>
-int launch_large(Params p, int batch, cudaStream_t stream) {
+int launch_large(const Params& p, int batch, cudaStream_t stream) {
   constexpr int frames = GroupTile<TOut>::kFrames;
   int groups = 2;
   size_t smem = group_smem<TOut, Q>(groups, p.mel_nnz);
@@ -597,7 +594,6 @@ int launch_large(Params p, int batch, cudaStream_t stream) {
     }
     if (groups == 0) return static_cast<int>(cudaErrorInvalidValue);
   }
-  p.frames = frames;
   const auto kernel = stft_large_kernel<TOut, Q>;
   const size_t resident = (two ? 2 : 1) * (smem + 1024);
   const cudaError_t err = set_smem(kernel, smem, resident);
@@ -616,23 +612,23 @@ int launch_q(const Params& p, bool bf16, int batch, cudaStream_t stream) {
 // tpuvae_stft_features's arguments (csrc/stft_features.cu) at n_fft = 256 q,
 // q = 9 .. 23: xtw (128 q + 288, 2) fp32, rows k1 < q of 128 the pass-A
 // twiddles exp(-2 pi i t k1 / m), then (4, 32) exp(-2 pi i l c / 128) and
-// the (5, 32) lane twiddles of the five stages; iperm and plan unused.
+// the (5, 32) lane twiddles of the five stages.
 // `launch(q, ...)` runs the sizes of one translation unit and refuses the
 // rest.
 template <typename Launch>
 int large_entry(const void* y, long long batch, long long n_samples,
                 long long origin, long long n_true, int n_fft, int hop,
                 int n_frames, const void* window, const void* twiddle,
-                const void* xtw, const void* iperm, long long plan,
-                const void* freqs, const void* mel_w, const void* mel_meta,
-                int n_mels, int mel_nnz, void* power, int power_bf16,
-                void* mel, void* stats, void* stream, Launch launch) {
+                const void* xtw, const void* freqs, const void* mel_w,
+                const void* mel_meta, int n_mels, int mel_nnz, void* power,
+                int power_bf16, void* mel, void* stats, void* stream,
+                Launch launch) {
   if (batch <= 0 || n_frames <= 0) return 0;
   Params p;
   const int bad = make_params(p, y, batch, n_samples, origin, n_true, n_fft,
-                              hop, n_frames, window, twiddle, xtw, iperm,
-                              plan, freqs, mel_w, mel_meta, n_mels, mel_nnz,
-                              power, mel, stats);
+                              hop, n_frames, window, twiddle, xtw, freqs,
+                              mel_w, mel_meta, n_mels, mel_nnz, power, mel,
+                              stats);
   if (bad != 0) return bad;
   return launch(n_fft / 256, p, power_bf16 != 0, static_cast<int>(batch),
                 static_cast<cudaStream_t>(stream));

@@ -8,14 +8,13 @@
 extern "C" int tpuvae_stft_large_c(
     const void* y, long long batch, long long n_samples, long long origin,
     long long n_true, int n_fft, int hop, int n_frames, const void* window,
-    const void* twiddle, const void* xtw, const void* iperm, long long plan,
-    const void* freqs, const void* mel_w, const void* mel_meta, int n_mels,
-    int mel_nnz, void* power, int power_bf16, void* mel, void* stats,
-    void* stream) {
+    const void* twiddle, const void* xtw, const void* freqs,
+    const void* mel_w, const void* mel_meta, int n_mels, int mel_nnz,
+    void* power, int power_bf16, void* mel, void* stats, void* stream) {
   return large_entry(
       y, batch, n_samples, origin, n_true, n_fft, hop, n_frames, window,
-      twiddle, xtw, iperm, plan, freqs, mel_w, mel_meta, n_mels, mel_nnz,
-      power, power_bf16, mel, stats, stream,
+      twiddle, xtw, freqs, mel_w, mel_meta, n_mels, mel_nnz, power,
+      power_bf16, mel, stats, stream,
       [](int q, const Params& p, bool bf16, int n_clips,
          cudaStream_t s) {
         switch (q) {

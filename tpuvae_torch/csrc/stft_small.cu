@@ -4,9 +4,8 @@
 // the sizes whose frame one warp's registers hold.
 //
 // A frame's m = n_fft / 2 = 32 r complex points (r = 4 q <= 28) stay in
-// registers from the load to the split; the shared-memory plan's scatter,
-// its in-place stages and their per-butterfly twiddle reads are gone.  The
-// four-step split m = r x 32, the lane index as the 32-point axis:
+// registers from the load to the split.  The four-step split m = r x 32,
+// the lane index as the 32-point axis:
 //
 // 1. Load: lane l takes points n = l + 32 j, j < r (the shared loader of
 //    stft_frame.cuh: coalesced 8-byte loads, four in flight, zcr and rms).
@@ -28,8 +27,7 @@
 //    of lane brev5((32 - brev5(l)) & 31).  The powers go once to the warp's
 //    padded fp32 row (bin k at pad32(k): at most two-way bank conflicts at
 //    every r), then, in bin order, to the CTA's stored-type tile; the
-//    epilogue and the T-contiguous store are stft_frame.cuh's, the
-//    shared-memory plan's.
+//    epilogue and the T-contiguous store are stft_frame.cuh's.
 //
 // Budgets: __launch_bounds__(256, 2) holds each instantiation to 128
 // registers (56 data floats at r = 28), so two CTAs of 8 warps share an SM;
@@ -269,8 +267,7 @@ stft_register_kernel(Params p) {
     float zcr, rms;
     load_frame(
         p, y, n_s, win2, start, start - p.origin, p.n_true - 1, interior, m,
-        lane, fused, [](int) { return 0; },
-        [&](int it, int, float a, float c) {
+        lane, fused, [&](int it, float a, float c) {
           re[it] = a;
           im[it] = c;
         },
@@ -325,13 +322,12 @@ stft_register_kernel(Params p) {
 
 // One CTA of 8 warps a `frames`-frame tile; two share an SM.
 template <typename TOut, int R>
-int launch_register(Params p, int batch, cudaStream_t stream) {
+int launch_register(const Params& p, int batch, cudaStream_t stream) {
   constexpr int frames = Tile<TOut>::kFrames;
   const size_t smem = register_tile_bytes<TOut, R>() +
                       sizeof(float) * (static_cast<size_t>(kWarps) *
                                            PowerRow<R>::kLen +
                                        static_cast<size_t>(p.mel_nnz));
-  p.frames = frames;
   const auto kernel = stft_register_kernel<TOut, R>;
   const size_t resident = (smem <= kSmemTwoCtas ? 2 : 1) * (smem + 1024);
   const cudaError_t err = set_smem(kernel, smem, resident);
@@ -352,20 +348,19 @@ int launch_size(const Params& p, bool bf16, int batch, cudaStream_t stream) {
 // tpuvae_stft_features's arguments (csrc/stft_features.cu) at n_fft = 256 q,
 // q = 1 .. 7: xtw (r + 5, 32, 2) fp32 with r = n_fft / 64, rows k1 < r
 // exp(-2 pi i l k1 / m) and rows r .. r + 4 the lane twiddles of the five
-// stages; iperm and plan unused.  Any other n_fft is refused.
+// stages.  Any other n_fft is refused.
 extern "C" int tpuvae_stft_small(
     const void* y, long long batch, long long n_samples, long long origin,
     long long n_true, int n_fft, int hop, int n_frames, const void* window,
-    const void* twiddle, const void* xtw, const void* iperm, long long plan,
-    const void* freqs, const void* mel_w, const void* mel_meta, int n_mels,
-    int mel_nnz, void* power, int power_bf16, void* mel, void* stats,
-    void* stream) {
+    const void* twiddle, const void* xtw, const void* freqs,
+    const void* mel_w, const void* mel_meta, int n_mels, int mel_nnz,
+    void* power, int power_bf16, void* mel, void* stats, void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
   Params p;
   const int bad = make_params(p, y, batch, n_samples, origin, n_true, n_fft,
-                              hop, n_frames, window, twiddle, xtw, iperm,
-                              plan, freqs, mel_w, mel_meta, n_mels, mel_nnz,
-                              power, mel, stats);
+                              hop, n_frames, window, twiddle, xtw, freqs,
+                              mel_w, mel_meta, n_mels, mel_nnz, power, mel,
+                              stats);
   if (bad != 0) return bad;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = power_bf16 != 0;

@@ -22,15 +22,13 @@ tensor the plain PyTorch version does (``torch.fft.rfft`` on framed input
 plus the staged features of :mod:`tpuvae_torch.dsp.features`).  Kernel 1
 takes the geometries of the JAX kernel (:func:`stft_kernel_supports`):
 every ``n_fft = 256 q``, ``q = 1 .. 23``, with any hop that divides it.
-:func:`kernel_plan` names the plan a size runs: n_fft 256 .. 1,792 a
-register plan of ``m = 32 r`` points (``csrc/stft_small.cu``), 2048 the
-radix-32 x 32 register plan, every larger size a register plan of ``m =
-128 q`` points over a group of four warps (``csrc/stft_large.cuh``).  The
-mixed-radix plan in shared memory that ran those sizes before
-(:func:`_radix_plan`, :func:`_general_tables`) stays in the tree, run by no
-size.  A non-constant
-``pad_mode`` is applied here, on the card, and the kernel reads the padded
-signal, as the JAX wrappers pad on the host.
+:func:`kernel_plan` names the plan a size runs, each in registers: n_fft
+256 .. 1,792 a plan of ``m = 32 r`` points (``csrc/stft_small.cu``), 2048
+the radix-32 x 32 plan (``csrc/stft_features.cu``), every larger size a
+plan of ``m = 128 q`` points over a group of four warps
+(``csrc/stft_large.cuh``).  A non-constant ``pad_mode`` is applied here,
+on the card, and the kernel reads the padded signal, as the JAX wrappers
+pad on the host.
 
 Kernel 4 (``csrc/stft_dense.cu``) is the counterpart of
 ``tpuvae/ops/stft.py``'s ``stft_power_pallas``: the same power spectrogram
@@ -53,17 +51,15 @@ from tpuvae_torch.ops import _build
 KERNEL_MAX_N_FFT = 5888   # 256 x 23: the largest size of the JAX kernel
 _REGISTER_PLAN_N_FFT = 2048   # the radix-32 x 32 register plan's size
 _REGISTER_R_MAX_N_FFT = 1792  # r = m / 32 <= 28: one warp's registers
-_POW2_RADICES = (16, 8, 4, 2)
-_ODD_RADICES = (3, 5, 7, 11, 13, 17, 19, 23)   # the primes of q <= 23
 
 STFT_FEATURES = _build.Kernel(
     "stft_features", "stft_features", "tpuvae_stft_features",
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p])
 # the register plan of n_fft 256 .. 1,792 (its own library, built in
 # parallel): the same C signature, counted under the same name
 STFT_SMALL = _build.Kernel("stft_features", "stft_small", "tpuvae_stft_small",
@@ -107,9 +103,8 @@ def stft_kernel_supports(n_fft: int, hop_length: int) -> bool:
     ``tpuvae.ops.stft.ct_pallas_supports``: ``256 | n_fft`` with
     ``n_fft <= 5888`` (the JAX kernel's largest size: its VMEM model takes
     5888 at hops 1-8 and refuses every larger size) and ``hop | n_fft``.
-    Every hop is taken: a warp reads its frame from the waveform wherever
-    it starts, so only the shared-memory plan, which depends on ``n_fft``
-    alone, bounds it."""
+    Every hop is taken: each plan reads its frames from the waveform
+    wherever they start, so only ``n_fft`` bounds the kernel."""
     return (256 <= n_fft <= KERNEL_MAX_N_FFT and n_fft % 256 == 0
             and hop_length > 0 and n_fft % hop_length == 0)
 
@@ -210,57 +205,6 @@ def _fft_tables(n_fft: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     lk = np.outer(np.arange(32, dtype=np.float64), np.arange(32))
     return (prim.hann_window(n_fft), _unit(-2.0 * np.pi * k / n_fft),
             _unit(-2.0 * np.pi * lk / m))
-
-
-def _radix_plan(m: int) -> tuple[int, ...]:
-    """The radices of the mixed-radix plan of an ``m``-point complex FFT,
-    ``m = 128 q``: the odd primes of ``m`` first (their first-stage
-    reads, at an odd stride, take 32 banks), then powers of two no larger
-    than 16 nor than ``m / 32``, so that every stage has a butterfly for
-    each lane."""
-    plan, rest = [], m
-    for p in _ODD_RADICES:
-        while rest % p == 0:
-            plan.append(p)
-            rest //= p
-    cap = max(r for r in _POW2_RADICES if r <= max(2, m // 32))
-    while rest > 1:
-        r = max(x for x in _POW2_RADICES if x <= cap and rest % x == 0)
-        plan.append(r)
-        rest //= r
-    if int(np.prod(plan)) != m:
-        raise ValueError(f"no radix plan for a {m}-point FFT")
-    return tuple(plan)
-
-
-def _digit_reversal(plan: tuple[int, ...]) -> np.ndarray:
-    """``perm[i]``: the input point that position ``i`` holds before the
-    in-place decimation-in-time stages of ``plan`` (last radix outermost:
-    position ``r L + i'`` holds point ``r + R perm_L[i']``)."""
-    perm = np.zeros(1, np.int64)
-    for radix in plan:
-        perm = (np.arange(radix)[:, None] + radix * perm[None, :]).reshape(-1)
-    return perm
-
-
-def _general_tables(n_fft: int):
-    """Host tables of kernel 1's mixed-radix plan in shared memory (which no
-    size runs; its emulation test holds it), built in float64 and cast to
-    fp32: the periodic Hann window; the split
-    twiddles ``exp(-2 pi i k / n_fft)``, ``k = 0 .. m``; the ``m``-point
-    twiddles ``exp(-2 pi i k / m)``, ``k < m`` (every stage's and every
-    odd radix's, by stride); the inverse digit reversal as int32 (point
-    ``n`` goes to position ``iperm[n]``); and the plan packed 6 bits a
-    radix, first stage lowest."""
-    m = n_fft // 2
-    plan = _radix_plan(m)
-    iperm = np.empty(m, np.int32)
-    iperm[_digit_reversal(plan)] = np.arange(m, dtype=np.int32)
-    code = sum(r << (6 * s) for s, r in enumerate(plan))
-    return (prim.hann_window(n_fft),
-            _unit(-2.0 * np.pi * np.arange(m + 1, dtype=np.float64) / n_fft),
-            _unit(-2.0 * np.pi * np.arange(m, dtype=np.float64) / m),
-            iperm, code)
 
 
 def _lane_angles() -> np.ndarray:
@@ -386,7 +330,7 @@ def _launch(y: torch.Tensor, n_fft: int, hop_length: int,
     p = lambda x: null if x is None else _build.ptr(x)  # noqa: E731
     plan_kernel(n_fft)(
         _build.ptr(buf), b, buf.shape[1], origin, n_samples, n_fft,
-        hop_length, t, p(window), p(tw), p(xtw), null, 0, p(freqs),
+        hop_length, t, p(window), p(tw), p(xtw), p(freqs),
         p(mel_w), p(mel_meta), n_mels, 0 if mel_w is None else mel_w.numel(),
         p(power), int(power_dtype == torch.bfloat16), p(mel), p(stats),
         _build.stream_ptr(dev))
